@@ -1,0 +1,103 @@
+"""Build the CUDA C++ kernels into one shared library and load it.
+
+The sources under ``csrc/`` have a plain C interface (no PyTorch headers),
+so ``nvcc`` takes seconds.  Each source is compiled by its own ``nvcc``
+process, all started together, then linked into
+``build/libl2l_kernels_<hash>.so`` at the repository root; the hash covers
+the sources and flags, so a changed source rebuilds and an unchanged one
+is loaded as it is.  ``ptxas`` reports (registers, shared memory, spills)
+are kept beside the library in ``build/*.ptxas.log``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("relay_copy.cu", "flash_attention.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+_F32 = ctypes.c_float
+# C entry points and their argument types (every pointer and stream is
+# c_void_p: ctypes would otherwise pass a 32-bit int and cut the pointer)
+SIGNATURES = {
+    "rc_copy_rows": (_P, _P, _I64, _I64, ctypes.POINTER(_I64), _I32, _I32,
+                     _I32, _P),                 # n_chunks blocks bulk stream
+    "fa_fwd": (_P, _P, _P, _P, _P,                       # q k v o lse
+               _I32, _I32, _I32, _I32, _I32, _I32,       # B H Hkv Sq Sk D
+               ctypes.POINTER(_I64),                     # 12 strides
+               _F32, _I32, _I32, _F32, _I32, _P),        # scale causal
+}                                                        # window cap bf16 st
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found (looked on PATH and in {home})")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cc = nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = Path(tmp) / (name + ".o")
+            procs.append((name, obj, subprocess.Popen(
+                [cc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, _, p in procs:
+            log = p.communicate()[0]
+            (BUILD_DIR / f"{name}.ptxas.log").write_text(log)
+            if p.returncode:
+                failed.append(f"--- {name} ---\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = Path(tmp) / out.name
+        link = subprocess.run(
+            [cc, "-shared", "-o", str(so), *(str(o) for _, o, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        os.replace(so, out)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if the sources changed."""
+    out = BUILD_DIR / f"libl2l_kernels_{_digest()}.so"
+    if not out.exists():
+        _build(out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err}")

@@ -1,0 +1,94 @@
+"""K2, flash-attention forward, in CUDA C++ (``csrc/flash_attention.cu``).
+
+Replaces ``_fa_kernel`` / ``flash_attention_fwd_bhsd`` of
+``repro/kernels/flash_attention.py``: online-softmax attention that keeps
+the score matrix on chip and returns ``o`` and the per-row ``lse``.  One
+block per (b*h, 64-row q tile), a loop over 32-key tiles in place of the
+TPU's sequential nK grid axis, tiles wholly masked by causal/window
+skipped.  Bound on an H100: operations at prefill lengths; this first
+version computes in f32 on the CUDA cores (see the source note), so it
+sits far from that bound.
+
+The backward (K3) and with it the ``torch.autograd.Function`` come with
+training; a CUDA call whose inputs require a gradient raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import ref_attention
+
+__all__ = ["flash_attention_fwd_bhsd", "flash_attention_fwd_bhsd_plain"]
+
+_HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention_fwd_bhsd_plain(q, k, v, *, causal=True, window=0,
+                                   soft_cap=0.0, block_q=128, block_k=128):
+    """Plain version: q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (o, lse)."""
+    return ref_attention(q, k, v, causal=causal, window=window,
+                         soft_cap=soft_cap)
+
+
+def _check(q, k, v):
+    B, H, Sq, D = q.shape
+    if k.shape != v.shape or k.dim() != 4 or k.shape[0] != B \
+            or k.shape[3] != D or H % k.shape[1]:
+        raise ValueError(f"flash attention: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if not (q.device == k.device == v.device) or q.device.type != "cuda":
+        raise ValueError("flash attention: q, k, v must share one CUDA device")
+    if not (q.dtype == k.dtype == v.dtype) or \
+            q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash attention: dtypes {q.dtype}, {k.dtype}, "
+                         f"{v.dtype} (f32 or bf16, all alike)")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash attention: head dim {D} not in {_HEAD_DIMS}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash attention: the head dim must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash attention: no backward kernel yet "
+                           "(inputs require grad)")
+    if B * H > 65535:
+        raise ValueError(f"flash attention: B*H = {B * H} blocks too many")
+
+
+def flash_attention_fwd_bhsd(q, k, v, *, causal=True, window=0,
+                             soft_cap=0.0, block_q=128, block_k=128):
+    """q (B,H,Sq,D), k/v (B,Hkv,Sk,D) with Hkv dividing H (GQA: the kernel
+    reads KV head h // (H/Hkv)) -> (o (B,H,Sq,D) in q's dtype,
+    lse (B,H,Sq) f32).  Inputs may be strided views (D contiguous).
+    ``block_q``/``block_k`` keep the reference's tiling contract."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    block_q, block_k = min(block_q, Sq), min(block_k, Sk)
+    assert Sq % block_q == 0 and Sk % block_k == 0, \
+        f"seq ({Sq},{Sk}) must tile by ({block_q},{block_k})"
+    if q.device.type == "cpu" and k.device.type == "cpu" \
+            and v.device.type == "cpu":
+        return flash_attention_fwd_bhsd_plain(
+            q, k, v, causal=causal, window=window, soft_cap=soft_cap)
+    _check(q, k, v)
+    # o is allocated (B, S, H, D) — the model's layout — and written
+    # through strides; callers get the (B, H, S, D) view
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
+                                      for s in t.stride()[:3]))
+    err = build.library().fa_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, H, k.shape[1], Sq, Sk, D, strides,
+        1.0 / math.sqrt(D), int(causal), int(window), float(soft_cap),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "fa_fwd")
+    flash_attention_fwd_bhsd.launches += 1
+    return o, lse
+
+
+flash_attention_fwd_bhsd.launches = 0

@@ -1,0 +1,240 @@
+"""GQA / MHA attention: projections, chunked online-softmax ``attend``,
+the full-sequence path through the flash kernel (K2), and decode against
+a ring-buffer KV cache (the port of ``repro/models/attention.py``, GQA
+parts).  MLA, cross-attention and grouped decode come with their
+families.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.common import ParamSpec, apply_rope
+
+NEG_INF = -1.0e30
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+def gqa_spec(cfg) -> dict:
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    spec = {
+        "wq": ParamSpec((d, H, Dh), ("d_model", "heads", "head_dim")),
+        "wk": ParamSpec((d, KV, Dh), ("d_model", "kv", "head_dim")),
+        "wv": ParamSpec((d, KV, Dh), ("d_model", "kv", "head_dim")),
+        "wo": ParamSpec((H, Dh, d), ("heads", "head_dim", "d_model")),
+    }
+    if cfg.qkv_bias:
+        spec["bq"] = ParamSpec((H, Dh), ("heads", "head_dim"), "zeros")
+        spec["bk"] = ParamSpec((KV, Dh), ("kv", "head_dim"), "zeros")
+        spec["bv"] = ParamSpec((KV, Dh), ("kv", "head_dim"), "zeros")
+    if cfg.o_bias:
+        spec["bo"] = ParamSpec((d,), ("d_model",), "zeros")
+    return spec
+
+
+# ---------------------------------------------------------------------------
+# Core softmax attention (chunked online softmax)
+# ---------------------------------------------------------------------------
+def _mask(q_pos, k_pos, causal: bool, window: int):
+    """q_pos: (B,Sq), k_pos: (B,Sk) -> allow (B,1,Sq,Sk).  Slots with
+    k_pos < 0 are invalid (ring-buffer holes, padding)."""
+    qp = q_pos[:, None, :, None]
+    kp = k_pos[:, None, None, :]
+    allow = kp >= 0
+    if causal:
+        allow = allow & (kp <= qp)
+    if window > 0:
+        allow = allow & (qp - kp < window)
+    return allow
+
+
+def attend(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
+           chunk: int = 0, soft_cap: float = 0.0):
+    """q: (B,Sq,H,D); k,v: (B,Sk,H,D) (kv heads already expanded).
+
+    Returns (B,Sq,H,D).  ``chunk`` > 0 streams over KV chunks with an
+    online softmax so the (Sq,Sk) score matrix is never whole."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    qf = (q * scale).float()
+
+    def scores_of(k_c, kpos_c):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, k_c.float())
+        if soft_cap > 0:
+            s = soft_cap * torch.tanh(s / soft_cap)
+        allow = _mask(q_pos, kpos_c, causal, window)
+        return torch.where(allow, s, torch.full_like(s, NEG_INF))
+
+    if chunk <= 0 or Sk <= chunk:
+        s = scores_of(k, k_pos)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+        o = o / l.clamp_min(1e-30).permute(0, 2, 1, 3)
+        return o.to(q.dtype)
+
+    pad = (-Sk) % chunk
+    if pad:
+        # pad KV to a chunk multiple; padded slots get k_pos = -1 (masked)
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
+        Sk += pad
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    for c0 in range(0, Sk, chunk):
+        s = scores_of(k[:, c0:c0 + chunk], k_pos[:, c0:c0 + chunk])
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p, v[:, c0:c0 + chunk].float())
+        m = m_new
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def expand_kv(k, n_q_per_kv: int):
+    """(B,S,KV,D) -> (B,S,KV*n,D) by repeating each kv head."""
+    if n_q_per_kv == 1:
+        return k
+    B, S, KV, D = k.shape
+    return k[:, :, :, None, :].expand(B, S, KV, n_q_per_kv, D) \
+        .reshape(B, S, KV * n_q_per_kv, D)
+
+
+# ---------------------------------------------------------------------------
+# GQA self attention (prefill: full sequence)
+# ---------------------------------------------------------------------------
+def _proj(x, w):
+    """einsum("bsd,dhe->bshe") as one matmul over the flattened heads."""
+    d, Hn, E = w.shape
+    return (x @ w.to(x.dtype).reshape(d, Hn * E)).unflatten(-1, (Hn, E))
+
+
+def qkv_project(w, x, cfg, positions, *, rope: bool = True):
+    dt = x.dtype
+    q, k, v = _proj(x, w["wq"]), _proj(x, w["wk"]), _proj(x, w["wv"])
+    if "bq" in w:
+        q = q + w["bq"].to(dt)
+        k = k + w["bk"].to(dt)
+        v = v + w["bv"].to(dt)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    return q, k, v
+
+
+def out_project(w, o):
+    """einsum("bshe,hed->bsd")."""
+    H, E, d = w["wo"].shape
+    y = o.reshape(*o.shape[:-2], H * E) @ w["wo"].to(o.dtype).reshape(H * E, d)
+    if "bo" in w:
+        y = y + w["bo"].to(o.dtype)
+    return y
+
+
+def self_attention(w, x, cfg, positions, *, causal: bool = True,
+                   window: int = 0, rope: bool = True):
+    """Full-sequence self attention (prefill).  On a CUDA tensor always the
+    flash kernel (K2, which reads the KV heads unexpanded); on the CPU the
+    kernel's plain version when ``cfg.use_pallas``, else ``attend``."""
+    q, k, v = qkv_project(w, x, cfg, positions, rope=rope)
+    if x.device.type == "cuda" or cfg.use_pallas:
+        from repro_torch.kernels import ops as kops
+        o = kops.flash_attention(q, k, v, causal=causal, window=window,
+                                 soft_cap=0.0)
+    else:
+        o = attend(q, expand_kv(k, cfg.n_q_per_kv),
+                   expand_kv(v, cfg.n_q_per_kv), positions, positions,
+                   causal=causal, window=window, chunk=cfg.attn_chunk)
+    return out_project(w, o)
+
+
+# ---------------------------------------------------------------------------
+# KV caches and decode
+# ---------------------------------------------------------------------------
+def kv_cache_spec(cfg, batch: int, seq: int) -> dict:
+    """Per-layer cache spec (the model prepends the layer stack dim).
+    ``seq`` is the live cache length: the full context, or the ring
+    window for long-context decode."""
+    assert not cfg.use_mla, "MLA caches come with the MLA family"
+    KV, Dh = cfg.n_kv_heads, cfg.d_head
+    return {
+        "k": ParamSpec((batch, seq, KV, Dh), ("batch", "seq", "kv", "head_dim"),
+                       "zeros"),
+        "v": ParamSpec((batch, seq, KV, Dh), ("batch", "seq", "kv", "head_dim"),
+                       "zeros"),
+        "pos": ParamSpec((batch, seq), ("batch", "seq"), "zeros"),
+    }
+
+
+def _is_scalar(cur_pos) -> bool:
+    return not torch.is_tensor(cur_pos) or cur_pos.dim() == 0
+
+
+def decode_positions(x, cur_pos):
+    """A decode position argument as a (B, T) int32 tensor: a scalar (one
+    shared absolute position) or per-row (B,) / (B, T) positions, where
+    negative entries mark padding / inactive rows."""
+    B, T = x.shape[0], x.shape[1]
+    if _is_scalar(cur_pos):
+        return torch.full((B, T), int(cur_pos), dtype=torch.int32,
+                          device=x.device)
+    pos = cur_pos.to(device=x.device, dtype=torch.int32)
+    if pos.dim() == 1:
+        pos = pos[:, None]
+    return pos.expand(B, T)
+
+
+def ring_scatter(buf, new, pos):
+    """In place: ``new[b, t]`` lands at slot ``pos[b, t] % S`` of row b of
+    ``buf`` (B, S, ...); entries with ``pos < 0`` are dropped.  Returns
+    ``buf``."""
+    S = buf.shape[1]
+    valid = pos >= 0
+    bidx = torch.arange(buf.shape[0], device=buf.device)[:, None] \
+        .expand_as(pos)
+    buf[bidx[valid], torch.remainder(pos, S)[valid].long()] = \
+        new[valid].to(buf.dtype)
+    return buf
+
+
+def decode_self_attention(w, x, cache, cfg, cur_pos, *, window: int = 0,
+                          rope: bool = True):
+    """One decode step.  x: (B,T,d); cache: dict from ``kv_cache_spec``,
+    UPDATED IN PLACE (the reference returns a new cache; the port writes
+    the new k/v/pos into the cache it was given and returns it, so a step
+    allocates no second cache); cur_pos: scalar absolute position (T = 1)
+    or per-row (B,)/(B,T) positions (negative = padding, no write).
+
+    The new k/v go to slot ``pos % cache_len`` (a ring buffer; for a
+    full-context cache that is just ``pos``)."""
+    dt = x.dtype
+    B = x.shape[0]
+    if _is_scalar(cur_pos) and x.shape[1] == 1:
+        cur = int(cur_pos)
+        pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)
+        q, k_new, v_new = qkv_project(w, x, cfg, pos, rope=rope)
+        slot = cur % cache["pos"].shape[1]
+        cache["k"][:, slot:slot + 1].copy_(k_new)
+        cache["v"][:, slot:slot + 1].copy_(v_new)
+        cache["pos"][:, slot] = cur
+    else:
+        pos = decode_positions(x, cur_pos)
+        # rope at clamped positions: padding rows are masked out anyway
+        q, k_new, v_new = qkv_project(w, x, cfg, pos.clamp_min(0), rope=rope)
+        ring_scatter(cache["k"], k_new, pos)
+        ring_scatter(cache["v"], v_new, pos)
+        ring_scatter(cache["pos"], pos, pos)
+    o = attend(q, expand_kv(cache["k"].to(dt), cfg.n_q_per_kv),
+               expand_kv(cache["v"].to(dt), cfg.n_q_per_kv), pos,
+               cache["pos"], causal=True, window=window, chunk=0)
+    return out_project(w, o), cache

@@ -1,0 +1,32 @@
+"""Dense feed-forward blocks (gated SwiGLU-style and plain GELU MLP)."""
+from __future__ import annotations
+
+from repro_torch.models.common import ParamSpec, act_fn
+
+
+def mlp_spec(cfg, d_ff: int | None = None) -> dict:
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
+    if cfg.gated_mlp:
+        return {
+            "w_gate": ParamSpec((d, ff), ("d_model", "ffn")),
+            "w_in": ParamSpec((d, ff), ("d_model", "ffn")),
+            "w_out": ParamSpec((ff, d), ("ffn", "d_model")),
+        }
+    return {
+        "w_in": ParamSpec((d, ff), ("d_model", "ffn")),
+        "b_in": ParamSpec((ff,), ("ffn",), "zeros"),
+        "w_out": ParamSpec((ff, d), ("ffn", "d_model")),
+        "b_out": ParamSpec((d,), ("d_model",), "zeros"),
+    }
+
+
+def mlp_apply(w, x, cfg):
+    """Weights are cast to the compute dtype at each use."""
+    dt = x.dtype
+    act = act_fn(cfg.act)
+    if "w_gate" in w:
+        h = act(x @ w["w_gate"].to(dt)) * (x @ w["w_in"].to(dt))
+        return h @ w["w_out"].to(dt)
+    h = act(x @ w["w_in"].to(dt) + w["b_in"].to(dt))
+    return h @ w["w_out"].to(dt) + w["b_out"].to(dt)

@@ -1,0 +1,136 @@
+"""LayeredModel: the layer-granular model API the L2L engine executes (the
+port of ``repro/models/model.py``, dense family).
+
+A model is ``prepare`` (embeddings) -> homogeneous layer groups, each run
+over a stacked ``(N, ...)`` parameter tree -> the head.  Parameters are
+nested dicts: ``{"embed": {...}, "head": {...}, "groups": (group, ...)}``.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_map
+from repro_torch.models import blocks
+from repro_torch.models.blocks import Ctx
+from repro_torch.models.common import (ParamSpec, apply_norm, embed_tokens,
+                                       init_leaf, init_std, is_spec,
+                                       logits_fn, materialize, norm_spec,
+                                       stack_specs)
+
+
+class Group(NamedTuple):
+    name: str
+    n_layers: int
+    spec: dict                       # one layer's ParamSpec tree
+    apply: Callable                  # (w, x, mem, ctx) -> (x, aux)
+    decode: Callable                 # (w, x, cache, mem, ctx) -> (x, cache)
+    cache_spec: Callable             # (batch, live_seq) -> per-layer spec
+    has_mem: bool = False
+    is_encoder: bool = False
+
+
+def stack_layers(layers):
+    """Per-layer trees -> one stacked (N, ...) tree."""
+    return tree_map(lambda *ls: torch.stack(ls), *layers)
+
+
+class LayeredModel:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r}: the port runs the dense family so far")
+        ap = lambda w, x, mem, ctx: blocks.dense_apply(w, x, mem, ctx, cfg)
+        de = lambda w, x, c, mem, ctx: blocks.dense_decode(w, x, c, mem, ctx,
+                                                           cfg)
+        cs = lambda b, live: blocks.dense_cache_spec(cfg, b, live)
+        self.groups: Tuple[Group, ...] = (
+            Group("layers", cfg.n_layers, blocks.dense_spec(cfg), ap, de, cs),)
+
+    # ------------------------------------------------------------------
+    # parameters
+    # ------------------------------------------------------------------
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        embed = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model),
+                                  ("vocab", "d_model"), "embed")}
+        head: dict = {"ln_f": norm_spec(cfg)}
+        if not cfg.tie_embeddings:
+            head["out"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                    ("d_model", "vocab"))
+        groups = tuple(stack_specs(g.spec, g.n_layers) for g in self.groups)
+        return {"embed": embed, "head": head, "groups": groups}
+
+    def param_dtype(self):
+        return getattr(torch, self.cfg.param_dtype)
+
+    def init_static(self, generator, device, dtype=None):
+        """(embed, head) drawn first — the start of every init's draws."""
+        dtype = dtype or self.param_dtype()
+        specs = self.param_specs()
+        return (materialize(specs["embed"], generator, device, dtype),
+                materialize(specs["head"], generator, device, dtype))
+
+    def init_layers(self, gi: int, generator, device, dtype=None):
+        """Group ``gi``'s layers, drawn one at a time (a generator), after
+        the static params and the earlier groups.  Each leaf has the
+        standard deviation the reference gives it when it materializes the
+        STACKED spec (fan-in = the stacked shape's leading dim)."""
+        dtype = dtype or self.param_dtype()
+        g = self.groups[gi]
+        stacked = stack_specs(g.spec, g.n_layers)
+        for _ in range(g.n_layers):
+            yield tree_map(lambda s, st: init_leaf(s, generator, device,
+                                                   dtype, init_std(st)),
+                           g.spec, stacked, is_leaf=is_spec)
+
+    def init_params(self, generator, device="cpu", dtype=None):
+        """All parameters with every stacked group on ``device``.  The
+        draw order (static, then each group layer by layer) is the one
+        ``Engine.init_params`` follows when it streams layers into the
+        EPS, so both give the same values from the same seed."""
+        embed, head = self.init_static(generator, device, dtype)
+        groups = tuple(stack_layers(list(self.init_layers(gi, generator,
+                                                          device, dtype)))
+                       for gi in range(len(self.groups)))
+        return {"embed": embed, "head": head, "groups": groups}
+
+    # ------------------------------------------------------------------
+    # embedding / head / contexts
+    # ------------------------------------------------------------------
+    def dtype(self):
+        return getattr(torch, self.cfg.dtype)
+
+    def prepare(self, static, batch):
+        """-> (x0 for group 0, mem for group 0 (None))."""
+        return embed_tokens(static["embed"], batch["tokens"], self.cfg,
+                            self.dtype()), None
+
+    def train_ctx(self, batch, group: Group) -> Ctx:
+        B, S = batch["tokens"].shape
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=batch["tokens"].device).expand(B, S)
+        return Ctx(positions=pos, causal=True, window=self.cfg.sliding_window)
+
+    def decode_ctx(self, cur_pos, window: int = 0) -> Ctx:
+        w = window if window else self.cfg.sliding_window
+        return Ctx(cur_pos=cur_pos, window=w, causal=True)
+
+    def decode_embed(self, static, token, cur_pos):
+        """token: (B,T) -> x (B,T,d), the same lookup as ``prepare``."""
+        return embed_tokens(static["embed"], token, self.cfg, self.dtype())
+
+    def decode_logits(self, static, x):
+        cfg = self.cfg
+        x = apply_norm(static["head"]["ln_f"], x, cfg.norm_eps)
+        return logits_fn(static["head"], static["embed"], x, cfg)
+
+    def decode_groups(self):
+        return tuple(g for g in self.groups if not g.is_encoder)
+
+    def cache_specs(self, batch: int, live_seq: int):
+        return tuple(stack_specs(g.cache_spec(batch, live_seq), g.n_layers)
+                     for g in self.decode_groups())
