@@ -5,11 +5,13 @@
 
 Phases, one JSON line each:
 
-1. build    — compile the CUDA C++ kernels from the checkout's sources;
+1. build    — compile the CUDA C++ kernels from the checkout's sources
+              (one nvcc per source, all started together);
 2. init     — granite-3-8b at full width, random weights from a seeded CUDA
               generator, drawn layer by layer into the pinned-host EPS;
-3. kernels  — every kernel of the serving path against its plain PyTorch
-              version on the card, at the path's shapes, with times; then
+3. kernels  — every kernel (serving: K2, K4 fetch, K5; training: K1,
+              K3a, K3b, K4 write-back) against its plain PyTorch version
+              on the card, at the paths' shapes, with times; then
    layer    — one decode layer's compute time beside one row copy;
 4. grid     — the relay knobs (pack, prefetch, G, resting place) at smoke
               size on the card: results bitwise equal;
@@ -19,9 +21,21 @@ Phases, one JSON line each:
 6. prefill  — Engine.prefill on the same prompts, held to decode_init's
               last-token logits (bf16 and f32, depth 1 and full), then one
               prefill at B=2, S=2048;
-7. launches — each kernel's launch count over the main path: the serve
-              phase and phase 6's two prefills, read before the
-              comparison engines run (all must be > 0).
+   launches — K2, K4 and K5's counts over the serving path (the serve
+              phase and phase 6's two prefills), read before the
+              comparison engines run;
+7. train-grid — the training knobs (pack, prefetch, G, stash_every,
+              where weights and stash rest, l2l against l2l-p) at smoke
+              size on the card: loss, params and Adam slots bitwise equal;
+8. identity — bert-large at full width, depth 2, f32: one l2l-p step
+              against the baseline engine on the same batch;
+9. train    — bert-large at full width and all 24 layers, l2l-p with
+              weight_stream, pack_params, prefetch 1, transport "pallas",
+              use_pallas, offload_stash, Adam: 5 steps at B=32, S=512,
+              UB=4 on one repeated synthetic batch, every kernel counter
+              set to 0 just before and read just after; then the peak
+              HBM of two steps at depth 12 beside depth 24's.
+10. launches — every kernel's count over the two main paths (all > 0).
 
 Then the kernel table line, the card's name and power limit, and the
 result line.  Any failed check raises, so the script exits nonzero and
@@ -34,6 +48,7 @@ pinned EPS; the depth used is printed.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -90,12 +105,291 @@ def bf16_ulp_ok(torch, got, ref):
     return bool(((got.float() - ref.float()).abs() <= ulp).all())
 
 
+def train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, get_config,
+                      LayeredModel, tree_leaves, is_spec):
+    """K1, K3a, K3b and K4's write-back against their plain versions at
+    the training path's shapes (bert-large), with times."""
+    rows = []
+    bert = get_config("bert-large", "full")
+    specs = LayeredModel(bert).param_specs()
+    n = sum(math.prod(sp.shape[1:]) for sp in
+            tree_leaves(specs["groups"][0], is_leaf=is_spec))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    # K1: one packed bert-large layer (12,596,224 elements); f32 masters
+    # are the path's (timed), bf16 masters checked too; bitwise to the
+    # eager chain, which the per-leaf optimizer runs
+    for pdt in (torch.float32, torch.bfloat16):
+        p = torch.randn(n, generator=g, device=dev).to(pdt)
+        gr = torch.randn(n, generator=g, device=dev) * 1e-2
+        m = torch.randn(n, generator=g, device=dev) * 1e-3
+        v = torch.rand(n, generator=g, device=dev) * 1e-5
+        a = torch.tensor(3.1e-4)
+        for wd_form, wd in ((False, 0.0), (True, 0.01)):
+            got = fadam.fused_adam_flat(p, gr, m, v, a, 1.0, wd=wd,
+                                        wd_form=wd_form)
+            plain = fadam.fused_adam_flat_plain(p, gr, m, v, a, 1.0, wd=wd,
+                                                wd_form=wd_form)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got, plain)), \
+                f"fused adam not bitwise to its plain version ({pdt})"
+        if pdt != torch.float32:
+            continue
+        ps, ms_, vs_ = [p.clone()], [m.clone()], [v.clone()]
+        steps = [torch.ones((), device=dev)]
+        rows.append({
+            "name": "fused_adam", "route": "triton",
+            "source": "src/repro_torch/kernels/fused_adam.py",
+            "replaces": "src/repro/kernels/fused_adam.py:23",
+            "shape": [n], "dtype": "float32 p, g, m, v",
+            "max_abs_err": 0.0, "bitwise": True,
+            "ms": time_ms(torch, lambda: fadam.fused_adam_flat(
+                p, gr, m, v, a, 1.0), 20),
+            "plain_ms": time_ms(torch, lambda: fadam.fused_adam_flat_plain(
+                p, gr, m, v, a, 1.0), 20),
+            "library_ms": time_ms(torch, lambda: torch._fused_adam_(
+                ps, [gr], ms_, vs_, [], steps, lr=3.1e-4, beta1=0.9,
+                beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                maximize=False), 20),
+            "bound_ms": 28 * n / H100_HBM_BPS * 1e3, "bound_by": "bytes"})
+    del p, gr, m, v, ps, ms_, vs_, got, plain
+
+    # K3a / K3b as the path calls them: the backward of
+    # kernels.ops.flash_attention on the model's (B, S, H, D) layout, at
+    # bert-large's heads and one microbatch of the train phase, causal
+    B, S, H, D = 8, 512, bert.n_heads, bert.d_head
+    pairs = B * H * S * (S + 1) // 2
+    for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        q, k, v = (torch.randn(B, S, H, D, generator=g, device=dev).to(dt)
+                   .requires_grad_() for _ in range(3))
+        o = kops.flash_attention(q, k, v, causal=True)
+        do = torch.randn(o.shape, generator=g, device=dev).to(dt)
+        got = torch.autograd.grad(o, (q, k, v), do)
+        qt, kt, vt, ot, dot = (t.detach().transpose(1, 2)
+                               for t in (q, k, v, o, do))
+        _, lse = fa.flash_attention_fwd_bhsd(qt, kt, vt, causal=True)
+        plain = fa.flash_attention_bwd_bhsd_plain(qt, kt, vt, ot, lse, dot,
+                                                  causal=True)
+        torch.cuda.synchronize()
+        errs = [float((x.float() - y.transpose(1, 2).float()).abs().max())
+                for x, y in zip(got, plain)]
+        top = max(float(y.float().abs().max()) for y in plain)
+        # both sides sum in f32, in other orders; bf16 outputs may round
+        # to each other's neighbour: 1e-2 of the largest gradient (a bf16
+        # ulp is 2^-8 relative); f32 1e-5 of it
+        assert max(errs) <= tol * top, (dt, errs, top)
+        if dt != torch.bfloat16:
+            continue
+        delta = (dot.float() * ot.float()).sum(-1).contiguous()
+        qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        ref_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            ref_o, (qs, ks, vs), dot, retain_graph=True), 5)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_bhsd_plain(
+            qt, kt, vt, ot, lse, dot, causal=True), 5)
+        in_bytes = 4 * q.numel() * 2 + 2 * lse.numel() * 4
+        for name, fn, ops, err, out_bytes, line in (
+                ("flash_attention_bwd_dq",
+                 lambda: fa.flash_attention_bwd_dq(
+                     qt, kt, vt, dot, lse, delta, causal=True),
+                 6 * D * pairs, errs[0], 2 * q.numel(), 145),
+                ("flash_attention_bwd_dkv",
+                 lambda: fa.flash_attention_bwd_dkv(
+                     qt, kt, vt, dot, lse, delta, causal=True),
+                 8 * D * pairs, max(errs[1:]), 4 * q.numel(), 174)):
+            nbytes = in_bytes + out_bytes
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/"
+                          "flash_attention_bwd.cu",
+                "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+                "shape": [B, S, H, D], "layout": "BSHD", "dtype": "bfloat16",
+                "max_abs_err": err, "max_abs_grad": top,
+                "ms": time_ms(torch, fn, 5),
+                "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
+                "library_ms": lib_ms,
+                "library_covers": "SDPA backward: dq, dk and dv",
+                "bound_ms": max(ops / H100_BF16_OPS,
+                                nbytes / H100_HBM_BPS) * 1e3,
+                "bound_by": ("operations" if ops / H100_BF16_OPS
+                             > nbytes / H100_HBM_BPS else "bytes")})
+    del q, k, v, o, do, got, qt, kt, vt, ot, dot, plain, qs, ks, vs, ref_o
+
+    # K4 write-back: a packed f32 weight row and one layer's bf16 stash
+    # (UB=4 microbatches of 8 x 512 x 1024) from HBM into pinned rows
+    for dt, w in ((torch.float32, n), (torch.bfloat16, 4 * 8 * 512 * 1024)):
+        src = torch.randn(w, generator=g, device=dev).to(dt)
+        dst = torch.zeros(2, w, dtype=dt, pin_memory=True)
+        rc.writeback_rows(src, dst, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(dst[1], src.cpu()) and not dst[0].any(), \
+            "relay write-back is not bit-exact"
+        nbytes = w * src.element_size()
+        row = {"name": "relay_copy_writeback", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/relay_copy.cu",
+               "replaces": "src/repro/kernels/relay_copy.py:128",
+               "shape": [1, w], "dtype": str(dt).split(".")[1],
+               "max_abs_err": 0.0,
+               "ms": time_ms(torch, lambda: rc.writeback_rows(src, dst, 1),
+                             5),
+               "plain_ms": time_ms(torch, lambda: rc.writeback_rows_plain(
+                   src, dst, 0), 5),
+               "library_ms": time_ms(torch, lambda: dst[0].copy_(
+                   src, non_blocking=True), 5),
+               "bound_ms": nbytes / PCIE5_X16_BPS * 1e3, "bound_by": "bytes"}
+        row["achieved_GBps"] = nbytes / row["ms"] / 1e6
+        row["ms_by_blocks_per_sm"] = {
+            b: time_ms(torch, lambda b=b: rc.writeback_rows(
+                src, dst, 1, blocks=b * sms), 3) for b in (1, 2, 4)}
+        rows.append(row)
+    return rows
+
+
+def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
+                DataConfig, adam, make_schedule, counters, dev):
+    """5 l2l-p steps of bert-large at full width, every counter set to 0
+    just before and read just after; then 2 steps at depth 12 for the
+    peak-memory comparison."""
+    import numpy as np
+    B, S, UB, STEPS = 32, 512, 4, 5
+    opt = adam(schedule=make_schedule(1e-4, warmup=10))
+    cfg = bert.replace(use_pallas=True)
+
+    def build(depth):
+        e = engines.create("l2l-p", cfg.replace(n_layers=depth),
+                           ExecutionConfig(n_microbatches=UB, **knobs),
+                           optimizer=opt)
+        t0 = time.perf_counter()
+        st = e.init(torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        return e, st, time.perf_counter() - t0
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                   seed=0)).batch(0).items()}
+    eng, state, init_s = build(cfg.n_layers)
+    eps = state.params["groups"][0].segs["float32"]
+    layer_bytes = eps.shape[1] * 4
+    stash_row = UB * (B // UB) * S * cfg.d_model * 2
+    eps_bytes = sum(a.numel() * a.element_size() for a in
+                    [eps] + [s.segs["float32"] for s in
+                             state.opt_state["groups"][0].values()])
+    from repro_torch.core.tree import tree_leaves
+    model_params = eps.numel() + sum(
+        p.numel() for p in tree_leaves((state.params["embed"],
+                                        state.params["head"])))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    fetch0, wb0 = counters["relay_copy"].bytes, \
+        counters["relay_copy_writeback"].bytes
+    steps = []
+    for i in range(STEPS):
+        t0 = time.perf_counter()
+        state, metrics = eng.train_step(state, batch)
+        issued = time.perf_counter() - t0     # the host's share of the step
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps.append({"step": i, "s": dt, "host_issue_s": issued,
+                      "tok_per_s": B * S / dt, "loss": loss,
+                      "grad_norm": float(metrics["grad_norm"])})
+        emit({"phase": "train-step", **steps[-1]})
+    launches = {n: c.launches for n, c in counters.items()}
+    fetched = counters["relay_copy"].bytes - fetch0 + \
+        STEPS * cfg.n_layers * stash_row            # + the stash's copy_
+    written = counters["relay_copy_writeback"].bytes - wb0
+    peak24 = torch.cuda.max_memory_allocated()
+    reserved24 = torch.cuda.max_memory_reserved()
+    steady = float(np.mean([s["s"] for s in steps[1:]]))
+    out = {
+        "phase": "train", "arch": cfg.name, "depth": cfg.n_layers,
+        "d_model": cfg.d_model, "batch": B, "seq": S, "microbatches": UB,
+        "knobs": knobs, "init_s": init_s, "steps": steps,
+        "steady_s_per_step": steady, "steady_tok_per_s": B * S / steady,
+        "relay_in_bytes_per_step": fetched / STEPS,
+        "relay_out_bytes_per_step": written / STEPS,
+        "relay_in_GBps": fetched / STEPS / steady / 1e9,
+        "relay_out_GBps": written / STEPS / steady / 1e9,
+        "layer_row_bytes": layer_bytes, "stash_row_bytes": stash_row,
+        "eps_pinned_bytes": eps_bytes,
+        "params_plus_adam_bytes": 12 * model_params,
+        "peak_allocated_bytes": peak24, "peak_reserved_bytes": reserved24,
+        "launches_per_step": {n: v / STEPS for n, v in launches.items()},
+        "launches": launches}
+    assert all(np.isfinite(s["loss"]) for s in steps), steps
+    assert steps[-1]["loss"] < steps[0]["loss"], \
+        "loss on the repeated batch did not fall over 5 steps"
+    out["profile"] = profile_step(torch, eng, state, batch)
+    del eng, state, eps, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+
+    # the paper's claim: device memory does not grow with depth
+    eng, state, _ = build(12)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        state, _m = eng.train_step(state, batch)
+    torch.cuda.synchronize()
+    out["peak_allocated_bytes_by_depth"] = {
+        "12": torch.cuda.max_memory_allocated(), "24": peak24}
+    out["peak_reserved_bytes_by_depth"] = {
+        "12": torch.cuda.max_memory_reserved(), "24": reserved24}
+    del eng, state
+    gc.collect()
+    return out
+
+
+def profile_step(torch, eng, state, batch):
+    """One more step under torch.profiler (after the counted ones): the
+    device's busy share of the wall time (the union of kernel and copy
+    intervals on any stream) and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = eng.train_step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_name = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda t: -t[1])
+    return {"wall_s": wall, "device_busy_s": busy / 1e6,
+            "device_idle_share": 1.0 - busy / 1e6 / wall,
+            "device_events": len(spans),
+            "top_device_ms": [{"name": k[:80], "ms": ms, "count": c}
+                              for k, ms, c in by_name[:14]],
+            "device_ms_total": sum(ms for _, ms, _ in by_name)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--depth", type=int, default=0,
                     help="layers to serve (0 = all that the host can pin)")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -103,8 +397,12 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     import torch.nn.functional as F
 
+    from repro_torch import bridge
     from repro_torch import engine as engines
     from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.kernels import fused_adam as fadam
+    from repro_torch.optim import adam, make_schedule
     from repro_torch.core.schedule import ExecutionConfig
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attention as fa
@@ -282,6 +580,8 @@ def main(argv=None):
                 "bound_by": ("operations" if ops / H100_BF16_OPS
                              > nbytes / H100_HBM_BPS else "bytes")})
     del q, k, v, qt, kt, vt, o, lse, po, plse, ke, ve, x, got, plain
+    rows += train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc,
+                              get_config, LayeredModel, tree_leaves, is_spec)
     torch.cuda.empty_cache()
     report["kernels"] = {"phase": "kernels", "rows": rows}
     emit(report["kernels"])
@@ -454,16 +754,130 @@ def main(argv=None):
     assert gaps["bf16_full"] <= 0.35 and agree >= B - 1, gaps
     assert pl2.shape == (2, cfg.vocab_size) and bool(torch.isfinite(pl2).all())
 
+    serve_launches = launches
+    emit({"launches": {"serve": serve_launches}})
+    assert all(n > 0 for n in serve_launches.values()), serve_launches
+
+    # the serving state goes before the training phases pin theirs
+    del eng, params, eps, caches, pl, pl2, last, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+
+    counters = {"relay_copy": rc.copy_rows,
+                "relay_copy_writeback": rc.writeback_rows,
+                "rmsnorm": rms.rmsnorm_2d,
+                "flash_attention_fwd": fa.flash_attention_fwd_bhsd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "fused_adam": fadam.fused_adam_flat}
+    bert = get_config("bert-large", "full").replace(use_pallas=True)
+    slice_knobs = dict(weight_stream=True, pack_params=True,
+                       prefetch_depth=1, transport="pallas",
+                       offload_stash=True)
+
+    def leaves_np(state):
+        p, o, _, _ = bridge.train_state_to_numpy(state)
+        return tree_leaves(p), tree_leaves(o)
+
+    # ----------------------------------------------------------- train-grid
+    # the training knobs on the card, at smoke size and a depth that G=2
+    # and K=2 do not divide: every point bitwise equal to the plain
+    # schedule (deterministic kernels; K1 equals the per-leaf chain)
+    small_b = get_config("bert-large", "smoke").replace(n_layers=3,
+                                                        use_pallas=True)
+    gen = torch.Generator(dev).manual_seed(8)
+    sbatch = {"tokens": torch.randint(0, small_b.vocab_size, (4, 64),
+                                      generator=gen, device=dev),
+              "targets": torch.randint(0, small_b.vocab_size, (4, 64),
+                                       generator=gen, device=dev),
+              "mask": torch.ones(4, 64, device=dev)}
+    base_t = engines.create("l2l-p", small_b,
+                            ExecutionConfig(n_microbatches=2))
+    st0 = base_t.init(torch.Generator(dev).manual_seed(5))
+
+    def train_once(e):
+        new, m = e.train_step(st0, sbatch)
+        return (float(m["loss"]),) + leaves_np(new)
+
+    want = train_once(base_t)
+    tcombos = [("l2l-p", dict(weight_stream=True, offload_stash=True,
+                              transport="pallas", pack_params=pk,
+                              prefetch_depth=k, layers_per_relay=gr,
+                              stash_every=se))
+               for pk in (False, True) for k in (0, 1) for gr in (1, 2)
+               for se in (1, 2)]
+    tcombos += [("l2l-p", dict(pack_params=True, prefetch_depth=1,
+                               transport=t)) for t in ("xla", "pallas")]
+    tcombos += [("l2l", dict(slice_knobs, stash_every=se)) for se in (1, 2)]
+    tcombos += [("l2l", dict(prefetch_depth=1, layers_per_relay=2))]
+    for name, kw in tcombos:
+        got = train_once(engines.create(name, small_b, ExecutionConfig(
+            n_microbatches=2, **kw)))
+        assert got[0] == want[0] and \
+            all(np.array_equal(a, b) for a, b in zip(got[1], want[1])) and \
+            all(np.array_equal(a, b) for a, b in zip(got[2], want[2])), \
+            (name, kw)
+    report["train_grid"] = {"phase": "train-grid",
+                            "configs": len(tcombos) + 1, "bitwise": True}
+    emit(report["train_grid"])
+    del st0, base_t
+
+    # ------------------------------------------------------------- identity
+    # L2L-p against Algorithm 2 at bert-large width, depth 2, f32: the
+    # bounds of tests/test_equivalence.py (rel 1e-5)
+    icfg = bert.replace(n_layers=2, dtype="float32")
+    ibatch = SyntheticLM(DataConfig(vocab_size=bert.vocab_size, seq_len=512,
+                                    global_batch=8, seed=1)).batch(0)
+    be = engines.create("baseline", icfg, ExecutionConfig(n_microbatches=2))
+    ist = be.init(torch.Generator(dev).manual_seed(6))
+    nb, mb = be.train_step(ist, ibatch)
+    le = engines.create("l2l-p", icfg, ExecutionConfig(n_microbatches=2,
+                                                       **slice_knobs))
+    nl, ml = le.train_step(ist, ibatch)
+    pb, pl_ = leaves_np(nb)[0], leaves_np(nl)[0]
+    rel_params = max(float(np.abs(a - b).max()) for a, b in zip(pl_, pb)) \
+        / max(float(np.abs(b).max()) for b in pb)
+    rel_loss = abs(float(ml["loss"]) - float(mb["loss"])) / float(mb["loss"])
+    report["identity"] = {"phase": "identity", "depth": 2,
+                          "loss_l2l_p": float(ml["loss"]),
+                          "loss_baseline": float(mb["loss"]),
+                          "loss_rel": rel_loss, "params_rel": rel_params}
+    emit(report["identity"])
+    assert rel_loss <= 1e-5 and rel_params <= 1e-5, report["identity"]
+    del be, ist, nb, le, nl, pb, pl_
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- train
+    report["train"] = train_phase(torch, engines, ExecutionConfig, bert,
+                                  slice_knobs, SyntheticLM, DataConfig,
+                                  adam, make_schedule, counters, dev)
+    train_launches = report["train"].pop("launches")
+    emit(report["train"])
+
     # ------------------------------------------------------------- launches
+    launches = {"serve": serve_launches, "train": train_launches}
     emit({"launches": launches})
-    assert all(n > 0 for n in launches.values()), launches
+    path_kernels = {"serve": ("relay_copy", "rmsnorm", "flash_attention_fwd"),
+                    "train": ("relay_copy", "relay_copy_writeback",
+                              "flash_attention_fwd", "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv", "fused_adam")}
+    for path, names in path_kernels.items():
+        assert all(launches[path].get(n, 0) > 0 for n in names), \
+            (path, launches[path])
+    total = {n: sum(launches[p].get(n, 0) for p in launches)
+             for n in counters}
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    main_rows = {"relay_copy": rows[0], "rmsnorm": rows[1],
-                 "flash_attention_fwd": rows[3]}
-    table = [{k: ({**r, "launches": launches[n]})[k] for k in keys}
+    main_rows = {}
+    for r in rows:                      # the first row of each kernel: the
+        main_rows.setdefault(r["name"], r)   # path's shape, its dtype
+    table = [{k: ({**r, "launches": total[n]})[k] for k in keys}
              for n, r in main_rows.items()]
+    assert len(table) == 7, sorted(main_rows)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(
         json.dumps({**report, "launches": launches}, indent=1))

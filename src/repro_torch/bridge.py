@@ -6,6 +6,13 @@ tuples of tensors with the same keys and the same order.  bfloat16 leaves
 travel as raw ``uint16`` bits, the way ``repro/checkpoint/io.py`` stores
 ml_dtypes leaves: ``torch.from_numpy`` does not take ml_dtypes' bfloat16.
 The round trip is bit-exact.
+
+Training states travel the same way: the reference's ``TrainState``
+(params, optimizer slots ``{"embed", "head", "groups"}`` whose leaves are
+``{"m", "v"}`` dicts, step, loss scale) as numpy trees, into the port's
+``TrainState`` — unpacked, or packed into the port's flat rows (which are
+byte-identical to the reference's) — and back, always in the unpacked
+layout.
 """
 from __future__ import annotations
 
@@ -39,3 +46,35 @@ def params_to_numpy(tree):
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
+
+
+def train_state_from_numpy(params, opt_state, step, loss_scale=None, *,
+                           pack: bool = False, device="cpu"):
+    """numpy trees of a reference TrainState (unpacked) -> the port's
+    ``TrainState`` on ``device``; ``pack`` packs the layer groups and
+    their optimizer slots (slot-major, weight-aligned)."""
+    from repro_torch.core import packing
+    from repro_torch.engine.state import TrainState
+    p = params_from_numpy(params, device)
+    o = params_from_numpy(opt_state, device)
+    if pack:
+        p = packing.pack_params(p)
+        o = packing.pack_opt_state(o, p)
+    return TrainState(params=p, opt_state=o, step=int(step),
+                      loss_scale=None if loss_scale is None
+                      else params_from_numpy(loss_scale, device))
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` (packed or not, on any device) ->
+    (params, opt_state, step, loss_scale) numpy trees in the unpacked
+    layout of the reference.  Waits for the card first: pinned rows are
+    written by kernels the host allocator does not track."""
+    from repro_torch.core import packing
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    opt = packing.unpack_opt_state(dict(state.opt_state), state.params)
+    params = packing.unpack_params(state.params)
+    return (params_to_numpy(params), params_to_numpy(opt), int(state.step),
+            None if state.loss_scale is None
+            else params_to_numpy(state.loss_scale))

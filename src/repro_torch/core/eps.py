@@ -14,6 +14,12 @@ A ``Placement`` bundles two moves for one stream:
 * ``dev(tree)``  — onto the compute device.
 
 On the CPU both are the identity, as the reference's are there.
+
+Training adds two use sites: ``opts[g]``, where group g's optimizer slots
+rest (beside its weights: pinned host memory when ``weight_stream``), and
+``stash``, where the boundary activations rest between the forward and
+the backward (pinned host memory when ``offload_stash``, the paper's
+eq. (4) constant device memory; ``eps.py:174-181`` of the reference).
 """
 from __future__ import annotations
 
@@ -38,6 +44,11 @@ def noop_placement() -> Placement:
 def _pin(a):
     if a.device.type == "cpu" and a.is_pinned():
         return a
+    # the host allocator may hand out a block that a kernel still reads or
+    # writes (the relay's kernels address pinned memory directly, so the
+    # allocator records no use of it): wait for the card before the host
+    # writes into a fresh block
+    torch.cuda.synchronize()
     out = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
     return out.copy_(a)
 
@@ -52,17 +63,23 @@ def single_device_placement(device, stream: bool) -> Placement:
 
 
 class EPSPlacements(NamedTuple):
-    """Per-use-site placements: ``weights[g]`` for layer group g's stream
-    (``opts`` and ``stash`` are training's and come with it)."""
+    """Per-use-site placements: ``weights[g]`` / ``opts[g]`` for layer
+    group g's weights and optimizer slots, ``stash`` for the boundary
+    activations."""
     weights: tuple
+    opts: tuple
+    stash: Placement
 
 
 def make_placements(exec_cfg, n_groups: int, device="cpu") -> EPSPlacements:
     """Single-device placements (no mesh yet).  On the CPU every move is
-    the identity; on CUDA the groups rest in pinned host memory when
-    ``exec_cfg.weight_stream``, else on the device."""
+    the identity; on CUDA the groups and their optimizer slots rest in
+    pinned host memory when ``exec_cfg.weight_stream``, the stash when
+    ``exec_cfg.offload_stash``, else on the device."""
     device = torch.device(device)
     if device.type != "cuda":
-        return EPSPlacements((noop_placement(),) * n_groups)
-    p = single_device_placement(device, exec_cfg.weight_stream)
-    return EPSPlacements((p,) * n_groups)
+        noop = noop_placement()
+        return EPSPlacements((noop,) * n_groups, (noop,) * n_groups, noop)
+    w = single_device_placement(device, exec_cfg.weight_stream)
+    s = single_device_placement(device, exec_cfg.offload_stash)
+    return EPSPlacements((w,) * n_groups, (w,) * n_groups, s)

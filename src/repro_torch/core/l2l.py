@@ -1,7 +1,50 @@
-"""L2L (layer-to-layer) execution — the port of ``repro/core/l2l.py``, so
-far its inference forward: the layer-major relay with the microbatch loop
-INSIDE each relay stop (the paper's loop inversion), no stash and no
-backward.  Training (Alg 3/4) comes with the next slice.
+"""L2L (layer-to-layer) execution — Algorithms 3 and 4 of the paper (the
+port of ``repro/core/l2l.py``).
+
+The loop inversion is the whole trick: the LAYER loop is outer, the
+MICROBATCH loop inner.  The outer loop is a ``relay_scan`` over the
+group's stacked ``(N, ...)`` parameters, which rest in pinned host memory
+with ``weight_stream`` and reach HBM one relay stop at a time.
+
+Forward (Alg 3 lines 2-6): for l in layers: for u in microbatches: run
+layer l on microbatch u; stash ONLY the layer-boundary activation, into
+pinned host memory with ``offload_stash`` (eq. (4), constant memory),
+through K4's write-back.
+
+Head: per microbatch, the loss and its vjp scaled by ``S_loss / W_total``.
+
+Backward (Alg 3 lines 7-11 / Alg 4): a reverse relay over layers; per
+microbatch, RECOMPUTE the layer's forward from its stashed input and take
+its vjp — ``torch.autograd.grad`` on detached leaf views of the relayed
+slot takes the place of ``jax.vjp`` — and accumulate (dw, dx).  With
+``eager_optimizer`` (Alg 4, L2L-p) the optimizer for layer l runs in the
+same reverse stop and its products (updated weights, Adam slots) are
+written back to the EPS row by row; otherwise (Alg 3) the gradients are
+shipped to the EPS and a trailing relay applies the updates.
+
+``stash_every`` = K > 1 stores only each K-segment's entry boundary; the
+backward re-streams each segment's weights forward to recompute the K-1
+missing boundaries (re-hosted into the stash tier as they are produced)
+and then runs the segment's recompute-vjp relay.  In eager PyTorch the
+reference's unrolled and ``segment_scan`` schedules are one Python loop
+over the segments.  Every (G, k, pack, K, transport) point gives
+bit-identical gradients and updates (tests/test_torch_train.py).
+
+Packed relay (``pack_params``): weights and Adam slots arrive as
+``packing.Packed`` flat rows; the vjp differentiates the unpacked views,
+every gradient-side reduction (scale, clip, finiteness) stays on the
+tree, and the eager update runs once per dtype segment through
+``Optimizer.flat_update`` (the fused Adam kernel, K1).
+
+The step is functional, as the reference's is: it returns new parameter
+and optimizer buffers (new pinned rows for the EPS) and leaves its inputs
+as they were, so a caller may keep the prior state (``skip_nonfinite``
+returns it as it was).  The host's caching allocator recycles the
+buffers of states the caller drops, so the EPS takes twice its size in
+pinned memory at the peak.
+
+Not ported (each asserts): ``dynamic_depth``, ``host_optimizer``,
+``tiers=3`` and multi-group transitions (dense models have one group).
 """
 from __future__ import annotations
 
@@ -11,9 +54,10 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.eps import EPSPlacements, make_placements
-from repro_torch.core.relay import Stream, relay_scan
+from repro_torch.core.relay import Sink, Stream, relay_scan
 from repro_torch.core.schedule import ExecutionConfig
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten_like
+from repro_torch.optim import Optimizer, clip_by_norm, tree_global_norm
 
 
 def _reshape_ub(tree, ub: int):
@@ -24,6 +68,433 @@ def _reshape_ub(tree, ub: int):
     return tree_map(one, tree)
 
 
+def _tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def _zeros_f32(tree):
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                          device=x.device), tree)
+
+
+def _rows(tree, s0: int, s1: int):
+    return tree_map(lambda a: a[s0:s1], tree)
+
+
+def segment_bounds(n_layers: int, every: int) -> tuple:
+    """``(start, stop)`` layer ranges of the stash segments: boundaries at
+    layer indices = 0 (mod K), a short remainder segment at the end."""
+    k = max(1, int(every))
+    return tuple((s, min(s + k, n_layers)) for s in range(0, n_layers, k))
+
+
+def _vjp(fn, inputs: list, cotangent):
+    """``torch.autograd.grad`` of ``fn(*leaves)`` at detached leaves of
+    ``inputs`` -> (output, grads); an input the output does not depend on
+    gets zeros (``jax.vjp``'s answer)."""
+    leaves = [a.detach().requires_grad_() for a in inputs]
+    with torch.enable_grad():
+        out = fn(leaves)
+        grads = torch.autograd.grad(out, leaves, grad_outputs=cotangent,
+                                    allow_unused=True)
+    return out.detach(), [torch.zeros_like(a) if g is None else g
+                          for a, g in zip(leaves, grads)]
+
+
+def _finite(tree) -> torch.Tensor:
+    return torch.stack([torch.isfinite(g).all()
+                        for g in tree_leaves(tree)]).all()
+
+
+def _where(flag, new, old):
+    return tree_map(lambda n, o: torch.where(flag, n, o), new, old)
+
+
+def _make_packed_update(optimizer: Optimizer, run_opt) -> Callable:
+    """Per-layer optimizer step on ``Packed`` flat buffers: the fused
+    update once per dtype segment when the optimizer has a
+    ``flat_update`` and Adam-shaped slots, else unpack -> per-leaf
+    ``run_opt`` -> repack.  Both are bit-identical to the unpacked
+    schedule."""
+    def packed_update(dw, opt_l, w_pk, step):
+        spec = w_pk.spec
+        if optimizer.flat_update is not None and \
+                tuple(sorted(opt_l)) == ("m", "v"):
+            g_pk = dw if packing.is_packed(dw) \
+                else packing.pack(dw, spec=spec, stacked=False)
+            new_p, new_m, new_v = {}, {}, {}
+            for key in sorted(w_pk.segs):
+                new_p[key], new_m[key], new_v[key] = optimizer.flat_update(
+                    w_pk.segs[key], g_pk.segs[key], opt_l["m"].segs[key],
+                    opt_l["v"].segs[key], step)
+            return (packing.Packed(new_p, spec),
+                    {"m": packing.Packed(new_m, spec),
+                     "v": packing.Packed(new_v, spec)})
+        dw_t = packing.unpack(dw) if packing.is_packed(dw) else dw
+        nw, no = run_opt(dw_t, packing.unpack_opt(spec, opt_l),
+                         packing.unpack(w_pk), step)
+        return (packing.pack(nw, spec=spec, stacked=False),
+                packing.pack_opt(spec, no, stacked=False))
+    return packed_update
+
+
+# ===========================================================================
+# Training step factory
+# ===========================================================================
+def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
+                    placements: Optional[EPSPlacements] = None,
+                    device="cpu", copy_stream=None) -> Callable:
+    """Returns step(params, opt_state, batch) -> (params', opt_state',
+    metrics).  ``opt_state`` = {"step": int, "embed", "head", "groups"
+    [, "loss_scale"]} — build with ``init_opt_state``."""
+    assert not exec_cfg.dynamic_depth, "dynamic_depth is not ported yet"
+    assert not exec_cfg.host_optimizer, "host_optimizer is not ported yet"
+    assert exec_cfg.tiers == 2, "tiers=3 (the disk tier) is not ported yet"
+    assert len(model.groups) == 1 and not model.groups[0].has_mem, \
+        "multi-group transitions are not ported yet (dense models have " \
+        "one layer group)"
+    device = torch.device(device)
+    if placements is None:
+        placements = make_placements(exec_cfg, len(model.groups), device)
+    if device.type == "cuda" and copy_stream is None:
+        copy_stream = torch.cuda.Stream(device)
+    UB = exec_cfg.n_microbatches
+    PK = exec_cfg.pack_params
+    SE = exec_cfg.stash_every
+    EAGER = exec_cfg.eager_optimizer
+    CLIP = exec_cfg.clip_mode == "per_layer"
+    amp = exec_cfg.loss_scale_init > 0
+    group = model.groups[0]
+    N = group.n_layers
+    wp, op, sp = placements.weights[0], placements.opts[0], placements.stash
+    run_opt = optimizer.update
+    packed_update = _make_packed_update(optimizer, run_opt)
+
+    def relay(body, init, streams, **kw):
+        return relay_scan(body, init, streams,
+                          group=exec_cfg.layers_per_relay,
+                          prefetch=exec_cfg.prefetch_depth,
+                          transport=exec_cfg.transport, device=device,
+                          copy_stream=copy_stream, **kw)
+
+    def sink(place, n):
+        return Sink(place, n, transport=exec_cfg.transport,
+                    copy_stream=copy_stream)
+
+    def step(params, opt_state, batch):
+        static = {"embed": params["embed"], "head": params["head"]}
+        W = params["groups"][0]
+        batch_ub = _reshape_ub(batch, UB)
+        ub = [tree_map(lambda a, _u=u: a[_u], batch_ub) for u in range(UB)]
+        W_total = batch["mask"].sum().clamp_min(1.0)
+        f32 = dict(dtype=torch.float32, device=W_total.device)
+        S_loss = (opt_state["loss_scale"]["scale"] if amp
+                  else torch.ones((), **f32))
+        ctx = model.train_ctx(ub[0], group)
+        aux = []
+
+        def apply_ub(w, x_c):
+            ys = []
+            aux_l = 0.0
+            for u in range(UB):
+                y, a = group.apply(w, x_c[u], None, ctx)
+                ys.append(y)
+                aux_l = aux_l + a
+            return torch.stack(ys), aux_l
+
+        # ------------------------------------------------------------
+        # FORWARD: layer-major relay, stash of each layer's input
+        # ------------------------------------------------------------
+        x_ub = torch.stack([model.prepare(static, b)[0] for b in ub])
+
+        def fwd_body(x_c, slots, _x, _stash=True):
+            (w,) = slots
+            y_ub, aux_l = apply_ub(packing.unpack(w) if PK else w, x_c)
+            aux.append(aux_l)
+            return y_ub, ((x_c,) if _stash else None)
+
+        bounds = segment_bounds(N, SE)
+        if SE == 1:
+            stash = sink(sp, N)
+            x_ub, _ = relay(fwd_body, x_ub, (Stream(wp, W),),
+                            sinks=(stash,))
+        else:
+            # only each K-segment's entry boundary is checkpointed
+            entries = sink(sp, len(bounds))
+            for si, (s0, s1) in enumerate(bounds):
+                entries.write(si, x_ub)
+                x_ub, _ = relay(
+                    lambda x_c, sl, x, _b=fwd_body: _b(x_c, sl, x, False),
+                    x_ub, (Stream(wp, _rows(W, s0, s1)),))
+        aux_total = torch.as_tensor(sum(aux) / UB, **f32)
+
+        # ------------------------------------------------------------
+        # HEAD: loss + dL/dx per microbatch (and d_static from the head)
+        # ------------------------------------------------------------
+        s_leaves = tree_leaves(static)
+        d_static = _zeros_f32(static)
+        loss_sum = torch.zeros((), **f32)
+        dx = []
+        for u in range(UB):
+            def head(ls, _u=u):
+                st = tree_unflatten_like(static, ls[:-1])
+                return model.head_loss(st, ls[-1], ub[_u])[0]
+            loss_u, g = _vjp(head, s_leaves + [x_ub[u]], S_loss / W_total)
+            d_static = _tree_add(d_static, tree_unflatten_like(
+                static, [a.float() for a in g[:-1]]))
+            loss_sum = loss_sum + loss_u
+            dx.append(g[-1])
+        dx_ub = torch.stack(dx)
+        loss = loss_sum / W_total + aux_total
+
+        # ------------------------------------------------------------
+        # BACKWARD: reverse relay; recompute-vjp per layer; eager opt
+        # ------------------------------------------------------------
+        opt_step = opt_state["step"]
+
+        def bwd_body(core, slots, stash_l):
+            """Recompute-vjp microbatch loop (+ eager update) of one
+            layer.  With pack_params the vjp differentiates the UNPACKED
+            views and every gradient-side reduction stays on the tree."""
+            w_dev = slots[0]
+            opt_l = slots[1] if len(slots) > 1 else None
+            dx_c, gn_c, nf_c = core
+            w_tree = packing.unpack(w_dev) if PK else w_dev
+            w_leaves = tree_leaves(w_tree)
+            dw = [torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+                  for a in w_leaves]
+            dxin = []
+            for u in range(UB):
+                def layer(ls):
+                    return group.apply(tree_unflatten_like(w_tree, ls[:-1]),
+                                       ls[-1], None, ctx)[0]
+                _, g = _vjp(layer, w_leaves + [stash_l[u]], dx_c[u])
+                dw = [a + b.float() for a, b in zip(dw, g[:-1])]
+                dxin.append(g[-1])
+            dw = tree_unflatten_like(w_tree, [g / S_loss for g in dw])
+            finite_l = _finite(dw)
+            if CLIP:
+                dw, _ = clip_by_norm(dw, exec_cfg.clip_norm)
+            gn_c = gn_c + torch.where(finite_l, tree_global_norm(dw) ** 2,
+                                      0.0)
+            nf_c = nf_c + torch.where(finite_l, 0, 1)
+            if EAGER:
+                new_w, new_opt = (packed_update if PK else run_opt)(
+                    dw, opt_l, w_dev, opt_step)
+                if amp:
+                    # a non-finite layer skips ITS update (eager updates
+                    # cannot wait for a global check)
+                    new_w = _where(finite_l, new_w, w_dev)
+                    new_opt = _where(finite_l, new_opt, opt_l)
+                out = (new_w, new_opt)
+            else:
+                # Alg 3: the gradient is shipped to the EPS — packed, one
+                # flat f32 row aligned to the weight layout
+                out = (packing.pack(dw, spec=w_dev.spec, stacked=False)
+                       if PK else dw,)
+            return (torch.stack(dxin), gn_c, nf_c), out
+
+        O = opt_state["groups"][0]
+        outs = (sink(wp, N), sink(op, N)) if EAGER else (sink(wp, N),)
+        core = (dx_ub, torch.zeros((), **f32),
+                torch.zeros((), dtype=torch.int32, device=W_total.device))
+        if SE == 1:
+            streams = [Stream(wp, W)] + ([Stream(op, O)] if EAGER else [])
+            core, _ = relay(bwd_body, core, streams, xs=stash.tree,
+                            reverse=True, sinks=outs)
+        else:
+            def rec_body(x_c, slots, _x):
+                """One layer of the boundary recompute: its OUTPUT
+                boundary goes to the segment's stash rows."""
+                (w,) = slots
+                y_ub, _ = apply_ub(packing.unpack(w) if PK else w, x_c)
+                return y_ub, (y_ub,)
+
+            for si in reversed(range(len(bounds))):
+                s0, s1 = bounds[si]
+                entry = _row_to_device(entries.tree, si, device, copy_stream)
+                seg = sink(sp, s1 - s0)
+                seg.write(0, entry)
+                if s1 - s0 > 1:
+                    relay(rec_body, entry, (Stream(wp, _rows(W, s0, s1 - 1)),),
+                          sinks=(seg,), sink_row0=1)
+                streams = [Stream(wp, _rows(W, s0, s1))]
+                if EAGER:
+                    streams.append(Stream(op, _rows(O, s0, s1)))
+                core, _ = relay(bwd_body, core, streams, xs=seg.tree,
+                                reverse=True, sinks=outs, sink_row0=s0)
+        dx_ub, gnorm_sq, nonfinite = core
+
+        # ---- prepare (embedding) vjp ---------------------------------
+        for u in range(UB):
+            def prep(ls, _u=u):
+                return model.prepare(tree_unflatten_like(static, ls),
+                                     ub[_u])[0]
+            _, g = _vjp(prep, s_leaves, dx_ub[u])
+            d_static = _tree_add(d_static, tree_unflatten_like(
+                static, [a.float() for a in g]))
+        gnorm_sq = gnorm_sq + tree_global_norm(d_static) ** 2
+
+        # ------------------------------------------------------------
+        # UPDATES: static params; layer params here if not eager (Alg 3)
+        # ------------------------------------------------------------
+        d_static = tree_map(lambda g: g / S_loss, d_static)
+        finite_s = _finite(d_static)
+        nonfinite = nonfinite + torch.where(finite_s, 0, 1)
+        if CLIP:
+            d_static, _ = clip_by_norm(d_static, exec_cfg.clip_norm)
+        static_opt = {"embed": opt_state["embed"], "head": opt_state["head"]}
+        new_static, new_static_opt = optimizer.update(
+            d_static, static_opt, static, opt_step)
+        if amp:
+            new_static = _where(finite_s, new_static, static)
+            new_static_opt = _where(finite_s, new_static_opt, static_opt)
+
+        if EAGER:
+            new_w, new_o = outs[0].tree, outs[1].tree
+        else:
+            # Alg 3: a trailing relay over layers — weights, the shipped
+            # gradients and the optimizer slots stream in together
+            def upd_body(_, slots, _x):
+                w, g, o = slots
+                return None, (packed_update if PK else run_opt)(
+                    g, o, w, opt_step)
+
+            _, (new_w, new_o) = relay(
+                upd_body, None, (Stream(wp, W), Stream(wp, outs[0].tree),
+                                 Stream(op, O)),
+                sinks=(sink(wp, N), sink(op, N)))
+
+        new_params = {"embed": new_static["embed"],
+                      "head": new_static["head"], "groups": (new_w,)}
+        new_opt = {"step": opt_step + 1, "embed": new_static_opt["embed"],
+                   "head": new_static_opt["head"], "groups": (new_o,)}
+        metrics = {"loss": loss, "aux": aux_total,
+                   "grad_norm": torch.sqrt(gnorm_sq), "weight_sum": W_total}
+        if exec_cfg.skip_nonfinite:
+            # anomaly sentinel: ANY non-finite layer/static gradient
+            # rejects the whole step — the prior params, optimizer slots
+            # and step counter come back as they were (the step never
+            # writes its inputs).  The AMP loss scale still adapts.
+            bad = bool(nonfinite > 0)
+            if bad:
+                new_params = params
+                new_opt = {k: opt_state[k]
+                           for k in ("step", "embed", "head", "groups")}
+            metrics["skipped_steps"] = int(bad)
+            metrics["nonfinite_layers"] = nonfinite
+        if amp:
+            ls = opt_state["loss_scale"]
+            any_bad = nonfinite > 0
+            good = torch.where(any_bad, 0, ls["good_steps"] + 1)
+            scale = torch.where(any_bad,
+                                torch.clamp(ls["scale"] * 0.5, min=1.0),
+                                ls["scale"])
+            grow = good >= exec_cfg.loss_scale_growth
+            scale = torch.where(grow, scale * 2.0, scale)
+            good = torch.where(grow, 0, good).to(torch.int32)
+            new_opt["loss_scale"] = {"scale": scale, "good_steps": good}
+            metrics["loss_scale"] = scale
+            metrics["nonfinite_layers"] = nonfinite
+        return new_params, new_opt, metrics
+
+    return step
+
+
+def _row_to_device(tree, row: int, device, copy_stream):
+    """Row ``row`` of a stacked tree on the compute device: from pinned
+    host memory through the copy stream (behind its earlier write-backs),
+    the compute stream waiting for it."""
+    if device.type != "cuda" or tree_leaves(tree)[0].device.type == "cuda":
+        return tree_map(lambda a: a[row], tree)
+    compute = torch.cuda.current_stream(device)
+    with torch.cuda.stream(copy_stream):
+        out = tree_map(lambda a: a[row].to(device, non_blocking=True), tree)
+    compute.wait_stream(copy_stream)
+    for a in tree_leaves(out):
+        a.record_stream(compute)
+    return out
+
+
+# ===========================================================================
+# Loss + grads only (no optimizer) — for equivalence tests
+# ===========================================================================
+def make_grads_fn(model, exec_cfg: ExecutionConfig,
+                  placements: Optional[EPSPlacements] = None, device="cpu",
+                  copy_stream=None) -> Callable:
+    """Returns grads(params, batch) -> (loss, grads) computed with the L2L
+    schedule (layer-major, recompute, trailing gradient shipment): the
+    train step with an 'optimizer' that stores the gradient.  Only the
+    schedule and layout knobs carry over (no AMP, clip or eager update)."""
+    cfg = ExecutionConfig(
+        n_microbatches=exec_cfg.n_microbatches,
+        offload_stash=exec_cfg.offload_stash,
+        weight_stream=exec_cfg.weight_stream,
+        stash_every=exec_cfg.stash_every,
+        segment_scan=exec_cfg.segment_scan,
+        dynamic_depth=exec_cfg.dynamic_depth,
+        prefetch_depth=exec_cfg.prefetch_depth,
+        pack_params=exec_cfg.pack_params,
+        layers_per_relay=exec_cfg.layers_per_relay,
+        transport=exec_cfg.transport,
+        eager_optimizer=False, clip_mode="none")
+    collector = _grad_collector()
+    base_step = make_train_step(model, collector, cfg, placements, device,
+                                copy_stream)
+
+    def fn(params, batch):
+        opt = init_opt_state(collector, params)
+        _, new_opt, metrics = base_step(params, opt, batch)
+        is_slot = lambda x: isinstance(x, dict) and set(x) == {"m"}
+        unwrap = lambda t: tree_map(lambda s: s["m"], t, is_leaf=is_slot)
+        grads = {"embed": unwrap(new_opt["embed"]),
+                 "head": unwrap(new_opt["head"]),
+                 "groups": tuple(packing.unpack(g) if packing.is_packed(g)
+                                 else g for g in
+                                 (unwrap(g) for g in new_opt["groups"]))}
+        return metrics["loss"], grads
+
+    return fn
+
+
+def _grad_collector() -> Optimizer:
+    """An 'optimizer' that stores the gradient into its state and leaves
+    the params untouched."""
+    def init(params):
+        return tree_map(lambda p: {"m": torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device)}, params)
+
+    def update(grads, state, params, step):
+        return params, tree_map(lambda g: {"m": g.float()}, grads)
+
+    return Optimizer("collect", init, update)
+
+
+def init_opt_state(optimizer: Optimizer, params,
+                   exec_cfg: Optional[ExecutionConfig] = None) -> dict:
+    """Optimizer slots beside the params, on their devices; a packed group
+    gets slot-major flat rows aligned to its weight spec."""
+    def group_opt(g):
+        if packing.is_packed(g):
+            return packing.pack_opt(g.spec, optimizer.init(packing.unpack(g)))
+        return optimizer.init(g)
+
+    state = {"step": 0,
+             "embed": optimizer.init(params["embed"]),
+             "head": optimizer.init(params["head"]),
+             "groups": tuple(group_opt(g) for g in params["groups"])}
+    if exec_cfg is not None and exec_cfg.loss_scale_init > 0:
+        dev = tree_leaves(params["embed"])[0].device
+        state["loss_scale"] = {
+            "scale": torch.tensor(exec_cfg.loss_scale_init,
+                                  dtype=torch.float32, device=dev),
+            "good_steps": torch.zeros((), dtype=torch.int32, device=dev)}
+    return state
+
+
+# ===========================================================================
+# Prefill (inference forward): layer-major relay, no stash, no backward
+# ===========================================================================
 def make_prefill_fn(model, exec_cfg: ExecutionConfig,
                     placements: Optional[EPSPlacements] = None,
                     device="cpu", copy_stream=None) -> Callable:

@@ -9,8 +9,13 @@ slice to ``(W,)``.  Leaves are taken in the reference's flatten order
 byte-identical to the JAX package's (tests/test_torch_models.py).
 
 ``unpack`` returns views into the relayed buffer: the layer apply reads
-straight out of the copy's destination.  The optimizer-slot half comes
-with training.
+straight out of the copy's destination.
+
+Optimizer slots pack SLOT-MAJOR and aligned to the weight layout
+(``pack_opt``): ``{"m": Packed, "v": Packed}`` with the weight spec's keys
+and offsets, so slot element i pairs with weight element i and the fused
+update runs once per dtype segment (byte-identical to the reference's
+rows, tests/test_torch_train.py).
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten_like
+from repro_torch.core.tree import (tree_flatten_up_to, tree_leaves, tree_map,
+                                   tree_unflatten_like)
 
 _DTYPE_KEYS = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                torch.float16: "float16", torch.float64: "float64",
@@ -142,3 +148,59 @@ def unpack_params(params: dict) -> dict:
     return {**params,
             "groups": tuple(unpack(g) if is_packed(g) else g
                             for g in params["groups"])}
+
+
+# ---------------------------------------------------------------------------
+# Optimizer-state packing (slot-major, weight-aligned)
+# ---------------------------------------------------------------------------
+def opt_slot_names(opt_tree, spec: PackSpec) -> Tuple[str, ...]:
+    """Slot keys of a per-leaf optimizer state ({leaf: {"m":..,"v":..}}),
+    asserted uniform across leaves; () for stateless optimizers (sgd)."""
+    dicts = tree_flatten_up_to(spec.template, opt_tree)
+    if not dicts:
+        return ()
+    first = tuple(sorted(dicts[0]))
+    for d in dicts:
+        assert isinstance(d, dict) and tuple(sorted(d)) == first, \
+            f"non-uniform optimizer slots: {sorted(d)} vs {list(first)}"
+    return first
+
+
+def pack_opt(spec: PackSpec, opt_tree, stacked: bool = True) -> dict:
+    """{slot: Packed} with segments ALIGNED to the weight spec (same keys,
+    same offsets)."""
+    dicts = tree_flatten_up_to(spec.template, opt_tree)
+    return {s: pack(tree_unflatten_like(spec.template,
+                                        [d[s] for d in dicts]),
+                    spec=spec, stacked=stacked)
+            for s in opt_slot_names(opt_tree, spec)}
+
+
+def unpack_opt(spec: PackSpec, packed_slots: dict):
+    """Inverse of ``pack_opt``: rebuild {leaf: {slot: tensor}} (views)."""
+    slots = tuple(sorted(packed_slots))
+    unpacked = {s: tree_leaves(unpack(packed_slots[s])) for s in slots}
+    per_leaf = [{s: unpacked[s][i] for s in slots}
+                for i in range(len(spec.leaves))]
+    return tree_unflatten_like(spec.template, per_leaf)
+
+
+def opt_is_packed(group_opt) -> bool:
+    return (isinstance(group_opt, dict)
+            and all(is_packed(v) for v in group_opt.values()))
+
+
+def pack_opt_state(opt: dict, params_packed: dict) -> dict:
+    """Pack the ``groups`` of an opt-state dict against the packed params'
+    specs."""
+    return {**opt, "groups": tuple(
+        pack_opt(g_p.spec, g_opt)
+        if is_packed(g_p) and not opt_is_packed(g_opt) else g_opt
+        for g_opt, g_p in zip(opt["groups"], params_packed["groups"]))}
+
+
+def unpack_opt_state(opt: dict, params_packed: dict) -> dict:
+    return {**opt, "groups": tuple(
+        unpack_opt(g_p.spec, g_opt)
+        if is_packed(g_p) and opt_is_packed(g_opt) else g_opt
+        for g_opt, g_p in zip(opt["groups"], params_packed["groups"]))}

@@ -1,8 +1,9 @@
 """Unified relay executor — the one place that issues layer-relay copies
 (the port of ``repro/core/relay.py``).
 
-Every layer-major pass (prefill, serve decode; training's passes next) is
-a per-layer ``body`` run under one schedule:
+Every layer-major pass (prefill, serve decode, training's forward,
+backward and trailing update) is a per-layer ``body`` run under one
+schedule:
 
 * **streams** — stacked ``(N, ...)`` trees (plain or ``packing.Packed``),
   relayed stop by stop onto the compute device;
@@ -28,7 +29,40 @@ through the relay-copy kernel (K4); a device-resident stream is
 sliced as a view under ``transport="xla"`` and copied through K4 under
 ``"pallas"``, as the reference's transports do.  On the CPU "pallas"
 runs K4's plain version and "xla" slices.  Every (G, k, pack, transport)
-computes bit-identical results (tests/test_torch_serve.py).
+computes bit-identical results (tests/test_torch_serve.py,
+tests/test_torch_train.py).
+
+The host is held at most two stops ahead of the device: before it issues
+a fetch it waits until the compute stream has run the stop before the
+one it last issued (the device still has that last stop queued, so it
+does not idle while the host issues the next).  Without that bound nothing stops the host from issuing the whole
+pass at once, and every product still waiting for its write-back (below)
+would hold its device memory meanwhile: device memory would grow with
+depth.
+
+**Per-layer inputs (``xs``)**, e.g. the boundary stash of the backward,
+are a stacked ``(N, ...)`` tree fetched one stop at a time with the
+weights: a tree resting in pinned host memory is copied into its own
+ring of k + 1 slot buffers on the copy stream (``copy_``, as the
+reference moves it with ``device_put``); a device-resident tree is
+sliced as views (a body may update them in place: the decode caches).
+
+**Products that go back to the EPS (``sinks``).**  A training body
+returns per-layer products (the stash, updated weights and optimizer
+slots, shipped gradients); each goes to a ``Sink``, an ``(N, ...)`` tree
+in its placement's resting place, and layer i's product is written into
+row i as soon as it is made: through K4's write-back
+(``relay_copy.writeback_slot``) into pinned host memory, or into a
+device buffer (K4 under ``transport="pallas"``, ``copy_`` under "xla").
+So host-placed products never gather on the device.  Ordering: every
+write-back runs on the SAME copy stream as every fetch of the engine,
+behind an event of the compute stream that made the product, and the
+product is marked with ``record_stream`` for the copy stream so its
+memory is not reused before the write has read it.  Stream order then
+puts each row's write-back before any later fetch of that row, in the
+same step (the backward reading the forward's stash, the trailing
+update reading the shipped gradients) and in the next step's forward.
+A host reader of a sink synchronizes first.
 """
 from __future__ import annotations
 
@@ -47,34 +81,85 @@ class Stream(NamedTuple):
     stacked: Any                 # (N, ...) tree (possibly packing.Packed)
 
 
+class Sink:
+    """Where one per-layer product of a relay rests: an ``(n, ...)`` tree
+    (plain or ``packing.Packed``) allocated at the first write in the
+    placement's resting place (pinned host memory when the placement is
+    enabled on CUDA, else the product's device) and filled row by row.
+    ``tree`` is the result."""
+
+    def __init__(self, placement: Placement, n: int, *, transport="xla",
+                 copy_stream=None):
+        self.placement = placement
+        self.n = n
+        self.transport = transport
+        self.copy_stream = copy_stream
+        self.tree = None
+
+    def write(self, row: int, tree) -> None:
+        """Row ``row`` <- ``tree`` (one layer's product)."""
+        tree = tree_map(lambda a: a.contiguous(), tree)
+        leaves = tree_leaves(tree)
+        if not leaves:            # a stateless optimizer's empty slots
+            self.tree = tree
+            return
+        on_cuda = leaves[0].device.type == "cuda"
+        host = on_cuda and self.placement.enabled
+        if self.tree is None:
+            self.tree = tree_map(
+                lambda a: torch.empty((self.n,) + tuple(a.shape),
+                                      dtype=a.dtype, pin_memory=host,
+                                      device="cpu" if host else a.device),
+                tree)
+        if not on_cuda:
+            relay_copy.writeback_slot(tree, out=self.tree, row=row)
+            return
+        copier = self.copy_stream
+        compute = torch.cuda.current_stream(leaves[0].device)
+        made = torch.cuda.Event()
+        made.record(compute)
+        with torch.cuda.stream(copier):
+            copier.wait_event(made)
+            if host or self.transport == "pallas":
+                relay_copy.writeback_slot(tree, out=self.tree, row=row)
+            else:
+                tree_map(lambda a, d: d[row].copy_(a), tree, self.tree)
+        for a in leaves:
+            a.record_stream(copier)
+
+
 def _index(tree, j: int):
     return tree_map(lambda a: a[j], tree)
 
 
-def _stack(ys_list):
-    return tree_map(lambda *ls: torch.stack(ls), *ys_list)
+def _rows(tree, start: int, size: int):
+    return tree_map(lambda a: a[start:start + size], tree)
 
 
 def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
-               xs=None, reverse: bool = False, group: int = 1,
-               prefetch: int = 0, transport: str = "xla", device="cpu",
-               copy_stream=None, active: Optional[tuple] = None,
+               xs=None, sinks: Sequence[Sink] = (), sink_row0: int = 0,
+               reverse: bool = False, group: int = 1, prefetch: int = 0,
+               transport: str = "xla", device="cpu", copy_stream=None,
+               active: Optional[tuple] = None,
                idle_body: Optional[Callable] = None):
     """Run ``body(carry, slots, x) -> (carry, ys)`` once per layer.
 
     ``slots`` is a tuple of single-layer trees on ``device``, one per
-    stream; ``x`` the layer's slice of ``xs`` (a view: a body may update
-    it in place); ``ys`` per-layer outputs, stacked to ``(N, ...)`` in
-    layer order (or None).  ``reverse=True`` walks layers N-1..0 and still
-    stacks ``ys`` in forward order.  Returns ``(carry, ys)``.
+    stream; ``x`` the layer's slice of ``xs`` (or None); ``ys`` None, or a
+    tuple with one product per sink, written into row ``sink_row0 + i`` of
+    that sink for layer i.  ``reverse=True`` walks layers N-1..0.
+    Returns ``(carry, tuple(sink.tree for sink in sinks) or None)``.
 
-    ``copy_stream`` is the CUDA stream the fetches run on; pass the same
-    one to every pass (the caching allocator reuses a freed slot's memory
-    only for later allocations on the stream it was allocated on).
+    ``copy_stream`` is the CUDA stream the fetches (and the sinks'
+    write-backs) run on; pass the engine's one stream to every pass (the
+    caching allocator reuses a freed slot's memory only for later
+    allocations on the stream it was allocated on, and one stream orders
+    every write-back before any later fetch of its row).
     """
     assert active is None and idle_body is None, \
         "dynamic depth (active / idle_body) is not ported yet"
     streams = tuple(streams)
+    sinks = tuple(sinks)
     assert streams, "relay_scan needs at least one stream"
     n = tree_leaves(streams[0].stacked)[0].shape[0]
     G = max(1, int(group))
@@ -88,21 +173,25 @@ def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
         copier.wait_stream(compute)   # params written before the relay
     else:
         compute = copier = None
+    host_xs = (copier is not None and xs is not None
+               and tree_leaves(xs)[0].device.type == "cpu")
 
-    squeeze = G == 1
     n_bufs = K + 1                # slot buffers per kernel-fetched stream
-    bufs = [None] * n_bufs        # bufs[j][si]: stream si's G-layer slot
+    bufs = [None] * n_bufs        # bufs[j]: (per-stream slot, xs slot)
     freed = [None] * n_bufs       # compute event: buffer j read for good
+    released = []                 # compute events of the stops run so far
     n_fetched = 0
 
     def kernel_fetched(s: Stream) -> bool:
-        return transport == "pallas" or \
-            tree_leaves(s.stacked)[0].device.type != device.type
+        leaves = tree_leaves(s.stacked)
+        return transport == "pallas" or not leaves or \
+            leaves[0].device.type != device.type
 
     def fetch(start: int, size: int):
         """One copy per stream (per leaf or dtype segment) for a
-        ``size``-layer slot.  On CUDA it runs on the copy stream into ring
-        buffer n % (k+1), behind the compute event that released it."""
+        ``size``-layer slot, plus the stop's rows of ``xs``.  On CUDA it
+        runs on the copy stream into ring buffer n % (k+1), behind the
+        compute event that released it."""
         nonlocal n_fetched
         j = n_fetched % n_bufs
         n_fetched += 1
@@ -110,80 +199,74 @@ def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
             slots = tuple(
                 relay_copy.fetch_slot(s.stacked, start, size, device=device)
                 if kernel_fetched(s) else
-                s.placement.dev(tree_map(lambda a: a[start:start + size],
-                                         s.stacked))
+                s.placement.dev(_rows(s.stacked, start, size))
                 for s in streams)
-            return slots, None, j
+            x = None if xs is None else _rows(xs, start, size)
+            return slots, x, None, j
+        if len(released) >= 2:
+            released[-2].synchronize()
         with torch.cuda.stream(copier):
             if bufs[j] is None:
-                bufs[j] = tuple(
-                    tree_map(lambda a: torch.empty(
-                        (G,) + tuple(a.shape[1:]), dtype=a.dtype,
-                        device=device), s.stacked)
-                    if kernel_fetched(s) else None for s in streams)
+                alloc = lambda a: torch.empty(
+                    (G,) + tuple(a.shape[1:]), dtype=a.dtype, device=device)
+                bufs[j] = (tuple(tree_map(alloc, s.stacked)
+                                 if kernel_fetched(s) else None
+                                 for s in streams),
+                           tree_map(alloc, xs) if host_xs else None)
                 for t in tree_leaves(bufs[j]):
                     t.record_stream(compute)
             if freed[j] is not None:
                 copier.wait_event(freed[j])
+            sbufs, xbuf = bufs[j]
             slots = tuple(
                 relay_copy.fetch_slot(
                     s.stacked, start, size, device=device,
                     out=tree_map(lambda b: b[:size], buf))
                 if buf is not None else
-                s.placement.dev(tree_map(lambda a: a[start:start + size],
-                                         s.stacked))
-                for s, buf in zip(streams, bufs[j]))
+                s.placement.dev(_rows(s.stacked, start, size))
+                for s, buf in zip(streams, sbufs))
+            if xs is None:
+                x = None
+            elif host_xs:
+                x = tree_map(lambda b, a: b[:size].copy_(
+                    a[start:start + size], non_blocking=True), xbuf, xs)
+            else:
+                x = _rows(xs, start, size)
         ready = torch.cuda.Event()
         ready.record(copier)
-        return slots, ready, j
+        return slots, x, ready, j
 
-    def consume(fetched):
-        slots, ready, _ = fetched
+    def run_stop(carry, fetched, start: int, size: int):
+        """Per-layer loop over one fetched ``size``-layer slot; each
+        layer's products go to their sinks."""
+        slots, x, ready, j = fetched
         if ready is not None:
             compute.wait_event(ready)
-        return tuple(_index(t, 0) for t in slots) if squeeze else slots
-
-    def release(fetched):
-        """After the stop's layers are issued: its buffer may be refilled
-        once the compute stream has run them."""
-        if copier is not None:
-            freed[fetched[2]] = torch.cuda.Event()
-            freed[fetched[2]].record(compute)
-
-    def run_stop(carry, slots, start: int, size: int):
-        """Per-layer loop over one fetched G-layer slot."""
-        ys = [None] * size
         order = range(size - 1, -1, -1) if reverse else range(size)
-        for j in order:
-            x_j = None if xs is None else _index(xs, start + j)
-            carry, ys[j] = body(carry, tuple(_index(s, j) for s in slots),
-                                x_j)
-        return carry, (None if all(y is None for y in ys) else _stack(ys))
-
-    def run(carry, i: int, fetched):
-        slots = consume(fetched)
-        if G == 1:
-            out = body(carry, slots, None if xs is None else _index(xs, i))
-        else:
-            out = run_stop(carry, slots, i * G, G)
-        release(fetched)
-        return out
-
-    def run_remainder(carry):
-        fetched = fetch(S * G, R)
-        out = run_stop(carry, consume(fetched), S * G, R)
-        release(fetched)
-        return out
+        for l in order:
+            carry, ys = body(carry, tuple(_index(s, l) for s in slots),
+                             None if x is None else _index(x, l))
+            if ys is not None:
+                assert len(ys) == len(sinks), \
+                    f"body returned {len(ys)} products for {len(sinks)} sinks"
+                for sink, y in zip(sinks, ys):
+                    sink.write(sink_row0 + start + l, y)
+        if copier is not None:
+            # the stop's layers are issued: its buffer may be refilled
+            # once the compute stream has run them
+            freed[j] = torch.cuda.Event()
+            freed[j].record(compute)
+            released.append(freed[j])
+            del released[:-2]
+        return carry
 
     carry = init
-    ys_main = [None] * S
-    ys_rem = None
     if reverse and R:
-        carry, ys_rem = run_remainder(carry)
+        carry = run_stop(carry, fetch(S * G, R), S * G, R)
     stops = range(S - 1, -1, -1) if reverse else range(S)
     if S and K == 0:
         for i in stops:
-            carry, ys_main[i] = run(carry, i, fetch(i * G, G))
+            carry = run_stop(carry, fetch(i * G, G), i * G, G)
     elif S:
         first, step = (S - 1, -1) if reverse else (0, 1)
         pending = [fetch(min(max(first + step * d, 0), S - 1) * G, G)
@@ -191,20 +274,8 @@ def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
         for i in stops:
             nxt = max(i - K, 0) if reverse else min(i + K, S - 1)
             fetched = fetch(nxt * G, G)
-            carry, ys_main[i] = run(carry, i, pending[0])
+            carry = run_stop(carry, pending[0], i * G, G)
             pending = pending[1:] + [fetched]
     if not reverse and R:
-        carry, ys_rem = run_remainder(carry)
-    return carry, _combine_ys(ys_main, ys_rem, G)
-
-
-def _combine_ys(ys_main, ys_rem, group: int):
-    """Per-stop ys (+ the remainder's) -> one (N, ...) tree in layer order."""
-    parts = [y for y in ys_main if y is not None]
-    if group == 1:
-        return _stack(parts) if parts else ys_rem
-    if ys_rem is not None:
-        parts.append(ys_rem)
-    if not parts:
-        return None
-    return tree_map(lambda *ls: torch.cat(ls), *parts)
+        carry = run_stop(carry, fetch(S * G, R), S * G, R)
+    return carry, (tuple(s.tree for s in sinks) if sinks else None)

@@ -1,5 +1,5 @@
 """The Engine facade — the public way to run a schedule (the port of
-``repro/engine/engine.py``, serving half)::
+``repro/engine/engine.py``)::
 
     from repro_torch import engine as engines
 
@@ -9,9 +9,21 @@
     caches, logits = eng.decode_init(params, prompt, live_seq=32)
     logits, caches = eng.decode_step(params, caches, token, cur_pos=16)
 
-An Engine runs on ``cuda`` unless it is built with ``device="cpu"``; on a
-machine without a card it raises instead of moving to the CPU.  Training
-methods come with the next slice.
+    eng = engines.create("l2l-p", get_config("bert-large"), ExecutionConfig(
+        n_microbatches=4, weight_stream=True, pack_params=True,
+        prefetch_depth=1, transport="pallas", offload_stash=True))
+    state = eng.init(torch.Generator("cuda").manual_seed(0))
+    state, metrics = eng.train_step(state, batch)
+    loss, grads = eng.grads(state, batch)
+
+Registered schedules: ``baseline`` (Alg 1/2), ``l2l`` (Alg 3, trailing
+update), ``l2l-p`` (Alg 4, eager per-layer update).  An Engine runs on
+``cuda`` unless it is built with ``device="cpu"``; on a machine without a
+card it raises instead of moving to the CPU.  The optimizer defaults to
+``adam()``.  A training step is functional: it returns a new state and
+leaves the one it was given as it was.  When it returns, the compute
+stream has been ordered behind the step's last write-back; a host reader
+of the pinned rows synchronizes first.
 """
 from __future__ import annotations
 
@@ -21,12 +33,15 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import baseline as _baseline
 from repro_torch.core import decode as _decode, l2l as _l2l, packing
 from repro_torch.core.eps import make_placements
 from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.engine.registry import register
+from repro_torch.engine.state import TrainState
 from repro_torch.models.model import LayeredModel
+from repro_torch.optim import Optimizer, adam
 
 
 def resolve_device(device) -> torch.device:
@@ -44,10 +59,12 @@ class Engine:
     name = "base"
 
     def __init__(self, model, exec_cfg: Optional[ExecutionConfig] = None, *,
-                 device="cuda", placements=None):
+                 optimizer: Optional[Optimizer] = None, device="cuda",
+                 placements=None):
         if isinstance(model, ModelConfig):
             model = LayeredModel(model)
         self.model = model
+        self.optimizer = optimizer or adam()
         self.device = resolve_device(device)
         self.exec_cfg = self._normalize_cfg(exec_cfg or ExecutionConfig())
         self.placements = placements or make_placements(
@@ -89,24 +106,101 @@ class Engine:
             groups.append(dest)
         return {"embed": embed, "head": head, "groups": tuple(groups)}
 
-    def _relay_params(self, params):
+    def _to_dev(self, tree):
+        return tree_map(lambda a: a.to(self.device), tree)
+
+    def _place_params(self, params):
         """Params in the layout and place the relay expects: with
         ``pack_params`` the stacked groups as per-dtype flat rows; the
         groups in their resting place (pinned host when streaming), the
-        embedding and head on the device.  Idempotent, and cached by
-        object identity: a serving loop that passes the same params every
-        token converts them once."""
+        embedding and head on the device.  Idempotent."""
+        p = packing.pack_params(params) if self.exec_cfg.pack_params \
+            else params
+        return {"embed": self._to_dev(p["embed"]),
+                "head": self._to_dev(p["head"]),
+                "groups": tuple(self.placements.weights[gi].host(g)
+                                for gi, g in enumerate(p["groups"]))}
+
+    def _relay_params(self, params):
+        """``_place_params``, cached by object identity: a serving loop
+        that passes the same params every token converts them once."""
         cached = self._fns.get("_relay_cache")
         if cached is not None and cached[0] is params:
             return cached[1]
-        p = packing.pack_params(params) if self.exec_cfg.pack_params \
-            else params
-        to_dev = lambda t: tree_map(lambda a: a.to(self.device), t)
-        placed = {"embed": to_dev(p["embed"]), "head": to_dev(p["head"]),
-                  "groups": tuple(self.placements.weights[gi].host(g)
-                                  for gi, g in enumerate(p["groups"]))}
+        placed = self._place_params(params)
         self._fns["_relay_cache"] = (params, placed)
         return placed
+
+    # -- training -----------------------------------------------------------
+    def _init_opt_legacy(self, params) -> dict:
+        return _l2l.init_opt_state(self.optimizer, params, self.exec_cfg)
+
+    def _place_opt(self, opt: dict, params: dict) -> dict:
+        """Optimizer state beside its params: packed like them, the group
+        slots in their resting place, the rest on the device."""
+        if self.exec_cfg.pack_params:
+            opt = packing.pack_opt_state(opt, params)
+        out = {**opt, "embed": self._to_dev(opt["embed"]),
+               "head": self._to_dev(opt["head"]),
+               "groups": tuple(self.placements.opts[gi].host(g)
+                               for gi, g in enumerate(opt["groups"]))}
+        if "loss_scale" in opt:
+            out["loss_scale"] = self._to_dev(opt["loss_scale"])
+        return out
+
+    def init(self, generator: torch.Generator) -> TrainState:
+        """Parameters (``init_params``, in the relay layout and place)
+        and zeroed optimizer slots beside them."""
+        params = self.init_params(generator)
+        return TrainState.from_legacy(
+            params, self._place_opt(self._init_opt_legacy(params), params))
+
+    def _place_state(self, state: TrainState):
+        params = self._place_params(state.params)
+        return params, self._place_opt(state.legacy_opt(), params)
+
+    def _batch(self, batch):
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in batch.items()}
+
+    def _make_step(self):
+        return _l2l.make_train_step(self.model, self.optimizer,
+                                    self.exec_cfg, self.placements,
+                                    self.device, self.copy_stream)
+
+    def _make_grads(self):
+        return _l2l.make_grads_fn(self.model, self.exec_cfg, self.placements,
+                                  self.device, self.copy_stream)
+
+    def _end_of_step(self):
+        if self.copy_stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(
+                self.copy_stream)
+
+    def train_step(self, state: TrainState, batch):
+        """One optimizer step: (state, batch) -> (new state, metrics).  A
+        state in another layout or place (unpacked, on the CPU, from
+        ``bridge``) is converted first."""
+        if "train_step" not in self._fns:
+            self._fns["train_step"] = self._make_step()
+        params, opt = self._place_state(state)
+        with torch.no_grad():
+            new_p, new_o, metrics = self._fns["train_step"](
+                params, opt, self._batch(batch))
+        self._end_of_step()
+        return TrainState.from_legacy(new_p, new_o), metrics
+
+    def grads(self, state_or_params, batch):
+        """(loss, grads) of the schedule, without an update; grads in the
+        unpacked layout."""
+        if "grads" not in self._fns:
+            self._fns["grads"] = self._make_grads()
+        params = getattr(state_or_params, "params", state_or_params)
+        with torch.no_grad():
+            out = self._fns["grads"](self._place_params(params),
+                                     self._batch(batch))
+        self._end_of_step()
+        return out
 
     # -- inference ----------------------------------------------------------
     def prefill(self, params, batch):
@@ -142,9 +236,37 @@ class Engine:
                 cur_pos)
 
 
+@register("baseline")
+class BaselineEngine(Engine):
+    """Algorithms 1/2: conventional execution, the whole model on the
+    device; Alg 2 (gradient accumulation) when ``n_microbatches > 1``."""
+    name = "baseline"
+
+    def _normalize_cfg(self, exec_cfg):
+        # no relay: the packed layout, the copy transport and the EPS are
+        # L2L concerns
+        return dataclasses.replace(exec_cfg, pack_params=False,
+                                   transport="xla", weight_stream=False,
+                                   offload_stash=False)
+
+    def init_params(self, generator: torch.Generator):
+        return self.model.init_params(generator, self.device)
+
+    def _init_opt_legacy(self, params):
+        return _baseline.init_opt_state(self.optimizer, params)
+
+    def _make_step(self):
+        return _baseline.make_train_step(self.model, self.optimizer,
+                                         self.exec_cfg)
+
+    def _make_grads(self):
+        return _baseline.make_grads_fn(self.model, self.exec_cfg)
+
+
 @register("l2l")
 class L2LEngine(Engine):
-    """Algorithm 3 (trailing optimizer); serves exactly as ``l2l-p``."""
+    """Algorithm 3: layer-major relay, gradients shipped to the EPS and
+    applied in a trailing relay; serves exactly as ``l2l-p``."""
     name = "l2l"
 
     def _normalize_cfg(self, exec_cfg):
@@ -153,7 +275,8 @@ class L2LEngine(Engine):
 
 @register("l2l-p")
 class L2LPEngine(Engine):
-    """Algorithm 4 (eager per-layer optimizer); serves exactly as ``l2l``."""
+    """Algorithm 4 (L2L-p): the optimizer for layer l runs inside the
+    reverse relay; serves exactly as ``l2l``."""
     name = "l2l-p"
 
     def _normalize_cfg(self, exec_cfg):

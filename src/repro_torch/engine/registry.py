@@ -1,9 +1,10 @@
 """Open registry of execution engines (the port of
 ``repro/engine/registry.py``).
 
-The serving schedules register themselves on import of
-``repro_torch.engine`` ("l2l" = Alg 3, "l2l-p" = Alg 4 — their serving
-paths are the same); new schedules plug in with the same decorator::
+The schedules register themselves on import of ``repro_torch.engine``
+("baseline" = Alg 1/2, "l2l" = Alg 3, "l2l-p" = Alg 4; the two L2L
+serving paths are the same); new schedules plug in with the same
+decorator::
 
     @register("my-schedule")
     class MyEngine(Engine):
@@ -48,7 +49,8 @@ def create(name: str, model, exec_cfg=None, *,
     ``model`` is a ModelConfig or a built LayeredModel.  ``exec_overrides``
     patches fields onto ``exec_cfg`` (or the default config), e.g.
     ``{"prefetch_depth": 2}``.  Keyword args go to the engine constructor
-    (``device=``, ``placements=``); the device defaults to ``"cuda"``.
+    (``optimizer=``, ``device=``, ``placements=``); the device defaults to
+    ``"cuda"``, the optimizer to ``adam()``.
     """
     if exec_overrides:
         from repro_torch.core.schedule import ExecutionConfig

@@ -20,7 +20,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("relay_copy.cu", "flash_attention.cu")
+SOURCES = ("relay_copy.cu", "flash_attention.cu", "flash_attention_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,13 +32,23 @@ _F32 = ctypes.c_float
 # C entry points and their argument types (every pointer and stream is
 # c_void_p: ctypes would otherwise pass a 32-bit int and cut the pointer)
 SIGNATURES = {
-    "rc_copy_rows": (_P, _P, _I64, _I64, ctypes.POINTER(_I64), _I32, _I32,
-                     _I32, _P),                 # n_chunks blocks bulk stream
+    "rc_copy_rows": (_P, _P, _I64, _I64, _I64,   # src dst starts row_bytes
+                     ctypes.POINTER(_I64), _I32, _I32, _I32, _P),
+    # chunks n_chunks blocks bulk stream
     "fa_fwd": (_P, _P, _P, _P, _P,                       # q k v o lse
                _I32, _I32, _I32, _I32, _I32, _I32,       # B H Hkv Sq Sk D
                ctypes.POINTER(_I64),                     # 12 strides
                _F32, _I32, _I32, _F32, _I32, _P),        # scale causal
-}                                                        # window cap bf16 st
+    # window cap bf16 stream
+    "fa_bwd_dq": (_P, _P, _P, _P, _P, _P, _P,           # q k v do lse dl dq
+                  _I32, _I32, _I32, _I32, _I32, _I32,   # B H Hkv Sq Sk D
+                  ctypes.POINTER(_I64),                 # 21 strides
+                  _F32, _I32, _I32, _I32, _P),          # scale causal
+    "fa_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P,      # ... dk dv
+                   _I32, _I32, _I32, _I32, _I32, _I32,
+                   ctypes.POINTER(_I64),
+                   _F32, _I32, _I32, _I32, _P),         # window bf16 stream
+}
 
 
 def nvcc() -> str:

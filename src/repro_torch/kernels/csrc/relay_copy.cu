@@ -148,25 +148,30 @@ cudaError_t launch_bulk(const char* src, char* dst, int64_t bytes, int blocks,
 }  // namespace
 
 // chunks: n_chunks triples (row, byte_lo, byte_hi) relative to the slot.
-// src may be pinned host memory (read through its mapped device address)
-// or device memory; dst is device memory.
-extern "C" int rc_copy_rows(const void* src, void* dst, int64_t start,
-                            int64_t row_bytes, const int64_t* chunks,
-                            int n_chunks, int blocks, int bulk,
-                            void* stream) {
+// The fetch reads source rows [src_start + row] into slot rows [row]; the
+// write-back (src_start = 0) writes slot rows [row] into destination rows
+// [dst_start + row].  Either side may be pinned host memory (addressed
+// through its mapped device address) or device memory.
+extern "C" int rc_copy_rows(const void* src, void* dst, int64_t src_start,
+                            int64_t dst_start, int64_t row_bytes,
+                            const int64_t* chunks, int n_chunks, int blocks,
+                            int bulk, void* stream) {
   cudaPointerAttributes attr;
   cudaError_t err = cudaPointerGetAttributes(&attr, src);
   if (err != cudaSuccess) return (int)err;
   if (attr.devicePointer == nullptr) return (int)cudaErrorInvalidValue;
   const char* src_b = (const char*)attr.devicePointer;
-  char* dst_b = (char*)dst;
+  err = cudaPointerGetAttributes(&attr, dst);
+  if (err != cudaSuccess) return (int)err;
+  if (attr.devicePointer == nullptr) return (int)cudaErrorInvalidValue;
+  char* dst_b = (char*)attr.devicePointer;
   cudaStream_t s = (cudaStream_t)stream;
   for (int i = 0; i < n_chunks; ++i) {
     const int64_t row = chunks[3 * i];
     const int64_t lo = chunks[3 * i + 1];
     const int64_t hi = chunks[3 * i + 2];
-    const char* from = src_b + (start + row) * row_bytes + lo;
-    char* to = dst_b + row * row_bytes + lo;
+    const char* from = src_b + (src_start + row) * row_bytes + lo;
+    char* to = dst_b + (dst_start + row) * row_bytes + lo;
     const int64_t bytes = hi - lo;
     if (bytes <= 0) continue;
     const uintptr_t align = (uintptr_t)from | (uintptr_t)to | (uintptr_t)bytes;

@@ -9,8 +9,15 @@ skipped.  Bound on an H100: operations at prefill lengths; this first
 version computes in f32 on the CUDA cores (see the source note), so it
 sits far from that bound.
 
-The backward (K3) and with it the ``torch.autograd.Function`` come with
-training; a CUDA call whose inputs require a gradient raises.
+K3a / K3b, the backward (``csrc/flash_attention_bwd.cu``), replace
+``_fa_dq_kernel`` / ``_fa_dkv_kernel`` / ``flash_attention_bwd_bhsd``:
+``delta = rowsum(do·o)`` in plain torch, as the reference computes it,
+then the dq kernel (one block per (b·h, q tile), a loop over key tiles)
+and the dk/dv kernel (one block per (b·hkv, key tile), a loop over the kv
+head's q heads and their q tiles), each recomputing p from
+``(q, k, lse)``.  No atomics, so deterministic.  Bound: operations.
+``kernels.ops.flash_attention`` wraps forward and backward in a
+``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -20,9 +27,11 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ref_attention
+from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
 
-__all__ = ["flash_attention_fwd_bhsd", "flash_attention_fwd_bhsd_plain"]
+__all__ = ["flash_attention_fwd_bhsd", "flash_attention_fwd_bhsd_plain",
+           "flash_attention_bwd_bhsd", "flash_attention_bwd_bhsd_plain",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
 
 _HEAD_DIMS = (32, 64, 128)
 
@@ -50,9 +59,6 @@ def _check(q, k, v):
         raise ValueError(f"flash attention: head dim {D} not in {_HEAD_DIMS}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash attention: the head dim must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash attention: no backward kernel yet "
-                           "(inputs require grad)")
     if B * H > 65535:
         raise ValueError(f"flash attention: B*H = {B * H} blocks too many")
 
@@ -92,3 +98,99 @@ def flash_attention_fwd_bhsd(q, k, v, *, causal=True, window=0,
 
 
 flash_attention_fwd_bhsd.launches = 0
+
+
+def flash_attention_bwd_bhsd_plain(q, k, v, o, lse, do, *, causal=True,
+                                   window=0, block_q=128, block_k=128):
+    """Plain version of ``flash_attention_bwd_bhsd``."""
+    return ref_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                             window=window)
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    _check(q, k, v)
+    B, H, Sq, D = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or do.stride(3) != 1:
+        raise ValueError(f"flash attention bwd: do {tuple(do.shape)} "
+                         f"{do.dtype} (want q's shape and dtype, D "
+                         "contiguous)")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, Sq) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash attention bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} (want contiguous "
+                             f"f32 ({B}, {H}, {Sq}))")
+
+
+def _bwd_args(q, k, v, do, grads, causal, window):
+    B, H, Sq, D = q.shape
+    strides = (ctypes.c_int64 * 21)(
+        *(s for t in (q, k, v, do, *grads) for s in t.stride()[:3]))
+    return strides, (B, H, k.shape[1], Sq, k.shape[2], D), \
+        (1.0 / math.sqrt(D), int(causal), int(window),
+         int(q.dtype == torch.bfloat16),
+         torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
+                           window=0):
+    """K3a: dq (B,H,Sq,D) in q's dtype (a view of a (B,Sq,H,D) tensor)."""
+    if q.device.type == "cpu":
+        return ref_attention_bwd(q, k, v, None, lse, do, causal=causal,
+                                 window=window, delta=delta)[0]
+    _check_bwd(q, k, v, do, lse, delta)
+    B, H, Sq, D = q.shape
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    strides, dims, tail = _bwd_args(q, k, v, do, (dq, dq, dq), causal,
+                                    window)
+    err = build.library().fa_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims, strides,
+        *tail)
+    build.check(err, "fa_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
+                            window=0):
+    """K3b: (dk, dv), each (B,Hkv,Sk,D) in k's dtype (views of
+    (B,Sk,Hkv,D) tensors), summed over each kv head's q heads."""
+    if q.device.type == "cpu":
+        return ref_attention_bwd(q, k, v, None, lse, do, causal=causal,
+                                 window=window, delta=delta)[1:]
+    _check_bwd(q, k, v, do, lse, delta)
+    B, Hkv, Sk, D = k.shape
+    dk, dv = (torch.empty((B, Sk, Hkv, D), dtype=k.dtype,
+                          device=k.device).transpose(1, 2) for _ in range(2))
+    strides, dims, tail = _bwd_args(q, k, v, do, (dk, dk, dv), causal,
+                                    window)
+    err = build.library().fa_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *dims, strides, *tail)
+    build.check(err, "fa_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_bhsd(q, k, v, o, lse, do, *, causal=True, window=0,
+                             block_q=128, block_k=128):
+    """-> (dq, dk, dv) shaped like (q, k, v).  ``delta = rowsum(do·o)`` in
+    plain torch, then K3a and K3b (CUDA) or the plain version (CPU).  No
+    soft cap: the reference's backward has none."""
+    if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
+        return flash_attention_bwd_bhsd_plain(q, k, v, o, lse, do,
+                                              causal=causal, window=window)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                window=window)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
+                                     window=window)
+    return dq, dk, dv

@@ -56,3 +56,56 @@ def ref_attention(q, k, v, *, causal=True, window=0, soft_cap=0.0):
     o = (p @ vf) / l
     lse = (m + torch.log(l))[..., 0]
     return o.to(q.dtype), lse
+
+
+def ref_adam(p, g, m, v, a, clip_scale, *, b1=0.9, b2=0.999, eps=1e-8,
+             wd=0.0, wd_form=False):
+    """Fused Adam/AdamW (``_adam_kernel``) as the eager chain of the
+    per-leaf optimizers, term by term: adam ``p - (a*m)/(√v+eps)``, adamw
+    (``wd_form``) ``p - a*(m/(√v+eps) + wd*p)``.  -> (p', m', v')."""
+    gf = g.float() * clip_scale
+    m2 = b1 * m + (1 - b1) * gf
+    v2 = b2 * v + (1 - b2) * gf * gf
+    pf = p.float()
+    if wd_form:
+        newp = pf - a * (m2 / (torch.sqrt(v2) + eps) + wd * pf)
+    else:
+        newp = pf - a * m2 / (torch.sqrt(v2) + eps)
+    return newp.to(p.dtype), m2, v2
+
+
+def ref_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
+                      delta=None):
+    """Flash-attention backward (``_fa_dq_kernel`` + ``_fa_dkv_kernel``)
+    on whole tensors: p recomputed from (q, k, lse) with the finite -1e30
+    mask, ``delta = rowsum(do*o)``, dq = scale·dS K, dk = dS^T (q·scale),
+    dv = P^T dO; GQA's dk/dv summed over each kv head's q heads.
+    q/o/do (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (dq, dk, dv) in the inputs'
+    dtypes.  ``delta`` may be given in place of ``o``."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    Hkv = k.shape[1]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    qs = q.float() * scale
+    dof = do.float()
+    if delta is None:
+        delta = (dof * o.float()).sum(-1)
+    s = qs @ kf.transpose(-1, -2)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    allow = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        allow &= kp <= qp
+    if window > 0:
+        allow &= (qp - kp) < window
+    s = torch.where(allow, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - delta[..., None])
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qs).view(B, Hkv, rep, Sk, D).sum(2)
+    dv = (p.transpose(-1, -2) @ dof).view(B, Hkv, rep, Sk, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

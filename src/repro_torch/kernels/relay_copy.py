@@ -15,8 +15,17 @@ below the copy engine's rate (see the source note).  The grid is
 card and would take more of the shared memory the layers need.
 
 A pageable host source is not mapped into the card's address space, so a
-host source that is not pinned raises.  The write-back direction
-(``writeback_slot``) is training and comes with it.
+host source that is not pinned raises.
+
+The write-back direction (``writeback_rows`` / ``writeback_slot``, the
+counterpart of the reference's ``writeback_slot``) moves a relay stop's
+products (updated weights and Adam slots, shipped gradients, the boundary
+stash) out of HBM into their row of a stacked ``(N, ...)`` buffer in
+pinned host memory: the same kernel family with the mapped host row as
+the destination, through the load/store loop (SM stores to host memory
+are posted writes).  The chunk plan is the reference's for a product: the
+whole leaf as one flat row, split in two halves.  Bound: the row's bytes
+over PCIe 5.0 x16.  A device destination takes the same kernel.
 """
 from __future__ import annotations
 
@@ -29,7 +38,8 @@ from repro_torch.core.tree import tree_map
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_copy_rows as copy_rows_plain
 
-__all__ = ["copy_rows", "copy_rows_plain", "fetch_slot", "_chunk_plan"]
+__all__ = ["copy_rows", "copy_rows_plain", "fetch_slot", "writeback_rows",
+           "writeback_rows_plain", "writeback_slot", "_chunk_plan"]
 
 
 def _chunk_plan(size: int, width: int) -> tuple:
@@ -99,14 +109,16 @@ def copy_rows(src, start: int, *, size: int, device=None, out=None,
         blocks = BLOCKS_PER_SM * _sm_count(index)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.library().rc_copy_rows(
-        src.data_ptr(), dst.data_ptr(), start, w * es, chunks, len(plan) // 3,
-        int(blocks), int(bulk), stream)
+        src.data_ptr(), dst.data_ptr(), start, 0, w * es, chunks,
+        len(plan) // 3, int(blocks), int(bulk), stream)
     build.check(err, "rc_copy_rows")
     copy_rows.launches += 1
+    copy_rows.bytes += size * w * es
     return dst
 
 
 copy_rows.launches = 0
+copy_rows.bytes = 0          # bytes moved by the launches counted
 
 
 def _flat_width(shape) -> int:
@@ -136,3 +148,70 @@ def fetch_slot(stacked, start: int, size: int, *, squeeze: bool = False,
     if out is None:
         return tree_map(one, stacked)
     return tree_map(one, stacked, out)
+
+
+def writeback_rows_plain(src, dst, row: int):
+    """Plain version of ``writeback_rows``: ``dst[row] = src``."""
+    dst[row].copy_(src)
+    return dst
+
+
+def writeback_rows(src, dst, row: int, *, blocks=None):
+    """Write one layer's product ``src`` (a contiguous tensor) into row
+    ``row`` of the stacked buffer ``dst`` (``(N,) + src.shape``, same
+    dtype), bit-exact.  CPU -> CPU runs the plain version; a CUDA source
+    launches K4's write-back on the current stream (the relay's copy
+    stream), into pinned host memory or device memory.  Returns ``dst``."""
+    if src.device.type == "cpu" and dst.device.type == "cpu":
+        return writeback_rows_plain(src, dst, row)
+    if src.device.type != "cuda":
+        raise ValueError(f"writeback_rows: source on {src.device}, "
+                         "not a CUDA device")
+    if dst.device.type == "cpu":
+        if not dst.is_pinned():
+            raise ValueError("writeback_rows: host destination must be "
+                             "pinned (pageable memory is not mapped on "
+                             "the card)")
+    elif dst.device != src.device:
+        raise ValueError(f"writeback_rows: source on {src.device}, "
+                         f"destination {dst.device}")
+    if dst.dtype != src.dtype or tuple(dst.shape[1:]) != tuple(src.shape) \
+            or not (src.is_contiguous() and dst.is_contiguous()):
+        raise ValueError(f"writeback_rows: src {tuple(src.shape)} "
+                         f"{src.dtype} into dst {tuple(dst.shape)} "
+                         f"{dst.dtype} (both contiguous)")
+    if not 0 <= row < dst.shape[0]:
+        raise ValueError(f"writeback_rows: row {row} outside "
+                         f"0..{dst.shape[0]}")
+    w = src.numel()
+    if w == 0:
+        return dst
+    es = src.element_size()
+    plan = [v for r, lo, hi in _chunk_plan(1, w)
+            for v in (r, lo * es, hi * es)]
+    chunks = (ctypes.c_int64 * len(plan))(*plan)
+    index = src.device.index if src.device.index is not None \
+        else torch.cuda.current_device()
+    if blocks is None:
+        blocks = BLOCKS_PER_SM * _sm_count(index)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    err = build.library().rc_copy_rows(
+        src.data_ptr(), dst.data_ptr(), 0, row, w * es, chunks,
+        len(plan) // 3, int(blocks), 0, stream)
+    build.check(err, "rc_copy_rows (write-back)")
+    writeback_rows.launches += 1
+    writeback_rows.bytes += w * es
+    return dst
+
+
+writeback_rows.launches = 0
+writeback_rows.bytes = 0
+
+
+def writeback_slot(tree, *, out, row: int):
+    """Write-back of one relay stop's products: every leaf of ``tree``
+    (one layer's tensors; a plain tree or ``packing.Packed``) into row
+    ``row`` of the same-structured stacked tree ``out``, each moved by
+    ``writeback_rows``.  Returns ``out``."""
+    tree_map(lambda a, d: writeback_rows(a, d, row), tree, out)
+    return out

@@ -1,0 +1,153 @@
+"""Training CLI (the port of ``repro/launch/train.py``): end-to-end
+single-card training through the Engine facade — L2L-p by default, the
+Alg-3 L2L or the baseline for comparison — on the synthetic LM data::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \\
+        --variant full --engine l2l-p --steps 5 --batch 32 --seq 512 \\
+        --ub 4 --weight-stream --pack --prefetch 1 --transport pallas \\
+        --offload-stash
+
+Runs on the card unless ``--device cpu``.  Prints each logged step's loss,
+grad norm and wall time, then one JSON line.  Checkpoints, the disk tier,
+the host optimizer and dynamic depth are not ported: their flags raise.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import engine as engines
+from repro_torch.configs.base import get_config
+from repro_torch.core.schedule import ExecutionConfig
+from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.optim import get_optimizer, make_schedule
+
+# flags of the reference's CLI whose features the port does not have
+NOT_PORTED = ("--ckpt-dir", "--ckpt-every", "--keep-last", "--resume",
+              "--step-delay-ms", "--tiers", "--host-budget", "--tier-dir",
+              "--host-optimizer", "--dynamic-depth", "--run-layers")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="bert-large")
+    ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
+    ap.add_argument("--engine", default="l2l",
+                    choices=["l2l", "l2l-p", "baseline"])
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ub", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--lr-schedule", default="cosine")
+    ap.add_argument("--optimizer", default="adam",
+                    choices=["adam", "adamw", "lamb", "sgd"])
+    ap.add_argument("--clip", type=float, default=1.0)
+    ap.add_argument("--no-eager", action="store_true",
+                    help="with --engine l2l: trailing optimizer (Alg 3) "
+                         "instead of the eager L2L-p schedule")
+    ap.add_argument("--offload-stash", action="store_true",
+                    help="boundary stash in pinned host memory")
+    ap.add_argument("--stash-every", type=int, default=1,
+                    help="K: stash every K-th layer boundary, recompute "
+                         "the others in the backward")
+    ap.add_argument("--weight-stream", action="store_true",
+                    help="weights and optimizer slots rest in pinned host "
+                         "memory (the EPS)")
+    ap.add_argument("--prefetch", type=int, default=0,
+                    help="k: relay stops in flight ahead of compute")
+    ap.add_argument("--group", type=int, default=1,
+                    help="G: layers per relay stop")
+    ap.add_argument("--pack", action="store_true",
+                    help="one flat row per dtype per layer; the eager "
+                         "update runs fused on the flat segments")
+    ap.add_argument("--transport", default="xla", choices=["xla", "pallas"],
+                    help="'pallas': device-resident rows move through the "
+                         "relay-copy kernel too")
+    ap.add_argument("--skip-nonfinite", action="store_true",
+                    help="reject a step whose gradients hold inf/nan")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--d-model", type=int, default=0)
+    ap.add_argument("--n-layers", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    for flag in NOT_PORTED:
+        ap.add_argument(flag, default=None, nargs="?", const=True,
+                        help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    for flag in NOT_PORTED:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            ap.error(f"{flag}: not ported to the PyTorch package yet")
+
+    engine_name = args.engine
+    if engine_name == "l2l" and not args.no_eager:
+        engine_name = "l2l-p"
+    elif engine_name == "l2l-p" and args.no_eager:
+        ap.error("--no-eager contradicts --engine l2l-p "
+                 "(use --engine l2l --no-eager for Algorithm 3)")
+
+    cfg = get_config(args.arch, args.variant)
+    over = {"max_seq_len": max(cfg.max_seq_len, args.seq)}
+    if args.d_model:
+        over.update(d_model=args.d_model, d_ff=args.d_model * 4,
+                    n_heads=max(1, args.d_model // 64),
+                    n_kv_heads=max(1, min(cfg.n_kv_heads,
+                                          args.d_model // 64)))
+    if args.n_layers:
+        over["n_layers"] = args.n_layers
+    cfg = cfg.replace(**over)
+
+    opt = get_optimizer(
+        args.optimizer,
+        schedule=make_schedule(args.lr, warmup=args.warmup,
+                               total=args.steps, kind=args.lr_schedule))
+    exec_cfg = ExecutionConfig(
+        n_microbatches=args.ub, offload_stash=args.offload_stash,
+        stash_every=args.stash_every, weight_stream=args.weight_stream,
+        prefetch_depth=args.prefetch, layers_per_relay=args.group,
+        pack_params=args.pack, transport=args.transport,
+        skip_nonfinite=args.skip_nonfinite,
+        clip_mode="per_layer" if args.clip > 0 else "none",
+        clip_norm=args.clip)
+    eng = engines.create(engine_name, cfg, exec_cfg, optimizer=opt,
+                         device=args.device)
+    dev = eng.device
+    print(f"arch={cfg.name} engine={eng.name} layers={cfg.n_layers} "
+          f"d={cfg.d_model} device={dev}", flush=True)
+    state = eng.init(torch.Generator(device=dev).manual_seed(args.seed))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=args.seq, global_batch=args.batch,
+                                  seed=args.seed))
+    losses, times = [], []
+    skipped = 0
+    for i in range(args.steps):
+        batch = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
+        t0 = time.perf_counter()
+        state, metrics = eng.train_step(state, batch)
+        loss = float(metrics["loss"])          # waits for the step
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        skipped += int(metrics.get("skipped_steps", 0))
+        if i % args.log_every == 0 or i == args.steps - 1:
+            print(f"step {i:5d}  loss {loss:8.4f}  gnorm "
+                  f"{float(metrics['grad_norm']):8.3f}  {times[-1]:.3f}s",
+                  flush=True)
+    steady = (float(np.mean(times[1:])) if len(times) > 1 else None)
+    print(json.dumps({"final_loss": losses[-1] if losses else None,
+                      "initial_loss": losses[0] if losses else None,
+                      "first_step_s": times[0] if times else None,
+                      "steady_s_per_step": steady,
+                      "steps": args.steps, "final_step": int(state.step),
+                      "skipped_steps": skipped, "device": str(dev)}))
+    return losses
+
+
+if __name__ == "__main__":
+    main()

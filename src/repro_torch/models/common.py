@@ -136,8 +136,11 @@ def apply_rope(x, positions, theta: float, fraction: float = 1.0):
 # ---------------------------------------------------------------------------
 def embed_tokens(w, tokens, cfg, dtype):
     """Plain embedding row lookup — no scaling for either norm type, so
-    ``prepare`` (prefill) and ``decode_embed`` (decode) agree."""
-    return w["tok"][tokens].to(dtype)
+    ``prepare`` (prefill) and ``decode_embed`` (decode) agree.  Through
+    ``F.embedding``, whose backward on CUDA sums each row's gradients
+    without atomics (an indexing lookup's backward would accumulate with
+    them), so a training step is deterministic."""
+    return F.embedding(tokens, w["tok"]).to(dtype)
 
 
 def logits_fn(head_w, embed_w, x, cfg):
@@ -151,3 +154,13 @@ def logits_fn(head_w, embed_w, x, cfg):
         logits = c * torch.tanh(logits / c)
     return logits
 
+
+
+def softmax_xent(logits, targets, mask):
+    """Cross-entropy, f32 reduction.  mask: (B,S) weights.
+    -> (loss_sum, weight_sum)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum(), mask.sum()

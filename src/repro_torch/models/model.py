@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
@@ -18,7 +19,7 @@ from repro_torch.models.blocks import Ctx
 from repro_torch.models.common import (ParamSpec, apply_norm, embed_tokens,
                                        init_leaf, init_std, is_spec,
                                        logits_fn, materialize, norm_spec,
-                                       stack_specs)
+                                       softmax_xent, stack_specs)
 
 
 class Group(NamedTuple):
@@ -127,6 +128,36 @@ class LayeredModel:
         cfg = self.cfg
         x = apply_norm(static["head"]["ln_f"], x, cfg.norm_eps)
         return logits_fn(static["head"], static["embed"], x, cfg)
+
+    def head_loss(self, static, x, batch):
+        """-> (loss_sum, weight_sum); the caller normalizes.  BERT's head
+        is untied: ``ln_f`` (layernorm), then ``out``."""
+        return softmax_xent(self.decode_logits(static, x), batch["targets"],
+                            batch["mask"])
+
+    def full_loss(self, params, batch, remat: bool = False):
+        """The whole model at once (the baseline engines):
+        -> (loss, (loss_sum, weight_sum, aux)).  ``remat`` recomputes each
+        layer in the backward (``torch.utils.checkpoint``)."""
+        static = {"embed": params["embed"], "head": params["head"]}
+        x, _ = self.prepare(static, batch)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for gi, group in enumerate(self.groups):
+            ctx = self.train_ctx(batch, group)
+            stacked = params["groups"][gi]
+            for li in range(group.n_layers):
+                w = tree_map(lambda a, _l=li: a[_l], stacked)
+                if remat:
+                    x, aux = torch.utils.checkpoint.checkpoint(
+                        lambda ww, h, _g=group, _c=ctx: _g.apply(ww, h, None,
+                                                                 _c),
+                        w, x, use_reentrant=False)
+                else:
+                    x, aux = group.apply(w, x, None, ctx)
+                aux_total = aux_total + aux
+        loss_sum, wsum = self.head_loss(static, x, batch)
+        loss = loss_sum / wsum.clamp_min(1.0) + aux_total
+        return loss, (loss_sum, wsum, aux_total)
 
     def decode_groups(self):
         return tuple(g for g in self.groups if not g.is_encoder)

@@ -57,3 +57,79 @@ def test_port_imports_neither_jax_nor_the_reference(path):
     for mod in _imports(ROOT / path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {mod}"
+
+
+# ---- training states ----------------------------------------------------
+from repro import engine as jengines  # noqa: E402
+from repro.core import packing as jpacking  # noqa: E402
+from repro.core.schedule import ExecutionConfig as JExec  # noqa: E402
+from repro.data.synthetic import DataConfig as JDataConfig  # noqa: E402
+from repro.data.synthetic import SyntheticLM as JSyntheticLM  # noqa: E402
+from repro_torch.core import packing as tpacking  # noqa: E402
+from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def jax_state():
+    """A packed JAX l2l-p TrainState with bf16 masters, the loss scale on,
+    and Adam slots filled with numpy draws (so no slot is all zeros)."""
+    from repro.engine.state import TrainState as JState
+    cfg = jget_config("bert-large", "smoke").replace(
+        n_layers=2, param_dtype="bfloat16")
+    eng = jengines.create("l2l-p", cfg, JExec(
+        pack_params=True, n_microbatches=2, loss_scale_init=128.0),
+        donate=False)
+    state = eng.init(jax.random.PRNGKey(3))
+    rs = np.random.RandomState(0)
+    opt = jpacking.unpack_opt_state(state.legacy_opt(), state.params)
+    opt = {k: jax.tree.map(lambda a: jnp.asarray(
+        rs.randn(*a.shape).astype(np.float32)), opt[k])
+        for k in ("embed", "head", "groups")}
+    opt = jpacking.pack_opt_state({**opt, "step": jnp.int32(7),
+                                   "loss_scale": state.loss_scale},
+                                  state.params)
+    return JState.from_legacy(state.params, opt)
+
+
+@pytest.mark.parametrize("pack", [False, True])
+def test_train_state_round_trip_is_bit_exact(jax_state, pack):
+    opt = jpacking.unpack_opt_state(jax_state.legacy_opt(), jax_state.params)
+    params = jax.tree.map(np.asarray,
+                          jpacking.unpack_params(jax_state.params))
+    opt_np = {k: jax.tree.map(np.asarray, opt[k])
+              for k in ("embed", "head", "groups")}
+    ls = jax.tree.map(np.asarray, jax_state.loss_scale)
+    st = bridge.train_state_from_numpy(params, opt_np, int(jax_state.step),
+                                       ls, pack=pack)
+    assert tpacking.is_packed(st.params["groups"][0]) == pack
+    assert tpacking.opt_is_packed(st.opt_state["groups"][0]) == pack
+    if pack:
+        # the port's packed rows are the reference's, byte for byte
+        for key, seg in jax_state.params["groups"][0].segs.items():
+            assert bridge.params_to_numpy(
+                st.params["groups"][0].segs[key]).tobytes() == \
+                _bits(seg).tobytes()
+        for slot in ("m", "v"):
+            for key, seg in jax_state.opt_state["groups"][0][slot] \
+                    .segs.items():
+                assert st.opt_state["groups"][0][slot].segs[key] \
+                    .numpy().tobytes() == np.asarray(seg).tobytes()
+    p2, o2, step, ls2 = bridge.train_state_to_numpy(st)
+    assert step == int(jax_state.step)
+    for want, got in ((params, p2), (opt_np, o2), (ls, ls2)):
+        lw, lg = jax.tree.leaves(want), jax.tree.leaves(got)
+        assert len(lw) == len(lg)
+        for w, g in zip(lw, lg):
+            assert g.dtype == _bits(w).dtype and \
+                g.tobytes() == _bits(w).tobytes()
+
+
+@pytest.mark.parametrize("seed,step", [(0, 0), (7, 3)])
+def test_synthetic_batches_equal_the_reference(seed, step):
+    kw = dict(vocab_size=512, seq_len=48, global_batch=3, seed=seed)
+    want = JSyntheticLM(JDataConfig(**kw)).batch(step)
+    got = SyntheticLM(DataConfig(**kw)).batch(step)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert np.array_equal(got[k], want[k]), k

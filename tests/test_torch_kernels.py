@@ -107,3 +107,149 @@ def test_cuda_only_paths_refuse_cpu_misuse():
     src = torch.zeros(2, 4)
     with pytest.raises(ValueError):
         trc.copy_rows(src, 0, size=1, device="meta")
+
+
+# ---- K1 fused Adam: the plain version against the Pallas kernel --------
+from repro.kernels import fused_adam as jadam  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import fused_adam as tadam  # noqa: E402
+
+
+@pytest.mark.parametrize("wd_form,wd", [(False, 0.0), (True, 0.01),
+                                        (True, 0.0)])
+@pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+def test_fused_adam_plain_matches_pallas(wd_form, wd, p_dtype):
+    rs = np.random.RandomState(7)
+    n = 4096
+    p = rs.randn(n).astype(np.float32)
+    g = (rs.randn(n) * 1e-2).astype(np.float32)
+    m = (rs.randn(n) * 1e-3).astype(np.float32)
+    v = (np.abs(rs.randn(n)) * 1e-5).astype(np.float32)
+    a, clip = np.float32(3e-4), np.float32(0.5)
+    jdt = jnp.dtype(p_dtype)
+    jp, jm, jv = jadam.fused_adam_flat(
+        jnp.asarray(p).astype(jdt), jnp.asarray(g), jnp.asarray(m),
+        jnp.asarray(v), jnp.float32(a), jnp.float32(clip), wd=wd,
+        wd_form=wd_form, block=1024, interpret=True)
+    tp = torch.from_numpy(p).to(getattr(torch, p_dtype))
+    got = tadam.fused_adam_flat(tp, torch.from_numpy(g), torch.from_numpy(m),
+                                torch.from_numpy(v), torch.tensor(a),
+                                torch.tensor(clip), wd=wd, wd_form=wd_form)
+    # the Pallas f32 adam arm is not bitwise to the eager chain on the CPU
+    # (two red reference tests: XLA contracts b1*m + (1-b1)*g into an FMA,
+    # and where the two terms cancel the relative error grows): 1e-6
+    # relative to each array's largest value; bf16 masters may round to
+    # the neighbouring value (one bf16 ulp, 2^-8 relative)
+    def close(got_, want_, rtol=1e-6):
+        want_ = np.asarray(want_).astype(np.float32)
+        np.testing.assert_allclose(got_.float().numpy(), want_, rtol=rtol,
+                                   atol=1e-6 * np.abs(want_).max())
+    tol = 8e-3 if p_dtype == "bfloat16" else 1e-6
+    close(got[0], jp, tol)
+    close(got[1], jm)
+    close(got[2], jv)
+    if wd_form:
+        want = jref.ref_adam(jnp.asarray(p).astype(jdt), jnp.asarray(g),
+                             jnp.asarray(m), jnp.asarray(v), a, clip, wd=wd)
+        close(got[0], want[0], tol)
+
+
+def test_fused_adam_op_keeps_shape():
+    p = torch.randn(3, 5)
+    z = torch.zeros(3, 5)
+    out = tops.fused_adam(p, torch.ones(3, 5), z, z, 1e-3, 1.0)
+    assert all(o.shape == (3, 5) for o in out)
+    assert torch.equal(out[1], torch.full((3, 5), 0.1))
+
+
+# ---- K3 flash-attention backward ---------------------------------------
+# (B, H, Hkv, S, D, mask): causal, a window, and two lengths that the CUDA
+# kernels' 64- and 32-row tiles do not divide, one of them GQA
+_BWD = [(2, 2, 2, 128, 32, dict(causal=True)),
+        (1, 2, 2, 128, 64, dict(causal=True, window=40)),
+        (1, 4, 2, 72, 32, dict(causal=True)),
+        (1, 2, 2, 100, 32, dict(causal=False))]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,mask", _BWD)
+def test_flash_attention_bwd_matches_pallas(B, H, Hkv, S, D, mask):
+    rs = np.random.RandomState(S * D)
+    q = rs.randn(B, H, S, D).astype(np.float32)
+    k = rs.randn(B, Hkv, S, D).astype(np.float32)
+    v = rs.randn(B, Hkv, S, D).astype(np.float32)
+    do = rs.randn(B, H, S, D).astype(np.float32)
+    rep = H // Hkv
+    ke, ve = np.repeat(k, rep, axis=1), np.repeat(v, rep, axis=1)
+    o, lse = jfa.flash_attention_fwd_bhsd(
+        jnp.asarray(q), jnp.asarray(ke), jnp.asarray(ve), interpret=True,
+        **mask)
+    jdq, jdk, jdv = jfa.flash_attention_bwd_bhsd(
+        jnp.asarray(q), jnp.asarray(ke), jnp.asarray(ve), o, lse,
+        jnp.asarray(do), interpret=True, **mask)
+    jdk = np.asarray(jdk).reshape(B, Hkv, rep, S, D).sum(2)
+    jdv = np.asarray(jdv).reshape(B, Hkv, rep, S, D).sum(2)
+    got = tfa.flash_attention_bwd_bhsd(
+        *(torch.from_numpy(np.asarray(a)) for a in (q, k, v, o, lse, do)),
+        **mask)
+    # f32, tiled sums in the Pallas kernel against whole-row products: 1e-5
+    for g, w in zip(got, (np.asarray(jdq), jdk, jdv)):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5)
+    # the K3a / K3b wrappers' CPU paths give the same pieces
+    t = [torch.from_numpy(np.asarray(a)) for a in (q, k, v, do, lse)]
+    delta = (t[3] * torch.from_numpy(np.asarray(o))).sum(-1)
+    assert torch.equal(tfa.flash_attention_bwd_dq(*t, delta, **mask), got[0])
+    dk, dv = tfa.flash_attention_bwd_dkv(*t, delta, **mask)
+    assert torch.equal(dk, got[1]) and torch.equal(dv, got[2])
+
+
+@pytest.mark.parametrize("mask", [dict(causal=True),
+                                  dict(causal=True, window=9)])
+def test_flash_attention_autograd_matches_reference(mask):
+    """ops.flash_attention (the autograd.Function) against torch autograd
+    through ref_attention, on the model's (B, S, H, D) layout with GQA."""
+    from repro_torch.kernels.ref import ref_attention
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 48, h, 32, generator=g) for h in (4, 2, 2))
+    do = torch.randn(2, 48, 4, 32, generator=g)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tops.flash_attention(*leaves, **mask)
+    got = torch.autograd.grad(out, leaves, do)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_o = ref_attention(*(t.transpose(1, 2) for t in leaves),
+                           **mask)[0].transpose(1, 2)
+    want = torch.autograd.grad(want_o, leaves, do)
+    # f32: autograd through softmax vs the recomputed-p formula, 1e-5
+    assert torch.equal(out.detach(), want_o.detach())
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_flash_attention_soft_cap_has_no_backward():
+    q = torch.randn(1, 16, 2, 32, requires_grad=True)
+    out = tops.flash_attention(q, q, q, soft_cap=5.0)
+    with pytest.raises(NotImplementedError):
+        out.sum().backward()
+
+
+# ---- K4 write-back -----------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_writeback_slot_bitwise(dtype):
+    """A layer's products land in their row of the stacked buffers, bit
+    for bit, as the reference's write-back (an identity copy) leaves
+    them."""
+    import jax
+    rs = np.random.RandomState(11)
+    tree = {"a": rs.randn(4, 5).astype(np.float32),
+            "b": {"c": rs.randn(7).astype(np.float32)}}
+    jt = jax.tree.map(lambda a: jnp.asarray(a).astype(dtype), tree)
+    want = jrc.writeback_slot(jt, interpret=True)
+    tt = jax.tree.map(lambda a: torch.from_numpy(a).to(getattr(torch, dtype)),
+                      tree)
+    out = {"a": torch.zeros(3, 4, 5, dtype=getattr(torch, dtype)),
+           "b": {"c": torch.zeros(3, 7, dtype=getattr(torch, dtype))}}
+    trc.writeback_slot(tt, out=out, row=1)
+    for w, o in [(want["a"], out["a"]), (want["b"]["c"], out["b"]["c"])]:
+        w = np.asarray(w.astype(jnp.float32))
+        assert np.array_equal(o[1].float().numpy(), w)
+        assert not o[0].any() and not o[2].any()
