@@ -7,11 +7,19 @@ Phases, one JSON line each:
 
 1. build    — compile the CUDA C++ kernels from the checkout's sources
               (one nvcc per source, all started together);
+   sm90-kernels — the wgmma kernels (K2 and K3b's bf16 route) at each head
+              dim: ptxas's registers and spill bytes, their dynamic shared
+              memory and the HGMMA instructions in their SASS (both must
+              be: no spills, tensor-core instructions present);
 2. init     — granite-3-8b at full width, random weights from a seeded CUDA
               generator, drawn layer by layer into the pinned-host EPS;
 3. kernels  — every kernel (serving: K2, K4 fetch, K5; training: K1,
-              K3a, K3b, K4 write-back) against its plain PyTorch version
-              on the card, at the paths' shapes, with times; then
+              K2, K3a, K3b, K4 write-back) against its plain PyTorch
+              version on the card, at the paths' shapes, with times; the
+              bf16 K2 and K3b rows also time the CUDA-core kernel bf16
+              took before (``previous_ms``, in turns with the new one) and
+              give SDPA's own error against the plain version
+              (``library_err``); then
    layer    — one decode layer's compute time beside one row copy;
 4. grid     — the relay knobs (pack, prefetch, G, resting place) at smoke
               size on the card: results bitwise equal;
@@ -35,7 +43,9 @@ Phases, one JSON line each:
               UB=4 on one repeated synthetic batch, every kernel counter
               set to 0 just before and read just after; then the peak
               HBM of two steps at depth 12 beside depth 24's.
-10. launches — every kernel's count over the two main paths (all > 0).
+10. launches — every kernel's count over the two main paths (all > 0),
+              and K2's and K3b's counts by route: every bf16 launch of
+              both paths on the wgmma route, none on the CUDA-core one.
 
 Then the kernel table line, the card's name and power limit, and the
 result line.  Any failed check raises, so the script exits nonzero and
@@ -83,6 +93,56 @@ def time_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps):
+    """Mean device time of ``fn`` with the host out of the way: ``reps``
+    calls captured in one CUDA graph, the graph replayed and timed with
+    events.  At small shapes ``time_ms``'s back-to-back eager calls time
+    the host's issue rate, not the kernel."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def in_turns(torch, fn, prev, reps, timer=graph_ms):
+    """Mean times of ``fn`` and ``prev`` (by ``graph_ms`` unless another
+    ``timer`` is given), timed new, old, old, new on the same inputs."""
+    a1, b1, b2, a2 = (timer(torch, f, reps) for f in (fn, prev, prev, fn))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def reset_counts(counters):
+    """Set every kernel counter (and its per-route counts) to 0."""
+    for c in counters:
+        c.launches = 0
+        for r in getattr(c, "launches_by_route", ()):
+            c.launches_by_route[r] = 0
+
+
+def route_counts(fa, bwd=True):
+    """The launches of K2 (and K3b) by route (wgmma / cuda_core)."""
+    out = {"flash_attention_fwd":
+           dict(fa.flash_attention_fwd_bhsd.launches_by_route)}
+    if bwd:
+        out["flash_attention_bwd_dkv"] = dict(
+            fa.flash_attention_bwd_dkv.launches_by_route)
+    return out
+
+
 def host_depth(layer_bytes: int, n_layers: int, reserve: int) -> int:
     """Layers whose pinned EPS fits in MemAvailable beside ``reserve``
     bytes.  Pinned allocations are rounded up to a power of two."""
@@ -105,7 +165,7 @@ def bf16_ulp_ok(torch, got, ref):
     return bool(((got.float() - ref.float()).abs() <= ulp).all())
 
 
-def train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, get_config,
+def train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, ref, get_config,
                       LayeredModel, tree_leaves, is_spec):
     """K1, K3a, K3b and K4's write-back against their plain versions at
     the training path's shapes (bert-large), with times."""
@@ -184,36 +244,63 @@ def train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, get_config,
         qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
                       for t in (q, k, v))
         ref_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lib = torch.autograd.grad(ref_o, (qs, ks, vs), dot, retain_graph=True)
+        lib_errs = [float((x.float() - y.float()).abs().max())
+                    for x, y in zip(lib, plain)]
+        # the bf16 route's own rounding points, emulated in plain torch
+        emu = ref.ref_attention_bwd(qt, kt, vt, ot, lse, dot, causal=True,
+                                    tensor_cores=True)
+        emu_err = max(float((x.float() - y.transpose(1, 2).float())
+                            .abs().max()) for x, y in zip(got[1:], emu[1:]))
+        # SDPA's backward runs in the autograd engine, which a CUDA graph
+        # cannot capture here: eager calls
         lib_ms = time_ms(torch, lambda: torch.autograd.grad(
             ref_o, (qs, ks, vs), dot, retain_graph=True), 5)
         plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_bhsd_plain(
             qt, kt, vt, ot, lse, dot, causal=True), 5)
         in_bytes = 4 * q.numel() * 2 + 2 * lse.numel() * 4
-        for name, fn, ops, err, out_bytes, line in (
+        for name, fn, ops, err, lerr, out_bytes, line, prev in (
                 ("flash_attention_bwd_dq",
                  lambda: fa.flash_attention_bwd_dq(
                      qt, kt, vt, dot, lse, delta, causal=True),
-                 6 * D * pairs, errs[0], 2 * q.numel(), 145),
+                 6 * D * pairs, errs[0], lib_errs[0], 2 * q.numel(), 145,
+                 None),
                 ("flash_attention_bwd_dkv",
                  lambda: fa.flash_attention_bwd_dkv(
                      qt, kt, vt, dot, lse, delta, causal=True),
-                 8 * D * pairs, max(errs[1:]), 4 * q.numel(), 174)):
+                 8 * D * pairs, max(errs[1:]), max(lib_errs[1:]),
+                 4 * q.numel(), 174,
+                 lambda: fa.flash_attention_bwd_dkv(
+                     qt, kt, vt, dot, lse, delta, causal=True,
+                     route="cuda_core"))):
             nbytes = in_bytes + out_bytes
-            rows.append({
+            row = {
                 "name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/"
-                          "flash_attention_bwd.cu",
+                "kernel_route": "cuda_core" if prev is None else "wgmma",
+                "source": "src/repro_torch/kernels/csrc/" + (
+                    "flash_attention_bwd.cu" if prev is None
+                    else "flash_attention_bwd_sm90.cu"),
                 "replaces": f"src/repro/kernels/flash_attention.py:{line}",
                 "shape": [B, S, H, D], "layout": "BSHD", "dtype": "bfloat16",
                 "max_abs_err": err, "max_abs_grad": top,
-                "ms": time_ms(torch, fn, 5),
+                "ms": graph_ms(torch, fn, 20),
+                "eager_ms": time_ms(torch, fn, 20),
+                "timing": "ms (and previous_ms): a CUDA graph of the "
+                          "calls; eager_ms, plain_ms, library_ms: "
+                          "back-to-back eager calls",
                 "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
-                "library_ms": lib_ms,
+                "library_ms": lib_ms, "library_err": lerr,
                 "library_covers": "SDPA backward: dq, dk and dv",
                 "bound_ms": max(ops / H100_BF16_OPS,
                                 nbytes / H100_HBM_BPS) * 1e3,
                 "bound_by": ("operations" if ops / H100_BF16_OPS
-                             > nbytes / H100_HBM_BPS else "bytes")})
+                             > nbytes / H100_HBM_BPS else "bytes")}
+            if prev is not None:
+                # the CUDA-core kernel that bf16 inputs took before, on the
+                # same inputs, timed in turns with the wgmma kernel
+                row["ms"], row["previous_ms"] = in_turns(torch, fn, prev, 20)
+                row["emulation_err"] = emu_err
+            rows.append(row)
     del q, k, v, o, do, got, qt, kt, vt, ot, dot, plain, qs, ks, vs, ref_o
 
     # K4 write-back: a packed f32 weight row and one layer's bf16 stash
@@ -247,7 +334,7 @@ def train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, get_config,
 
 
 def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
-                DataConfig, adam, make_schedule, counters, dev):
+                DataConfig, adam, make_schedule, counters, fa, dev):
     """5 l2l-p steps of bert-large at full width, every counter set to 0
     just before and read just after; then 2 steps at depth 12 for the
     peak-memory comparison."""
@@ -282,8 +369,7 @@ def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters.values())
     fetch0, wb0 = counters["relay_copy"].bytes, \
         counters["relay_copy_writeback"].bytes
     steps = []
@@ -299,6 +385,7 @@ def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
                       "grad_norm": float(metrics["grad_norm"])})
         emit({"phase": "train-step", **steps[-1]})
     launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(fa)
     fetched = counters["relay_copy"].bytes - fetch0 + \
         STEPS * cfg.n_layers * stash_row            # + the stash's copy_
     written = counters["relay_copy_writeback"].bytes - wb0
@@ -319,7 +406,7 @@ def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
         "params_plus_adam_bytes": 12 * model_params,
         "peak_allocated_bytes": peak24, "peak_reserved_bytes": reserved24,
         "launches_per_step": {n: v / STEPS for n, v in launches.items()},
-        "launches": launches}
+        "launches": launches, "routes": routes}
     assert all(np.isfinite(s["loss"]) for s in steps), steps
     assert steps[-1]["loss"] < steps[0]["loss"], \
         "loss on the repeated batch did not fall over 5 steps"
@@ -380,6 +467,9 @@ def profile_step(torch, eng, state, batch):
             "device_events": len(spans),
             "top_device_ms": [{"name": k[:80], "ms": ms, "count": c}
                               for k, ms, c in by_name[:14]],
+            "attention_device_ms": [{"name": k[:80], "ms": ms, "count": c}
+                                    for k, ms, c in by_name
+                                    if "::fa_" in k],
             "device_ms_total": sum(ms for _, ms, _ in by_name)}
 
 
@@ -430,6 +520,16 @@ def main(argv=None):
                        "seconds": round(time.perf_counter() - t0, 3),
                        "ptxas": ptxas}
     emit(report["build"])
+    # the wgmma kernels: ptxas's registers and spills, the shared memory
+    # they launch with, and the tensor-core instructions in their SASS
+    sm90 = build.kernel_report()
+    report["sm90"] = {"phase": "sm90-kernels", "kernels": {
+        n: {k: v for k, v in r.items() if k != "symbol"}
+        for n, r in sm90.items()}}
+    emit(report["sm90"])
+    assert len(sm90) == 6 and all(
+        r["hgmma"] > 0 and r["spill_store_bytes"] == 0
+        and r["spill_load_bytes"] == 0 for r in sm90.values()), sm90
 
     # ----------------------------------------------------------------- init
     full = get_config("granite-3-8b", "full")
@@ -530,20 +630,25 @@ def main(argv=None):
                 x, (d,), wb, cfg.norm_eps), 50),
             "bound_ms": nbytes / H100_HBM_BPS * 1e3, "bound_by": "bytes"})
 
-    # K2 as the path calls it: kernels.ops.flash_attention on the model's
-    # (B, S, H, D) layout, read and written through strides, at granite's
-    # GQA heads (32 q, 8 kv, D 128): the B=2, S=2048 prefill and the serve
-    # phase's 4 prompts of 16 tokens; bf16 (the path's dtype, timed) and
-    # f32.  lse comes from the same strided call into the kernel.
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    for B_, S in ((2, 2048), (4, 16)):
+    # K2 as the paths call it: kernels.ops.flash_attention on the model's
+    # (B, S, H, D) layout, read and written through strides: at granite's
+    # GQA heads (32 q, 8 kv, D 128), the B=2, S=2048 prefill and the serve
+    # phase's 4 prompts of 16 tokens; at bert-large's (16 heads of 64), one
+    # training microbatch (B=8, S=512).  bf16 (the paths' dtype: the wgmma
+    # kernel, timed in turns with the CUDA-core kernel bf16 took before) and
+    # f32 (the CUDA-core kernel).  lse comes from the same strided call.
+    bert_cfg = get_config("bert-large", "full")
+    for B_, S, H, Hkv, Dh in (
+            (2, 2048, cfg.n_heads, cfg.n_kv_heads, cfg.d_head),
+            (4, 16, cfg.n_heads, cfg.n_kv_heads, cfg.d_head),
+            (8, 512, bert_cfg.n_heads, bert_cfg.n_heads, bert_cfg.d_head)):
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             q = torch.randn(B_, S, H, Dh, generator=g, device=dev).to(dt)
             k = torch.randn(B_, S, Hkv, Dh, generator=g, device=dev).to(dt)
             v = torch.randn(B_, S, Hkv, Dh, generator=g, device=dev).to(dt)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             o = kops.flash_attention(q, k, v, causal=True)
-            _, lse = fa.flash_attention_fwd_bhsd(qt, kt, vt, causal=True)
+            lse = fa.flash_attention_fwd_bhsd(qt, kt, vt, causal=True)[1]
             po, plse = fa.flash_attention_fwd_bhsd_plain(qt, kt, vt,
                                                          causal=True)
             po = po.transpose(1, 2)
@@ -557,30 +662,50 @@ def main(argv=None):
                 continue
             ke = kt.repeat_interleave(H // Hkv, dim=1)
             ve = vt.repeat_interleave(H // Hkv, dim=1)
+            lib_o = F.scaled_dot_product_attention(qt, ke, ve, is_causal=True)
+            emu_o, _ = ref.ref_attention(qt, kt, vt, causal=True,
+                                         tensor_cores=True)
             ops = 4 * B_ * H * Dh * (S * (S + 1) // 2)
             nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4
-            reps = 3 if S > 256 else 50
+            reps = 20 if S > 256 else 50
+            fns = (lambda: fa.flash_attention_fwd_bhsd(qt, kt, vt,
+                                                       causal=True),
+                   lambda: fa.flash_attention_fwd_bhsd(
+                       qt, kt, vt, causal=True, route="cuda_core"))
+            ms, prev_ms = in_turns(torch, *fns, reps)
+            eager_ms, prev_eager_ms = in_turns(torch, *fns, reps, time_ms)
             rows.append({
                 "name": "flash_attention_fwd", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "kernel_route": "wgmma",
+                "source": "src/repro_torch/kernels/csrc/"
+                          "flash_attention_sm90.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:46",
                 "shape": [B_, S, H, Dh], "layout": "BSHD", "kv_heads": Hkv,
                 "dtype": "bfloat16",
                 "max_abs_err": err, "lse_max_abs_err": lerr,
-                "ms": time_ms(torch, lambda: kops.flash_attention(
-                    q, k, v, causal=True), reps),
+                "emulation_err": float((o.float() - emu_o.transpose(1, 2)
+                                        .float()).abs().max()),
+                "ms": ms, "previous_ms": prev_ms,
                 "plain_ms": time_ms(torch, lambda: fa
                                     .flash_attention_fwd_bhsd_plain(
                                         qt, kt, vt, causal=True), reps),
-                "library_ms": time_ms(torch, lambda: F
-                                      .scaled_dot_product_attention(
-                                          qt, ke, ve, is_causal=True), reps),
+                "library_ms": graph_ms(torch, lambda: F
+                                       .scaled_dot_product_attention(
+                                           qt, ke, ve, is_causal=True), reps),
+                "library_err": float((lib_o.float() - po.transpose(1, 2)
+                                      .float()).abs().max()),
+                "timing": "ms, previous_ms, library_ms: a CUDA graph of "
+                          "the calls; eager_ms, previous_eager_ms: "
+                          "back-to-back eager calls, the host's issue time "
+                          "included",
+                "eager_ms": eager_ms, "previous_eager_ms": prev_eager_ms,
                 "bound_ms": max(ops / H100_BF16_OPS,
                                 nbytes / H100_HBM_BPS) * 1e3,
                 "bound_by": ("operations" if ops / H100_BF16_OPS
                              > nbytes / H100_HBM_BPS else "bytes")})
-    del q, k, v, qt, kt, vt, o, lse, po, plse, ke, ve, x, got, plain
-    rows += train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc,
+    del q, k, v, qt, kt, vt, o, lse, po, plse, ke, ve, x, got, plain, lib_o, \
+        emu_o
+    rows += train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, ref,
                               get_config, LayeredModel, tree_leaves, is_spec)
     torch.cuda.empty_cache()
     report["kernels"] = {"phase": "kernels", "rows": rows}
@@ -649,8 +774,7 @@ def main(argv=None):
 
     # ---------------------------------------------------------------- serve
     counters = (rc.copy_rows, rms.rmsnorm_2d, fa.flash_attention_fwd_bhsd)
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     B, P, GEN = 4, 16, 8
     prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
                            generator=torch.Generator(dev).manual_seed(1))
@@ -722,6 +846,7 @@ def main(argv=None):
     launches = {"relay_copy": rc.copy_rows.launches,
                 "rmsnorm": rms.rmsnorm_2d.launches,
                 "flash_attention_fwd": fa.flash_attention_fwd_bhsd.launches}
+    serve_routes = route_counts(fa, bwd=False)
     report["prefill"] = {
         "phase": "prefill", "shape_16": list(pl.shape), "seconds_16": t_pf,
         "launches_per_prefill": per_prefill,
@@ -755,8 +880,13 @@ def main(argv=None):
     assert pl2.shape == (2, cfg.vocab_size) and bool(torch.isfinite(pl2).all())
 
     serve_launches = launches
-    emit({"launches": {"serve": serve_launches}})
+    emit({"launches": {"serve": serve_launches},
+          "routes": {"serve": serve_routes}})
     assert all(n > 0 for n in serve_launches.values()), serve_launches
+    # every bf16 K2 launch of the serving path took the wgmma route
+    assert serve_routes["flash_attention_fwd"] == {
+        "wgmma": serve_launches["flash_attention_fwd"], "cuda_core": 0}, \
+        serve_routes
 
     # the serving state goes before the training phases pin theirs
     del eng, params, eps, caches, pl, pl2, last, logits
@@ -853,13 +983,19 @@ def main(argv=None):
     # ---------------------------------------------------------------- train
     report["train"] = train_phase(torch, engines, ExecutionConfig, bert,
                                   slice_knobs, SyntheticLM, DataConfig,
-                                  adam, make_schedule, counters, dev)
+                                  adam, make_schedule, counters, fa, dev)
     train_launches = report["train"].pop("launches")
+    train_routes = report["train"].pop("routes")
     emit(report["train"])
 
     # ------------------------------------------------------------- launches
     launches = {"serve": serve_launches, "train": train_launches}
-    emit({"launches": launches})
+    routes = {"serve": serve_routes, "train": train_routes}
+    emit({"launches": launches, "routes": routes})
+    # every bf16 K2 and K3b launch of the training path took the wgmma route
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dkv"):
+        assert train_routes[n] == {"wgmma": train_launches[n],
+                                   "cuda_core": 0}, (n, train_routes)
     path_kernels = {"serve": ("relay_copy", "rmsnorm", "flash_attention_fwd"),
                     "train": ("relay_copy", "relay_copy_writeback",
                               "flash_attention_fwd", "flash_attention_bwd_dq",
@@ -871,11 +1007,12 @@ def main(argv=None):
              for n in counters}
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "previous_ms", "library_err")
     main_rows = {}
     for r in rows:                      # the first row of each kernel: the
         main_rows.setdefault(r["name"], r)   # path's shape, its dtype
-    table = [{k: ({**r, "launches": total[n]})[k] for k in keys}
+    table = [{k: ({**r, "launches": total[n]}).get(k) for k in keys}
              for n, r in main_rows.items()]
     assert len(table) == 7, sorted(main_rows)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)

@@ -4,9 +4,11 @@ The sources under ``csrc/`` have a plain C interface (no PyTorch headers),
 so ``nvcc`` takes seconds.  Each source is compiled by its own ``nvcc``
 process, all started together, then linked into
 ``build/libl2l_kernels_<hash>.so`` at the repository root; the hash covers
-the sources and flags, so a changed source rebuilds and an unchanged one
-is loaded as it is.  ``ptxas`` reports (registers, shared memory, spills)
-are kept beside the library in ``build/*.ptxas.log``.
+the sources, the shared header and the flags, so a changed source rebuilds
+and an unchanged one is loaded as it is.  ``ptxas`` reports (registers,
+spills, wgmma warnings) are kept beside the library in
+``build/*.ptxas.log``; ``kernel_report`` reads them back per kernel with
+the count of tensor-core (``HGMMA``) instructions in each kernel's SASS.
 """
 from __future__ import annotations
 
@@ -14,13 +16,16 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("relay_copy.cu", "flash_attention.cu", "flash_attention_bwd.cu")
+SOURCES = ("relay_copy.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+           "flash_attention_sm90.cu", "flash_attention_bwd_sm90.cu")
+HEADERS = ("sm90.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,7 +53,19 @@ SIGNATURES = {
                    _I32, _I32, _I32, _I32, _I32, _I32,
                    ctypes.POINTER(_I64),
                    _F32, _I32, _I32, _I32, _P),         # window bf16 stream
+    # the bf16 wgmma kernels: the same arguments without the dtype flag
+    "fa_fwd_sm90": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+                    ctypes.POINTER(_I64), _F32, _I32, _I32, _F32, _P),
+    "fa_bwd_dkv_sm90": (_P, _P, _P, _P, _P, _P, _P, _P,
+                        _I32, _I32, _I32, _I32, _I32, _I32,
+                        ctypes.POINTER(_I64), _F32, _I32, _I32, _P),
+    # dynamic shared memory of the wgmma kernels, by head dim
+    "fa_fwd_sm90_smem": (_I32,),
+    "fa_bwd_dkv_sm90_smem": (_I32,),
 }
+# a C entry point's return value from here up is ENCODE_ERROR + the CUresult
+# of cuTensorMapEncodeTiled (csrc/sm90.cuh)
+ENCODE_ERROR = 10000
 
 
 def nvcc() -> str:
@@ -61,7 +78,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -108,6 +125,76 @@ def library() -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
-    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    """Raise on a nonzero ``cudaError_t`` (or tensor-map encoding error)
+    returned by a C entry point."""
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled returned "
+                           f"CUresult {err - ENCODE_ERROR}")
     if err:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def _ptxas_entries(log: str) -> dict:
+    """``ptxas -v`` output -> {mangled kernel: {registers, spill bytes,
+    stack, warnings}}."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"warnings": []})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        if "arning" in line or "wgmma" in line:
+            cur["warnings"].append(line.strip())
+    return out
+
+
+def _sass_counts(so: Path, opcode: str) -> dict:
+    """{mangled kernel: instructions whose opcode starts with ``opcode``} in
+    the library's SASS (``cuobjdump -sass``)."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(so)], check=True,
+                          stdout=subprocess.PIPE, text=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : ([A-Za-z0-9_]+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and re.search(rf"\b{opcode}", line):
+            counts[cur] += 1
+    return counts
+
+
+def kernel_report(pattern: str = "sm90") -> dict:
+    """Per kernel whose mangled name contains ``pattern``: ptxas's
+    registers, spill and stack bytes and warnings, the dynamic shared
+    memory it launches with, and its HGMMA (wgmma) instruction count."""
+    lib = library()
+    so = BUILD_DIR / f"libl2l_kernels_{_digest()}.so"
+    hgmma = _sass_counts(so, "HGMMA")
+    report = {}
+    for log in sorted(BUILD_DIR.glob("*.ptxas.log")):
+        for name, info in _ptxas_entries(log.read_text()).items():
+            if pattern not in name:
+                continue
+            d = int(re.search(r"ILi(\d+)E", name).group(1))
+            smem = (lib.fa_bwd_dkv_sm90_smem if "dkv" in name
+                    else lib.fa_fwd_sm90_smem)(d)
+            kind = "flash_attention_bwd_dkv" if "dkv" in name \
+                else "flash_attention_fwd"
+            report[f"{kind}[D={d}]"] = {
+                **info, "dynamic_smem_bytes": smem,
+                "hgmma": hgmma.get(name, 0), "symbol": name}
+    return report

@@ -28,18 +28,27 @@ def ref_rmsnorm(x, scale, *, eps=1e-6):
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
-def ref_attention(q, k, v, *, causal=True, window=0, soft_cap=0.0):
+def ref_attention(q, k, v, *, causal=True, window=0, soft_cap=0.0,
+                  tensor_cores=False):
     """q: (B,H,Sq,D), k/v: (B,Hkv,Sk,D) with Hkv dividing H -> (o, lse).
 
     The whole score matrix at once, with the flash kernel's numerics: q
     cast to f32 before the scale, masked scores at the finite -1e30, the
-    normaliser clamped at 1e-30; o in q's dtype, lse f32 (B,H,Sq)."""
+    normaliser clamped at 1e-30; o in q's dtype, lse f32 (B,H,Sq).
+
+    ``tensor_cores=True`` emulates the rounding points of the bf16 (wgmma)
+    kernel instead: the scale applied to the f32 product q·k, and p
+    rounded to bf16 before p·v (the normaliser sums the f32 p)."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     rep = H // k.shape[1]
     kf = k.float().repeat_interleave(rep, dim=1)
     vf = v.float().repeat_interleave(rep, dim=1)
-    s = (q.float() * (1.0 / math.sqrt(D))) @ kf.transpose(-1, -2)
+    scale = 1.0 / math.sqrt(D)
+    if tensor_cores:
+        s = (q.float() @ kf.transpose(-1, -2)) * scale
+    else:
+        s = (q.float() * scale) @ kf.transpose(-1, -2)
     if soft_cap > 0:
         s = soft_cap * torch.tanh(s / soft_cap)
     qp = torch.arange(Sq, device=q.device)[:, None]
@@ -53,6 +62,8 @@ def ref_attention(q, k, v, *, causal=True, window=0, soft_cap=0.0):
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    if tensor_cores:
+        p = p.to(torch.bfloat16).float()
     o = (p @ vf) / l
     lse = (m + torch.log(l))[..., 0]
     return o.to(q.dtype), lse
@@ -75,13 +86,18 @@ def ref_adam(p, g, m, v, a, clip_scale, *, b1=0.9, b2=0.999, eps=1e-8,
 
 
 def ref_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
-                      delta=None):
+                      delta=None, tensor_cores=False):
     """Flash-attention backward (``_fa_dq_kernel`` + ``_fa_dkv_kernel``)
     on whole tensors: p recomputed from (q, k, lse) with the finite -1e30
     mask, ``delta = rowsum(do*o)``, dq = scale·dS K, dk = dS^T (q·scale),
     dv = P^T dO; GQA's dk/dv summed over each kv head's q heads.
     q/o/do (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (dq, dk, dv) in the inputs'
-    dtypes.  ``delta`` may be given in place of ``o``."""
+    dtypes.  ``delta`` may be given in place of ``o``.
+
+    ``tensor_cores=True`` emulates the rounding points of the bf16 (wgmma)
+    dk/dv kernel: the scale applied to the f32 product q·k, P^T and dS^T
+    rounded to bf16 before their products, and dk's scale applied after
+    the sum (dq as the f32 CUDA-core kernel computes it)."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     Hkv = k.shape[1]
@@ -93,7 +109,10 @@ def ref_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     dof = do.float()
     if delta is None:
         delta = (dof * o.float()).sum(-1)
-    s = qs @ kf.transpose(-1, -2)
+    if tensor_cores:
+        s = (q.float() @ kf.transpose(-1, -2)) * scale
+    else:
+        s = qs @ kf.transpose(-1, -2)
     qp = torch.arange(Sq, device=q.device)[:, None]
     kp = torch.arange(Sk, device=q.device)[None, :]
     allow = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -106,6 +125,11 @@ def ref_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     dp = dof @ vf.transpose(-1, -2)
     ds = p * (dp - delta[..., None])
     dq = (ds @ kf) * scale
-    dk = (ds.transpose(-1, -2) @ qs).view(B, Hkv, rep, Sk, D).sum(2)
-    dv = (p.transpose(-1, -2) @ dof).view(B, Hkv, rep, Sk, D).sum(2)
+    if tensor_cores:
+        pr, dsr = (t.to(torch.bfloat16).float() for t in (p, ds))
+        dk = (dsr.transpose(-1, -2) @ q.float()) * scale
+    else:
+        pr, dk = p, ds.transpose(-1, -2) @ qs
+    dk = dk.view(B, Hkv, rep, Sk, D).sum(2)
+    dv = (pr.transpose(-1, -2) @ dof).view(B, Hkv, rep, Sk, D).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
