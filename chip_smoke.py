@@ -7,19 +7,27 @@ Phases, one JSON line each:
 
 1. build    — compile the CUDA C++ kernels from the checkout's sources
               (one nvcc per source, all started together);
-   sm90-kernels — the wgmma kernels (K2 and K3b's bf16 route) at each head
-              dim: ptxas's registers and spill bytes, their dynamic shared
-              memory and the HGMMA instructions in their SASS (both must
-              be: no spills, tensor-core instructions present);
+   sm90-kernels — the wgmma kernels (K2, K3a and K3b's bf16 route) at
+              each head dim, nine in all: ptxas's registers and spill
+              bytes, their dynamic shared memory and the HGMMA instructions
+              in their SASS (both must be: no spills, tensor-core
+              instructions present);
 2. init     — granite-3-8b at full width, random weights from a seeded CUDA
               generator, drawn layer by layer into the pinned-host EPS;
 3. kernels  — every kernel (serving: K2, K4 fetch, K5; training: K1,
               K2, K3a, K3b, K4 write-back) against its plain PyTorch
               version on the card, at the paths' shapes, with times; the
-              bf16 K2 and K3b rows also time the CUDA-core kernel bf16
+              bf16 K2, K3a and K3b rows also time the CUDA-core kernel bf16
               took before (``previous_ms``, in turns with the new one) and
               give SDPA's own error against the plain version
-              (``library_err``); then
+              (``library_err``); K3a's and K3b's ``library_ms`` is SDPA's
+              whole backward as device time (its kernels' spans under
+              torch.profiler, taken in the library phase after the train
+              phase, as no profiler may run before the timed phases);
+              K5's rows time the CUDA kernel, the Triton kernel it
+              replaced (``previous_ms``) and ``F.rms_norm`` in turns, from
+              a CUDA graph and eagerly (``eager_ms``,
+              ``previous_eager_ms``, ``library_eager_ms``); then
    layer    — one decode layer's compute time beside one row copy;
 4. grid     — the relay knobs (pack, prefetch, G, resting place) at smoke
               size on the card: results bitwise equal;
@@ -42,10 +50,14 @@ Phases, one JSON line each:
               use_pallas, offload_stash, Adam: 5 steps at B=32, S=512,
               UB=4 on one repeated synthetic batch, every kernel counter
               set to 0 just before and read just after; then the peak
-              HBM of two steps at depth 12 beside depth 24's.
+              HBM of two steps at depth 12 beside depth 24's;
+   library  — SDPA backward's device time and K3a's and K3b's, under
+              torch.profiler, into the kernel rows;
 10. launches — every kernel's count over the two main paths (all > 0),
-              and K2's and K3b's counts by route: every bf16 launch of
-              both paths on the wgmma route, none on the CUDA-core one.
+              and the counts by route: every bf16 K2, K3a and K3b launch of
+              both paths on the wgmma route, none on the CUDA-core one, and
+              every K5 launch of the serve path on the CUDA route, none on
+              the Triton one.
 
 Then the kernel table line, the card's name and power limit, and the
 result line.  Any failed check raises, so the script exits nonzero and
@@ -118,11 +130,35 @@ def graph_ms(torch, fn, reps):
     return start.elapsed_time(end) / (3 * reps)
 
 
-def in_turns(torch, fn, prev, reps, timer=graph_ms):
-    """Mean times of ``fn`` and ``prev`` (by ``graph_ms`` unless another
-    ``timer`` is given), timed new, old, old, new on the same inputs."""
-    a1, b1, b2, a2 = (timer(torch, f, reps) for f in (fn, prev, prev, fn))
-    return (a1 + a2) / 2, (b1 + b2) / 2
+def device_ms(torch, fn, reps):
+    """Mean device time of ``fn``: the summed spans of the device kernels
+    and copies that ``reps`` eager calls ran, under torch.profiler.  For a
+    call a CUDA graph cannot capture (SDPA's backward runs in the autograd
+    engine).  Only after the timed phases: runs that profiled before the
+    train phase took longer per train step on the host, as if the
+    profiler left every later launch dearer."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert us > 0, "the profiler saw no device time"
+    return us / 1e3 / reps
+
+
+def rotation(torch, fns, reps, timer=graph_ms):
+    """Mean time of each of ``fns`` (by ``graph_ms`` unless another
+    ``timer`` is given), timed in order and then in reverse order (new,
+    old, old, new; or a, b, c, c, b, a) on the same inputs."""
+    times = [timer(torch, f, reps) for f in (*fns, *fns[::-1])]
+    n = len(fns)
+    return tuple((times[i] + times[2 * n - 1 - i]) / 2 for i in range(n))
 
 
 def reset_counts(counters):
@@ -133,14 +169,12 @@ def reset_counts(counters):
             c.launches_by_route[r] = 0
 
 
-def route_counts(fa, bwd=True):
-    """The launches of K2 (and K3b) by route (wgmma / cuda_core)."""
-    out = {"flash_attention_fwd":
-           dict(fa.flash_attention_fwd_bhsd.launches_by_route)}
-    if bwd:
-        out["flash_attention_bwd_dkv"] = dict(
-            fa.flash_attention_bwd_dkv.launches_by_route)
-    return out
+def route_counts(counters):
+    """The launches by route of the kernels in ``counters`` (name ->
+    wrapper) that have routes: K2, K3a, K3b (wgmma / cuda_core) and K5
+    (cuda / triton)."""
+    return {n: dict(c.launches_by_route) for n, c in counters.items()
+            if hasattr(c, "launches_by_route")}
 
 
 def host_depth(layer_bytes: int, n_layers: int, reserve: int) -> int:
@@ -250,57 +284,55 @@ def train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, ref, get_config,
         # the bf16 route's own rounding points, emulated in plain torch
         emu = ref.ref_attention_bwd(qt, kt, vt, ot, lse, dot, causal=True,
                                     tensor_cores=True)
-        emu_err = max(float((x.float() - y.transpose(1, 2).float())
-                            .abs().max()) for x, y in zip(got[1:], emu[1:]))
+        emu_errs = [float((x.float() - y.transpose(1, 2).float()).abs().max())
+                    for x, y in zip(got, emu)]
         # SDPA's backward runs in the autograd engine, which a CUDA graph
-        # cannot capture here: eager calls
-        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        # cannot capture here: eager calls give the host's share; its
+        # device time comes after the timed phases (backward_device_ms)
+        lib_eager_ms = time_ms(torch, lambda: torch.autograd.grad(
             ref_o, (qs, ks, vs), dot, retain_graph=True), 5)
         plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_bhsd_plain(
             qt, kt, vt, ot, lse, dot, causal=True), 5)
         in_bytes = 4 * q.numel() * 2 + 2 * lse.numel() * 4
-        for name, fn, ops, err, lerr, out_bytes, line, prev in (
-                ("flash_attention_bwd_dq",
-                 lambda: fa.flash_attention_bwd_dq(
-                     qt, kt, vt, dot, lse, delta, causal=True),
-                 6 * D * pairs, errs[0], lib_errs[0], 2 * q.numel(), 145,
-                 None),
-                ("flash_attention_bwd_dkv",
-                 lambda: fa.flash_attention_bwd_dkv(
-                     qt, kt, vt, dot, lse, delta, causal=True),
-                 8 * D * pairs, max(errs[1:]), max(lib_errs[1:]),
-                 4 * q.numel(), 174,
-                 lambda: fa.flash_attention_bwd_dkv(
-                     qt, kt, vt, dot, lse, delta, causal=True,
-                     route="cuda_core"))):
+        for name, ops, err, lerr, emu_err, out_bytes, line, src, kern in (
+                ("flash_attention_bwd_dq", 6 * D * pairs, errs[0],
+                 lib_errs[0], emu_errs[0], 2 * q.numel(), 145,
+                 "flash_attention_dq_sm90.cu", fa.flash_attention_bwd_dq),
+                ("flash_attention_bwd_dkv", 8 * D * pairs, max(errs[1:]),
+                 max(lib_errs[1:]), max(emu_errs[1:]), 4 * q.numel(), 174,
+                 "flash_attention_bwd_sm90.cu", fa.flash_attention_bwd_dkv)):
+            def fn(kern=kern):
+                return kern(qt, kt, vt, dot, lse, delta, causal=True)
+
+            def prev(kern=kern):      # the CUDA-core kernel bf16 took before
+                return kern(qt, kt, vt, dot, lse, delta, causal=True,
+                            route="cuda_core")
             nbytes = in_bytes + out_bytes
-            row = {
-                "name": name, "route": "cuda",
-                "kernel_route": "cuda_core" if prev is None else "wgmma",
-                "source": "src/repro_torch/kernels/csrc/" + (
-                    "flash_attention_bwd.cu" if prev is None
-                    else "flash_attention_bwd_sm90.cu"),
+            ms, prev_ms = rotation(torch, (fn, prev), 20)
+            rows.append({
+                "name": name, "route": "cuda", "kernel_route": "wgmma",
+                "source": "src/repro_torch/kernels/csrc/" + src,
                 "replaces": f"src/repro/kernels/flash_attention.py:{line}",
                 "shape": [B, S, H, D], "layout": "BSHD", "dtype": "bfloat16",
                 "max_abs_err": err, "max_abs_grad": top,
-                "ms": graph_ms(torch, fn, 20),
+                "emulation_err": emu_err,
+                "ms": ms, "previous_ms": prev_ms,
                 "eager_ms": time_ms(torch, fn, 20),
-                "timing": "ms (and previous_ms): a CUDA graph of the "
-                          "calls; eager_ms, plain_ms, library_ms: "
-                          "back-to-back eager calls",
+                "timing": "ms, previous_ms: a CUDA graph of the calls, "
+                          "the old and new kernels in turns; profiled_ms, "
+                          "library_ms: the summed device spans of eager "
+                          "calls under torch.profiler, after the timed "
+                          "phases (backward_device_ms); eager_ms, "
+                          "plain_ms, library_eager_ms: back-to-back eager "
+                          "calls",
                 "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
-                "library_ms": lib_ms, "library_err": lerr,
+                "library_eager_ms": lib_eager_ms,
+                "library_err": lerr,
                 "library_covers": "SDPA backward: dq, dk and dv",
                 "bound_ms": max(ops / H100_BF16_OPS,
                                 nbytes / H100_HBM_BPS) * 1e3,
                 "bound_by": ("operations" if ops / H100_BF16_OPS
-                             > nbytes / H100_HBM_BPS else "bytes")}
-            if prev is not None:
-                # the CUDA-core kernel that bf16 inputs took before, on the
-                # same inputs, timed in turns with the wgmma kernel
-                row["ms"], row["previous_ms"] = in_turns(torch, fn, prev, 20)
-                row["emulation_err"] = emu_err
-            rows.append(row)
+                             > nbytes / H100_HBM_BPS else "bytes")})
     del q, k, v, o, do, got, qt, kt, vt, ot, dot, plain, qs, ks, vs, ref_o
 
     # K4 write-back: a packed f32 weight row and one layer's bf16 stash
@@ -334,7 +366,7 @@ def train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, ref, get_config,
 
 
 def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
-                DataConfig, adam, make_schedule, counters, fa, dev):
+                DataConfig, adam, make_schedule, counters, dev):
     """5 l2l-p steps of bert-large at full width, every counter set to 0
     just before and read just after; then 2 steps at depth 12 for the
     peak-memory comparison."""
@@ -385,7 +417,7 @@ def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
                       "grad_norm": float(metrics["grad_norm"])})
         emit({"phase": "train-step", **steps[-1]})
     launches = {n: c.launches for n, c in counters.items()}
-    routes = route_counts(fa)
+    routes = route_counts(counters)
     fetched = counters["relay_copy"].bytes - fetch0 + \
         STEPS * cfg.n_layers * stash_row            # + the stash's copy_
     written = counters["relay_copy_writeback"].bytes - wb0
@@ -431,6 +463,33 @@ def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
         "12": torch.cuda.max_memory_reserved(), "24": reserved24}
     del eng, state
     gc.collect()
+    return out
+
+
+def backward_device_ms(torch, F, dev, fa, rows):
+    """SDPA backward's device time, the K3a and K3b rows' ``library_ms``,
+    and the two kernels' own (``profiled_ms``), each by ``device_ms`` on
+    fresh inputs of the rows' shape."""
+    B, S, H, D = next(r["shape"] for r in rows
+                      if r["name"] == "flash_attention_bwd_dq")
+    g = torch.Generator(dev).manual_seed(11)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=g, device=dev)
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+    o, lse = fa.flash_attention_fwd_bhsd(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    ref_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib_ms = device_ms(torch, lambda: torch.autograd.grad(
+        ref_o, (qs, ks, vs), do, retain_graph=True), 20)
+    out = {"phase": "library", "shape": [B, S, H, D],
+           "sdpa_backward_device_ms": lib_ms}
+    for kern in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        ms = device_ms(torch, lambda kern=kern: kern(
+            q, k, v, do, lse, delta, causal=True), 20)
+        out[kern.__name__ + "_device_ms"] = ms
+        for r in rows:
+            if r["name"] == kern.__name__:
+                r["library_ms"], r["profiled_ms"] = lib_ms, ms
     return out
 
 
@@ -527,7 +586,7 @@ def main(argv=None):
         n: {k: v for k, v in r.items() if k != "symbol"}
         for n, r in sm90.items()}}
     emit(report["sm90"])
-    assert len(sm90) == 6 and all(
+    assert len(sm90) == 9 and all(
         r["hgmma"] > 0 and r["spill_store_bytes"] == 0
         and r["spill_load_bytes"] == 0 for r in sm90.values()), sm90
 
@@ -605,29 +664,46 @@ def main(argv=None):
     rows.append(k4)
     del got, plain, slot
 
-    # K5: decode rows and prefill rows of granite, bf16, f32 scale
+    # K5: decode rows and prefill rows of granite, bf16, f32 scale: the
+    # CUDA kernel, the Triton kernel it replaced and F.rms_norm in turns,
+    # from a CUDA graph (device time) and eagerly (the host's launch path
+    # included, which is what a decode step pays)
     d = cfg.d_model
     scale = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+    wb = scale.to(torch.bfloat16)
     for R in (4, 4 * 2048):
         x = torch.randn(R, d, generator=g, device=dev).to(torch.bfloat16)
         got = rms.rmsnorm_2d(x, scale, eps=cfg.norm_eps)
+        old = rms.rmsnorm_2d(x, scale, eps=cfg.norm_eps, route="triton")
         plain = rms.rmsnorm_2d_plain(x, scale, eps=cfg.norm_eps)
         torch.cuda.synchronize()
         assert bf16_ulp_ok(torch, got, plain), "rmsnorm beyond 1 bf16 ulp"
-        wb = scale.to(torch.bfloat16)
+        assert bf16_ulp_ok(torch, old, plain), "triton rmsnorm beyond 1 ulp"
         nbytes = 2 * R * d * 2 + d * 4
+        fns = (lambda: rms.rmsnorm_2d(x, scale, eps=cfg.norm_eps),
+               lambda: rms.rmsnorm_2d(x, scale, eps=cfg.norm_eps,
+                                      route="triton"),
+               lambda: F.rms_norm(x, (d,), wb, cfg.norm_eps))
+        ms, prev_ms, lib_ms = rotation(torch, fns, 50)
+        eager, prev_eager, lib_eager = rotation(torch, fns, 50, time_ms)
         rows.append({
-            "name": "rmsnorm", "route": "triton",
-            "source": "src/repro_torch/kernels/rmsnorm.py",
+            "name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:17",
             "shape": [R, d], "dtype": "bfloat16",
             "max_abs_err": float((got.float() - plain.float()).abs().max()),
-            "ms": time_ms(torch, lambda: rms.rmsnorm_2d(x, scale,
-                                                        eps=cfg.norm_eps), 50),
+            "previous_max_abs_err": float((old.float() - plain.float())
+                                          .abs().max()),
+            "ms": ms, "previous_ms": prev_ms, "library_ms": lib_ms,
+            "eager_ms": eager, "previous_eager_ms": prev_eager,
+            "library_eager_ms": lib_eager,
+            "timing": "ms, previous_ms (the Triton kernel), library_ms "
+                      "(F.rms_norm, bf16 weight): a CUDA graph of the "
+                      "calls; eager_ms, previous_eager_ms, "
+                      "library_eager_ms, plain_ms: back-to-back eager "
+                      "calls; each set in turns",
             "plain_ms": time_ms(torch, lambda: rms.rmsnorm_2d_plain(
                 x, scale, eps=cfg.norm_eps), 50),
-            "library_ms": time_ms(torch, lambda: F.rms_norm(
-                x, (d,), wb, cfg.norm_eps), 50),
             "bound_ms": nbytes / H100_HBM_BPS * 1e3, "bound_by": "bytes"})
 
     # K2 as the paths call it: kernels.ops.flash_attention on the model's
@@ -672,8 +748,8 @@ def main(argv=None):
                                                        causal=True),
                    lambda: fa.flash_attention_fwd_bhsd(
                        qt, kt, vt, causal=True, route="cuda_core"))
-            ms, prev_ms = in_turns(torch, *fns, reps)
-            eager_ms, prev_eager_ms = in_turns(torch, *fns, reps, time_ms)
+            ms, prev_ms = rotation(torch, fns, reps)
+            eager_ms, prev_eager_ms = rotation(torch, fns, reps, time_ms)
             rows.append({
                 "name": "flash_attention_fwd", "route": "cuda",
                 "kernel_route": "wgmma",
@@ -703,8 +779,8 @@ def main(argv=None):
                                 nbytes / H100_HBM_BPS) * 1e3,
                 "bound_by": ("operations" if ops / H100_BF16_OPS
                              > nbytes / H100_HBM_BPS else "bytes")})
-    del q, k, v, qt, kt, vt, o, lse, po, plse, ke, ve, x, got, plain, lib_o, \
-        emu_o
+    del q, k, v, qt, kt, vt, o, lse, po, plse, ke, ve, x, got, old, plain, \
+        lib_o, emu_o, fns
     rows += train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, ref,
                               get_config, LayeredModel, tree_leaves, is_spec)
     torch.cuda.empty_cache()
@@ -773,8 +849,9 @@ def main(argv=None):
     del sp
 
     # ---------------------------------------------------------------- serve
-    counters = (rc.copy_rows, rms.rmsnorm_2d, fa.flash_attention_fwd_bhsd)
-    reset_counts(counters)
+    counters = {"relay_copy": rc.copy_rows, "rmsnorm": rms.rmsnorm_2d,
+                "flash_attention_fwd": fa.flash_attention_fwd_bhsd}
+    reset_counts(counters.values())
     B, P, GEN = 4, 16, 8
     prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
                            generator=torch.Generator(dev).manual_seed(1))
@@ -825,13 +902,12 @@ def main(argv=None):
     assert peak < 0.25 * model_bytes, "device footprint above 25% of the model"
 
     # -------------------------------------------------------------- prefill
-    before = [c.launches for c in counters]
+    before = {n: c.launches for n, c in counters.items()}
     t0 = time.perf_counter()
     pl = eng.prefill(params, {"tokens": prompt})
     torch.cuda.synchronize()
     t_pf = time.perf_counter() - t0
-    per_prefill = dict(zip(("relay_copy", "rmsnorm", "flash_attention_fwd"),
-                           (c.launches - b for c, b in zip(counters, before))))
+    per_prefill = {n: c.launches - before[n] for n, c in counters.items()}
     diff = (pl.float() - last.float())
     rel = float(diff.norm() / last.float().norm())
     agree = int((pl.argmax(-1) == last.argmax(-1)).sum())
@@ -843,10 +919,8 @@ def main(argv=None):
     t_pf2 = time.perf_counter() - t0
     # the main path ends here: its launch counts, before the comparisons
     # below run more engines on the same kernels
-    launches = {"relay_copy": rc.copy_rows.launches,
-                "rmsnorm": rms.rmsnorm_2d.launches,
-                "flash_attention_fwd": fa.flash_attention_fwd_bhsd.launches}
-    serve_routes = route_counts(fa, bwd=False)
+    launches = {n: c.launches for n, c in counters.items()}
+    serve_routes = route_counts(counters)
     report["prefill"] = {
         "phase": "prefill", "shape_16": list(pl.shape), "seconds_16": t_pf,
         "launches_per_prefill": per_prefill,
@@ -883,10 +957,13 @@ def main(argv=None):
     emit({"launches": {"serve": serve_launches},
           "routes": {"serve": serve_routes}})
     assert all(n > 0 for n in serve_launches.values()), serve_launches
-    # every bf16 K2 launch of the serving path took the wgmma route
+    # every bf16 K2 launch of the serving path took the wgmma route, every
+    # K5 launch the CUDA kernel
     assert serve_routes["flash_attention_fwd"] == {
         "wgmma": serve_launches["flash_attention_fwd"], "cuda_core": 0}, \
         serve_routes
+    assert serve_routes["rmsnorm"] == {
+        "cuda": serve_launches["rmsnorm"], "triton": 0}, serve_routes
 
     # the serving state goes before the training phases pin theirs
     del eng, params, eps, caches, pl, pl2, last, logits
@@ -983,17 +1060,21 @@ def main(argv=None):
     # ---------------------------------------------------------------- train
     report["train"] = train_phase(torch, engines, ExecutionConfig, bert,
                                   slice_knobs, SyntheticLM, DataConfig,
-                                  adam, make_schedule, counters, fa, dev)
+                                  adam, make_schedule, counters, dev)
     train_launches = report["train"].pop("launches")
     train_routes = report["train"].pop("routes")
     emit(report["train"])
+    report["library"] = backward_device_ms(torch, F, dev, fa, rows)
+    emit(report["library"])
 
     # ------------------------------------------------------------- launches
     launches = {"serve": serve_launches, "train": train_launches}
     routes = {"serve": serve_routes, "train": train_routes}
     emit({"launches": launches, "routes": routes})
-    # every bf16 K2 and K3b launch of the training path took the wgmma route
-    for n in ("flash_attention_fwd", "flash_attention_bwd_dkv"):
+    # every bf16 K2, K3a and K3b launch of the training path took the wgmma
+    # route
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
         assert train_routes[n] == {"wgmma": train_launches[n],
                                    "cuda_core": 0}, (n, train_routes)
     path_kernels = {"serve": ("relay_copy", "rmsnorm", "flash_attention_fwd"),

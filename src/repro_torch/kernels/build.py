@@ -23,8 +23,9 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("relay_copy.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "flash_attention_sm90.cu", "flash_attention_bwd_sm90.cu")
+SOURCES = ("relay_copy.cu", "rmsnorm.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu", "flash_attention_sm90.cu",
+           "flash_attention_dq_sm90.cu", "flash_attention_bwd_sm90.cu")
 HEADERS = ("sm90.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -56,12 +57,18 @@ SIGNATURES = {
     # the bf16 wgmma kernels: the same arguments without the dtype flag
     "fa_fwd_sm90": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
                     ctypes.POINTER(_I64), _F32, _I32, _I32, _F32, _P),
+    "fa_bwd_dq_sm90": (_P, _P, _P, _P, _P, _P, _P,
+                       _I32, _I32, _I32, _I32, _I32, _I32,
+                       ctypes.POINTER(_I64), _F32, _I32, _I32, _P),
     "fa_bwd_dkv_sm90": (_P, _P, _P, _P, _P, _P, _P, _P,
                         _I32, _I32, _I32, _I32, _I32, _I32,
                         ctypes.POINTER(_I64), _F32, _I32, _I32, _P),
     # dynamic shared memory of the wgmma kernels, by head dim
     "fa_fwd_sm90_smem": (_I32,),
+    "fa_bwd_dq_sm90_smem": (_I32,),
     "fa_bwd_dkv_sm90_smem": (_I32,),
+    "rmsnorm_fwd": (_P, _P, _P, _I32, _I32, _I64,  # x scale out R d xs
+                    _F32, _I32, _I32, _P),      # eps x_dtype s_dtype stream
 }
 # a C entry point's return value from here up is ENCODE_ERROR + the CUresult
 # of cuTensorMapEncodeTiled (csrc/sm90.cuh)
@@ -177,6 +184,12 @@ def _sass_counts(so: Path, opcode: str) -> dict:
     return counts
 
 
+# the wgmma kernels' entry points (each with a ``<entry>_smem``) and names
+_SM90_KINDS = {"fa_fwd_sm90": "flash_attention_fwd",
+               "fa_bwd_dq_sm90": "flash_attention_bwd_dq",
+               "fa_bwd_dkv_sm90": "flash_attention_bwd_dkv"}
+
+
 def kernel_report(pattern: str = "sm90") -> dict:
     """Per kernel whose mangled name contains ``pattern``: ptxas's
     registers, spill and stack bytes and warnings, the dynamic shared
@@ -190,11 +203,9 @@ def kernel_report(pattern: str = "sm90") -> dict:
             if pattern not in name:
                 continue
             d = int(re.search(r"ILi(\d+)E", name).group(1))
-            smem = (lib.fa_bwd_dkv_sm90_smem if "dkv" in name
-                    else lib.fa_fwd_sm90_smem)(d)
-            kind = "flash_attention_bwd_dkv" if "dkv" in name \
-                else "flash_attention_fwd"
-            report[f"{kind}[D={d}]"] = {
+            kind = next(k for k in _SM90_KINDS if k in name)
+            smem = getattr(lib, kind + "_smem")(d)
+            report[f"{_SM90_KINDS[kind]}[D={d}]"] = {
                 **info, "dynamic_smem_bytes": smem,
                 "hgmma": hgmma.get(name, 0), "symbol": name}
     return report

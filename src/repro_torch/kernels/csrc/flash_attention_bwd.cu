@@ -20,10 +20,14 @@
 //
 // Bound: operations (8*B*H*D per unmasked query-key pair in the two
 // kernels together, plus the 4*B*H*D of the recomputed scores in each),
-// against 989 TFLOP/s bf16.  This first version computes in f32 on the CUDA
-// cores (one code path for bf16 and f32 inputs), far from that bound;
-// wgmma/TMA tiles are later work.  Inputs are addressed through strides,
-// so the model's (B, S, H, D) tensors need no transpose copy.
+// against 989 TFLOP/s bf16.  These kernels compute in f32 on the CUDA cores,
+// far from that bound: they are the exact route that f32 inputs take (the
+// f32 parity checks need it).  bf16 inputs, the serve and train paths'
+// dtype, take the tensor-core kernels instead: flash_attention_dq_sm90.cu
+// (K3a) and flash_attention_bwd_sm90.cu (K3b); the bf16 instantiations here
+// stay callable by name for timing beside them.  Inputs are addressed
+// through strides, so the model's (B, S, H, D) tensors need no transpose
+// copy.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>

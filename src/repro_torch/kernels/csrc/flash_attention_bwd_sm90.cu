@@ -5,7 +5,7 @@
 //
 // Replaces `_fa_dkv_kernel` (src/repro/kernels/flash_attention.py) for
 // bf16 inputs; f32 inputs keep the exact CUDA-core kernel
-// (flash_attention_bwd.cu, which also keeps K3a, dq, for both dtypes).
+// (flash_attention_bwd.cu).  K3a, dq, is flash_attention_dq_sm90.cu.
 // What it computes is that kernel's: p = exp(s - lse) with the finite -1e30
 // mask, dv = sum P^T dO, dk = sum dS^T (q * scale), dS = P o (dP - delta),
 // dP = dO V^T; GQA's sum over the kv head's q heads in one fixed order.

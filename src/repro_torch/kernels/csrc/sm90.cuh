@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the wgmma flash-attention kernels
-// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu): mbarriers, TMA
-// tile loads through tensor maps, wgmma shared-memory descriptors and the
-// wgmma instructions themselves, written as inline PTX.
+// (flash_attention_sm90.cu, flash_attention_dq_sm90.cu,
+// flash_attention_bwd_sm90.cu): mbarriers, TMA tile loads through tensor
+// maps, wgmma shared-memory descriptors and the wgmma instructions
+// themselves, written as inline PTX.
 //
 // Shared-memory tiles.  A tile of R rows by D bf16 columns, as TMA leaves
 // it, is split into D*2/RB column regions of RB = min(2*D, 128) bytes per

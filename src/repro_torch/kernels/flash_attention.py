@@ -15,15 +15,15 @@ lengths.  ``kernels.ops.flash_attention`` wraps forward and backward in a
 Two routes, chosen by dtype (``route_for``), each launch counted on its
 wrapper's ``launches_by_route``:
 
-- ``"wgmma"`` (bf16, the serve and train paths' dtype): K2 and K3b run
-  their products on the tensor cores (``csrc/flash_attention_sm90.cu``,
-  ``csrc/flash_attention_bwd_sm90.cu``), with tiles loaded by TMA through
-  tensor maps that the C entry points encode from the pointers and
-  strides given here.  A bf16 call those maps cannot describe raises
-  (``check_tma``); it never drops to another kernel.
+- ``"wgmma"`` (bf16, the serve and train paths' dtype): K2, K3a and K3b
+  run their products on the tensor cores (``csrc/flash_attention_sm90.cu``,
+  ``csrc/flash_attention_dq_sm90.cu``, ``csrc/flash_attention_bwd_sm90.cu``),
+  with tiles loaded by TMA through tensor maps that the C entry points
+  encode from the pointers and strides given here.  A bf16 call those maps
+  cannot describe raises (``check_tma``); it never drops to another kernel.
 - ``"cuda_core"`` (f32): the exact f32 kernels on the CUDA cores
   (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``), which
-  the f32 parity checks need.  K3a takes this route for both dtypes.
+  the f32 parity checks need.
 """
 from __future__ import annotations
 
@@ -45,8 +45,8 @@ ROUTES = ("wgmma", "cuda_core")
 
 
 def route_for(dtype) -> str:
-    """The route a CUDA call of K2 / K3b takes: bf16 -> the tensor-core
-    (wgmma) kernels, f32 -> the exact CUDA-core ones."""
+    """The route a CUDA call of K2 / K3a / K3b takes: bf16 -> the
+    tensor-core (wgmma) kernels, f32 -> the exact CUDA-core ones."""
     if dtype == torch.bfloat16:
         return "wgmma"
     if dtype == torch.float32:
@@ -199,23 +199,31 @@ def _bwd_args(q, k, v, do, grads, causal, window):
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
-                           window=0):
-    """K3a: dq (B,H,Sq,D) in q's dtype (a view of a (B,Sq,H,D) tensor)."""
+                           window=0, route=None):
+    """K3a: dq (B,H,Sq,D) in q's dtype (a view of a (B,Sq,H,D) tensor).
+    ``route`` as for ``flash_attention_fwd_bhsd``."""
     if q.device.type == "cpu":
         return ref_attention_bwd(q, k, v, None, lse, do, causal=causal,
                                  window=window, delta=delta)[0]
     _check_bwd(q, k, v, do, lse, delta)
+    route = _route(q, route)
+    if route == "wgmma":
+        check_tma(q, k, v, do)
     B, H, Sq, D = q.shape
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
     strides, dims, tail = _bwd_args(q, k, v, do, (dq, dq, dq), causal,
                                     window)
-    err = build.library().fa_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims, strides,
-        *tail)
-    build.check(err, "fa_bwd_dq")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    lib = build.library()
+    if route == "wgmma":   # tail = (scale, causal, window, is_bf16, stream)
+        err = lib.fa_bwd_dq_sm90(*ptrs, *dims, strides, *tail[:3], tail[4])
+        build.check(err, "fa_bwd_dq_sm90")
+    else:
+        build.check(lib.fa_bwd_dq(*ptrs, *dims, strides, *tail), "fa_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_by_route[route] += 1
     return dq
 
 
@@ -251,6 +259,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.launches_by_route = dict.fromkeys(ROUTES, 0)
 
@@ -258,7 +267,7 @@ flash_attention_bwd_dkv.launches_by_route = dict.fromkeys(ROUTES, 0)
 def flash_attention_bwd_bhsd(q, k, v, o, lse, do, *, causal=True, window=0,
                              block_q=128, block_k=128):
     """-> (dq, dk, dv) shaped like (q, k, v).  ``delta = rowsum(do·o)`` in
-    plain torch, then K3a and K3b (CUDA, K3b by ``route_for``) or the plain
+    plain torch, then K3a and K3b (CUDA, by ``route_for``) or the plain
     version (CPU).  No soft cap: the reference's backward has none."""
     if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
         return flash_attention_bwd_bhsd_plain(q, k, v, o, lse, do,

@@ -95,9 +95,9 @@ def ref_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     dtypes.  ``delta`` may be given in place of ``o``.
 
     ``tensor_cores=True`` emulates the rounding points of the bf16 (wgmma)
-    dk/dv kernel: the scale applied to the f32 product q·k, P^T and dS^T
-    rounded to bf16 before their products, and dk's scale applied after
-    the sum (dq as the f32 CUDA-core kernel computes it)."""
+    dq and dk/dv kernels: the scale applied to the f32 product q·k, P^T and
+    dS (dS^T) rounded to bf16 before their products, and dq's and dk's
+    scale applied after the sum."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     Hkv = k.shape[1]
@@ -124,11 +124,12 @@ def ref_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     p = torch.exp(s - lse[..., None])
     dp = dof @ vf.transpose(-1, -2)
     ds = p * (dp - delta[..., None])
-    dq = (ds @ kf) * scale
     if tensor_cores:
         pr, dsr = (t.to(torch.bfloat16).float() for t in (p, ds))
+        dq = (dsr @ kf) * scale
         dk = (dsr.transpose(-1, -2) @ q.float()) * scale
     else:
+        dq = (ds @ kf) * scale
         pr, dk = p, ds.transpose(-1, -2) @ qs
     dk = dk.view(B, Hkv, rep, Sk, D).sum(2)
     dv = (pr.transpose(-1, -2) @ dof).view(B, Hkv, rep, Sk, D).sum(2)

@@ -81,7 +81,7 @@ def norm_spec(cfg) -> dict:
 
 def apply_norm(w, x, eps: float = 1e-6):
     """LayerNorm (``bias`` present) or RMSNorm, in f32, cast back to x's
-    dtype.  RMSNorm goes through ``kernels.ops.rmsnorm``: the Triton kernel
+    dtype.  RMSNorm goes through ``kernels.ops.rmsnorm``: the CUDA kernel
     (K5) for a CUDA tensor, its plain version for a CPU one.  LayerNorm is
     plain torch: the reference has no kernel for it."""
     if "bias" not in w:

@@ -1,4 +1,4 @@
-"""The bf16 (wgmma) route of K2 and K3b (``kernels/flash_attention.py``).
+"""The bf16 (wgmma) route of K2, K3a and K3b (``kernels/flash_attention.py``).
 
 On the CPU: the route's numerics, emulated in plain torch
 (``ref_attention(..., tensor_cores=True)`` and its backward), against the
@@ -106,6 +106,26 @@ def test_tensor_core_numerics_dkv_within_bounds(jfa, B, H, Hkv, S, D, mask):
         assert np.abs(got.float().numpy() - w).max() <= 1e-2 * top
 
 
+@pytest.mark.parametrize("B,H,Hkv,S,D,mask", _BWD)
+def test_tensor_core_numerics_dq_within_bounds(jfa, B, H, Hkv, S, D, mask):
+    """dS in bf16 before dS·K, the scale after the f32 product q·k and after
+    the sum: dq within chip_smoke.py's bf16 bound, 1e-2 of the largest
+    gradient, of the Pallas backward on the same bf16 inputs."""
+    q, k, v, do = _inputs(B, H, Hkv, S, D, seed=5 * S + D)
+    rep = H // Hkv
+    ke, ve = (t.repeat_interleave(rep, 1) for t in (k, v))
+    jq, jk, jv, jdo = (_jnp_bf16(t) for t in (q, ke, ve, do))
+    o, lse = jfa.flash_attention_fwd_bhsd(jq, jk, jv, interpret=True, **mask)
+    jdq, _, _ = jfa.flash_attention_bwd_bhsd(jq, jk, jv, o, lse, jdo,
+                                             interpret=True, **mask)
+    want = _np(jdq)
+    o_t = torch.from_numpy(_np(o)).to(BF16)
+    dq, _, _ = ref_attention_bwd(q, k, v, o_t, torch.from_numpy(_np(lse)),
+                                 do, tensor_cores=True, **mask)
+    assert dq.dtype == BF16
+    assert np.abs(dq.float().numpy() - want).max() <= 1e-2 * np.abs(want).max()
+
+
 def _bshd(B, S, H, D, pad=0, offset=0):
     """A (B, H, S, D) bf16 view of a (B, S, H, D + pad) buffer, starting
     ``offset`` elements into it: the model's layout read through strides."""
@@ -154,12 +174,67 @@ def test_tma_preconditions_run_before_any_launch(monkeypatch):
         tfa.flash_attention_bwd_dkv(q, k, k, q, lse, lse)
 
 
+def test_dq_tma_preconditions_run_before_any_launch(monkeypatch):
+    """K3a's bf16 call that the tensor maps cannot describe raises in the
+    wrapper before the kernel library is touched, as K2's and K3b's do."""
+    def no_launch():
+        raise AssertionError("the kernel library was reached")
+    monkeypatch.setattr(build, "library", no_launch)
+    monkeypatch.setattr(tfa, "_check_bwd", lambda *a: None)
+    q = torch.empty(1, 16, 4, 36, dtype=BF16, device="meta")[..., :32] \
+        .transpose(1, 2)
+    k = torch.empty(1, 2, 16, 32, dtype=BF16, device="meta")
+    lse = torch.empty(1, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="strides"):
+        tfa.flash_attention_bwd_dq(q, k, k, q, lse, lse)
+    # the right dtype with an explicit route name that does not exist
+    with pytest.raises(ValueError, match="route"):
+        tfa.flash_attention_bwd_dq(k, k, k, k, lse, lse, route="tensor")
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records which entry was called."""
+
+    def __init__(self):
+        self.called = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.called.append(name)
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("dtype,entry,route", [
+    (torch.bfloat16, "fa_bwd_dq_sm90", "wgmma"),
+    (torch.float32, "fa_bwd_dq", "cuda_core")])
+def test_dq_routes_by_dtype(monkeypatch, dtype, entry, route):
+    """K3a launches the wgmma kernel for bf16 and the CUDA-core kernel for
+    f32, and counts the launch on that route (device checks, strides and
+    stream stubbed: meta tensors stand in for CUDA ones)."""
+    lib = _FakeLib()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(tfa, "_check_bwd", lambda *a: None)
+    monkeypatch.setattr(tfa, "_bwd_args", lambda q, *a: (
+        None, tuple(q.shape[:2]) + (2, 16, 16, 32), (0.1, 1, 0, 1, 0)))
+    q = torch.empty(1, 16, 4, 32, dtype=dtype, device="meta").transpose(1, 2)
+    k = torch.empty(1, 2, 16, 32, dtype=dtype, device="meta")
+    lse = torch.empty(1, 4, 16, device="meta")
+    before = dict(tfa.flash_attention_bwd_dq.launches_by_route)
+    dq = tfa.flash_attention_bwd_dq(q, k, k, q, lse, lse)
+    assert lib.called == [entry]
+    assert dq.shape == q.shape and dq.dtype == dtype
+    assert tfa.flash_attention_bwd_dq.launches_by_route[route] == \
+        before[route] + 1
+
+
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
                                          (torch.float32, "cuda_core")])
 def test_route_by_dtype(dtype, route):
     assert tfa.route_for(dtype) == route
     assert set(tfa.flash_attention_fwd_bhsd.launches_by_route) == \
-        set(tfa.ROUTES) == set(tfa.flash_attention_bwd_dkv.launches_by_route)
+        set(tfa.ROUTES) == set(tfa.flash_attention_bwd_dkv.launches_by_route) \
+        == set(tfa.flash_attention_bwd_dq.launches_by_route)
 
 
 def test_route_refuses_other_dtypes_and_names():
@@ -231,6 +306,39 @@ def test_wgmma_dkv_matches_plain_on_card(cuda, B, H, Hkv, S, D, mask):
     # chip_smoke.py's bf16 bound: 1e-2 of the largest gradient
     for got, want in ((dk, pk), (dv, pv)):
         assert float((got.float() - want.float()).abs().max()) <= 1e-2 * top
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("B,H,Hkv,S,D,mask",
+                         [c for c in _CARD if "soft_cap" not in c[5]])
+def test_wgmma_dq_matches_plain_on_card(cuda, B, H, Hkv, S, D, mask):
+    q, k, v, do = _card_inputs(B, H, Hkv, S, D, 3 * S + D, cuda)
+    o, lse = tfa.flash_attention_fwd_bhsd(q, k, v, **mask)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    before = dict(tfa.flash_attention_bwd_dq.launches_by_route)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **mask)
+    again = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **mask)
+    pq, pk, pv = tfa.flash_attention_bwd_bhsd_plain(q, k, v, o, lse, do,
+                                                    **mask)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_dq.launches_by_route["wgmma"] == \
+        before["wgmma"] + 2
+    # no atomics: the same bits on every run
+    assert torch.equal(dq, again)
+    top = max(float(t.float().abs().max()) for t in (pq, pk, pv))
+    # chip_smoke.py's bf16 bound: 1e-2 of the largest gradient
+    assert float((dq.float() - pq.float()).abs().max()) <= 1e-2 * top
+
+
+@pytest.mark.card
+def test_wgmma_dq_refuses_unaligned_views_on_card(cuda):
+    q = torch.zeros(1, 16, 4, 36, dtype=BF16, device=cuda)[..., :32] \
+        .transpose(1, 2)
+    lse = torch.zeros(1, 4, 16, device=cuda)
+    before = dict(tfa.flash_attention_bwd_dq.launches_by_route)
+    with pytest.raises(ValueError, match="strides"):
+        tfa.flash_attention_bwd_dq(q, q, q, q, lse, lse)
+    assert dict(tfa.flash_attention_bwd_dq.launches_by_route) == before
 
 
 @pytest.mark.card
