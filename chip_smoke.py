@@ -27,8 +27,20 @@ Phases, one JSON line each:
               K5's rows time the CUDA kernel, the Triton kernel it
               replaced (``previous_ms``) and ``F.rms_norm`` in turns, from
               a CUDA graph and eagerly (``eager_ms``,
-              ``previous_eager_ms``, ``library_eager_ms``); then
-   layer    — one decode layer's compute time beside one row copy;
+              ``previous_eager_ms``, ``library_eager_ms``); K4's rows time
+              the relay's route, the kernel it replaced (``previous_ms``)
+              and ``copy_`` in turns on the same buffers, with the host
+              allocation and the grid, and K4 is checked bit for bit on
+              every host allocation kind (``k4_checks``); then
+   k4-sweep — K4's designs, one lever at a time, on one granite row
+              pinned host -> HBM and one bert-large row back, on each
+              host allocation kind, with ``copy_``; a fetch and
+              write-backs together on two streams; the round trip of one
+              read of host memory (``k4_sweep``);
+   layer    — one decode layer's compute time beside one row copy, and one
+              2048-token prefill layer alone and beside row fetches by
+              the relay's route, by the kernel it replaced and by
+              ``copy_``;
 4. grid     — the relay knobs (pack, prefetch, G, resting place) at smoke
               size on the card: results bitwise equal;
 5. serve    — the l2l engine (weight_stream, pack_params, prefetch 1,
@@ -57,7 +69,9 @@ Phases, one JSON line each:
               and the counts by route: every bf16 K2, K3a and K3b launch of
               both paths on the wgmma route, none on the CUDA-core one, and
               every K5 launch of the serve path on the CUDA route, none on
-              the Triton one.
+              the Triton one, and every K4 fetch and write-back of both
+              paths on the relay's route ("lines"), none on the kernels it
+              replaced.
 
 Then the kernel table line, the card's name and power limit, and the
 result line.  Any failed check raises, so the script exits nonzero and
@@ -73,6 +87,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -197,6 +212,245 @@ def bf16_ulp_ok(torch, got, ref):
     _, e = torch.frexp(ref.float())
     ulp = torch.ldexp(torch.ones_like(ref, dtype=torch.float32), e - 8)
     return bool(((got.float() - ref.float()).abs() <= ulp).all())
+
+
+def host_facts():
+    """The host's CPU model and the card's PCIe link (where nvidia-smi
+    reads it): two calls may land on two hosts."""
+    facts = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key = ln.split(":", 1)[0].strip()
+                if key in ("vendor_id", "cpu family", "model", "model name") \
+                        and key not in facts:
+                    facts[key] = ln.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    facts["cpus"] = os.cpu_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+         "pcie.link.width.current,pcie.link.gen.max,pcie.link.width.max",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    facts["pcie_gen_width_current_max"] = (smi.stdout.strip() or None
+                                           if smi.returncode == 0 else None)
+    return facts
+
+
+def k4_checks(torch, rc, ha, dev):
+    """K4 bit for bit on every host allocation kind, by the relay's route
+    and the one it replaced: the fetch of a half-row plan (one row, split
+    in two chunks) and a multi-row plan, and the write-back of one row;
+    rows of 1024 f32 (16-byte aligned), 1028 f32 (row 1 starts 16 bytes
+    into a 128-byte line: a head and a tail peeled off), 1001 f32 (4-byte
+    aligned) and 1001 bytes (1-byte).  Returns the count of checks."""
+    checks = 0
+    for kind in ha.KINDS:
+        for dt, w in ((torch.float32, 1024), (torch.float32, 1028),
+                      (torch.float32, 1001), (torch.uint8, 1001)):
+            vals = torch.arange(3 * w).remainder(251).to(dt).view(3, w)
+            src = ha.empty((3, w), dt, kind=kind)
+            src.copy_(vals)                    # the CPU writes, never reads
+            dst = ha.empty((3, w), dt, kind=kind)
+            for route in (rc.FETCH_ROUTE, "tma_tiles", "words"):
+                for r0, sz in ((1, 1), (0, 3)):
+                    got = rc.copy_rows(src, r0, size=sz, device=dev,
+                                       route=route)
+                    assert torch.equal(got.cpu(), vals[r0:r0 + sz]), \
+                        ("k4 fetch", kind, dt, w, route, r0, sz)
+                    checks += 1
+                dst.copy_(torch.zeros_like(vals))
+                rc.writeback_rows(vals[1].to(dev), dst, 1, route=route)
+                back = torch.empty(3, w, dtype=dt, device=dev)
+                rc.copy_rows(dst, 0, size=3, out=back)   # read on the card
+                want = torch.zeros_like(vals)
+                want[1] = vals[1]
+                assert torch.equal(back.cpu(), want), \
+                    ("k4 write-back", kind, dt, w, route)
+                checks += 1
+    return checks
+
+
+def k4_sweep(torch, rc, ha, build, dev, fetch_bytes, wb_bytes, kinds,
+             fetch_arms, wb_arms, duplex_arms, reps=3):
+    """GB/s of K4's designs on one row pinned host -> HBM (``fetch_bytes``)
+    and one row HBM -> pinned host (``wb_bytes``), for every host
+    allocation kind in ``kinds`` and every arm (label -> ``Route``), with
+    ``copy_`` on each buffer; each arm checked bitwise once, then timed
+    ``reps`` times in a pass over all arms and again in a pass in reverse
+    order (the mean of the two).  ``duplex_arms``: (fetch route, write-back
+    route) pairs launched together on two streams, each direction's GB/s
+    beside its own alone."""
+    g = torch.Generator(dev).manual_seed(21)
+    nf, nw = fetch_bytes // 4, wb_bytes // 4
+    want_f = torch.randn(nf, generator=g, device=dev)
+    want_w = torch.randn(nw, generator=g, device=dev)
+    d_f = torch.empty_like(want_f)
+    host_f, host_w = {}, {}
+    t0 = time.perf_counter()
+    for k in kinds:
+        host_f[k] = ha.empty((1, nf), torch.float32, kind=k)
+        host_w[k] = ha.empty((1, nw), torch.float32, kind=k)
+        rc.writeback_rows(want_f, host_f[k], 0)
+    torch.cuda.synchronize()
+    alloc_s = time.perf_counter() - t0
+    check = torch.empty_like(want_w)
+
+    def fetch(k, route):
+        return lambda: rc.copy_rows(host_f[k], 0, size=1, out=d_f[None],
+                                    route=route)
+
+    def wb(k, route):
+        return lambda: rc.writeback_rows(want_w, host_w[k], 0, route=route)
+
+    def lib_fetch(k):
+        return lambda: d_f.copy_(host_f[k][0], non_blocking=True)
+
+    def lib_wb(k):
+        return lambda: host_w[k][0].copy_(want_w, non_blocking=True)
+
+    cases = []                     # (direction, kind, label, fn)
+    for k in kinds:
+        for label, route in fetch_arms.items():
+            d_f.zero_()
+            fetch(k, route)()
+            torch.cuda.synchronize()
+            assert torch.equal(d_f, want_f), ("k4 fetch arm", k, label)
+            cases.append(("fetch", k, label, fetch(k, route)))
+        cases.append(("fetch", k, "copy_", lib_fetch(k)))
+        for label, route in wb_arms.items():
+            rc.writeback_rows(torch.zeros_like(want_w), host_w[k], 0)
+            wb(k, route)()
+            check.copy_(host_w[k][0])
+            torch.cuda.synchronize()
+            assert torch.equal(check, want_w), ("k4 write-back arm", k, label)
+            cases.append(("writeback", k, label, wb(k, route)))
+        cases.append(("writeback", k, "copy_", lib_wb(k)))
+    ms = {}
+    for order in (cases, cases[::-1]):
+        for d, k, label, fn in order:
+            n = reps if d == "fetch" else 4 * reps
+            ms.setdefault((d, k, label), []).append(
+                time_ms(torch, fn, n, warmup=1))
+    out = {"phase": "k4-sweep", "host": host_facts(),
+           "fetch_bytes": fetch_bytes, "writeback_bytes": wb_bytes,
+           "alloc_s": alloc_s, "reps": reps,
+           "is_pinned": {k: host_f[k].is_pinned() for k in kinds},
+           "GBps": {}}
+    for (d, k, label), t in ms.items():
+        nbytes = fetch_bytes if d == "fetch" else wb_bytes
+        out["GBps"].setdefault(d, {}).setdefault(k, {})[label] = \
+            nbytes / (sum(t) / len(t)) / 1e6
+    # duplex: one fetch and write-backs of as many bytes, on two streams
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    n_wb = max(1, fetch_bytes // wb_bytes)
+    duplex = {}
+    for k in kinds:
+        for fl, wl in duplex_arms:
+            fr = fetch_arms.get(fl)
+            wr = wb_arms.get(wl)
+            f_fn = lib_fetch(k) if fl == "copy_" else fetch(k, fr)
+            w_fn = lib_wb(k) if wl == "copy_" else wb(k, wr)
+
+            def run(on_f, on_w):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                torch.cuda.synchronize()
+                start = torch.cuda.Event()
+                start.record()
+                if on_f:
+                    s1.wait_event(start)
+                    with torch.cuda.stream(s1):
+                        ev[0].record()
+                        f_fn()
+                        ev[1].record()
+                if on_w:
+                    s2.wait_event(start)
+                    with torch.cuda.stream(s2):
+                        ev[2].record()
+                        for _ in range(n_wb):
+                            w_fn()
+                        ev[3].record()
+                torch.cuda.synchronize()
+                return (fetch_bytes / ev[0].elapsed_time(ev[1]) / 1e6
+                        if on_f else None,
+                        n_wb * wb_bytes / ev[2].elapsed_time(ev[3]) / 1e6
+                        if on_w else None)
+            run(True, True)
+            alone_f, _ = run(True, False)
+            _, alone_w = run(False, True)
+            both_f, both_w = run(True, True)
+            duplex.setdefault(k, {})[f"{fl} + {wl}"] = {
+                "fetch_alone": alone_f, "writeback_alone": alone_w,
+                "fetch_duplex": both_f, "writeback_duplex": both_w}
+    out["duplex_GBps"] = duplex
+    # the round trip of one read: a chain of indices 4224 bytes apart (a
+    # new line and page each step), followed by one thread; then the bytes
+    # in flight that the best SM-side fetch rate implies (Little's law)
+    stride, steps = 528, 20000
+    chain = torch.arange(nf // 2, device=dev, dtype=torch.int64) + stride
+    last = torch.zeros(1, dtype=torch.int64, device=dev)
+    bufs = {"hbm": chain.clone()}
+    for k in kinds:
+        bufs[k] = host_f[k].view(torch.int64)
+        rc.writeback_rows(chain, bufs[k], 0)
+    torch.cuda.synchronize()
+    out["read_latency_us"], out["in_flight_KiB"] = {}, {}
+    for k, b in bufs.items():
+        us = []
+        for _ in range(2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            build.check(build.library().rc_chase(
+                b.data_ptr(), steps, last.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), "rc_chase")
+            ev[1].record()
+            ev[1].synchronize()
+            us.append(ev[0].elapsed_time(ev[1]) * 1e3 / steps)
+        assert int(last) == steps * stride, int(last)
+        out["read_latency_us"][k] = min(us)
+        if k != "hbm":
+            best = max(v for a, v in out["GBps"]["fetch"][k].items()
+                       if a != "copy_")
+            out["in_flight_KiB"][k] = best * min(us) / 1.024
+    del host_f, host_w, bufs
+    return out
+
+
+SWEEP_KINDS = ("pinned", "mapped", "write_combined", "huge_pages")
+
+
+def k4_arms(rc):
+    """The k4-sweep's arms (label -> ``relay_copy.Route``): the relay's
+    route, the kernels before it, and each lever by itself — the request
+    shape (TMA tiles of 4, 16, 64 KB; 16-byte words in whole lines, plain
+    or with a 128- or 256-byte L2 prefetch), the locality (tiles
+    interleaved over the grid or one run per block) and the SMs used;
+    then the duplex pairs."""
+    R = rc.Route
+    route, prev_f, prev_w = rc.FETCH_ROUTE, "tma_tiles", "words"
+    fetch = {f"{route} (route)": rc.ROUTES[route],
+             f"{prev_f} (before)": rc.ROUTES[prev_f],
+             "words/132": R("words")}
+    wb = {f"{route} (route)": rc.ROUTES[route],
+          f"{prev_w} (before)": rc.ROUTES[prev_w]}
+    for m in ("lines", "lines128", "lines256"):
+        fetch[f"{m}/132"] = R(m, lines=True)
+    wb["lines/132"] = R("lines", lines=True)
+    for tile, stages in ((4096, 16), (65536, 2)):
+        for arms in (fetch, wb):
+            arms[f"tma{tile // 1024}K/132"] = R("tma", tile=tile,
+                                                stages=stages, lines=True)
+    for arms in (fetch, wb):
+        arms["lines/132/span"] = R("lines", lines=True, span=True)
+        arms["tma16K/132/span"] = R("tma", lines=True, span=True)
+    for b in (1, 2, 4, 16, 33, 66):
+        for arms in (fetch, wb):
+            arms[f"lines/{b}"] = R("lines", lines=True, blocks=b)
+    for b in (8, 16, 33, 66):
+        fetch[f"tma16K/{b}"] = R("tma", lines=True, blocks=b)
+    duplex = [(f"{prev_f} (before)", f"{prev_w} (before)"),
+              (f"{route} (route)", f"{route} (route)"), ("copy_", "copy_")]
+    return fetch, wb, duplex
 
 
 def train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, ref, get_config,
@@ -336,32 +590,41 @@ def train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, ref, get_config,
     del q, k, v, o, do, got, qt, kt, vt, ot, dot, plain, qs, ks, vs, ref_o
 
     # K4 write-back: a packed f32 weight row and one layer's bf16 stash
-    # (UB=4 microbatches of 8 x 512 x 1024) from HBM into pinned rows
+    # (UB=4 microbatches of 8 x 512 x 1024) from HBM into pinned rows: the
+    # line loop on LINE_BLOCKS blocks, the word loop over every SM it
+    # replaced (previous_ms) and copy_, in turns on the same buffers
     for dt, w in ((torch.float32, n), (torch.bfloat16, 4 * 8 * 512 * 1024)):
         src = torch.randn(w, generator=g, device=dev).to(dt)
         dst = torch.zeros(2, w, dtype=dt, pin_memory=True)
-        rc.writeback_rows(src, dst, 1)
-        torch.cuda.synchronize()
-        assert torch.equal(dst[1], src.cpu()) and not dst[0].any(), \
-            "relay write-back is not bit-exact"
+        for route in (rc.WRITEBACK_ROUTE, "words"):
+            dst[1].zero_()
+            rc.writeback_rows(src, dst, 1, route=route)
+            torch.cuda.synchronize()
+            assert torch.equal(dst[1], src.cpu()) and not dst[0].any(), \
+                ("relay write-back is not bit-exact", route)
         nbytes = w * src.element_size()
-        row = {"name": "relay_copy_writeback", "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/relay_copy.cu",
-               "replaces": "src/repro/kernels/relay_copy.py:128",
-               "shape": [1, w], "dtype": str(dt).split(".")[1],
-               "max_abs_err": 0.0,
-               "ms": time_ms(torch, lambda: rc.writeback_rows(src, dst, 1),
-                             5),
-               "plain_ms": time_ms(torch, lambda: rc.writeback_rows_plain(
-                   src, dst, 0), 5),
-               "library_ms": time_ms(torch, lambda: dst[0].copy_(
-                   src, non_blocking=True), 5),
-               "bound_ms": nbytes / PCIE5_X16_BPS * 1e3, "bound_by": "bytes"}
-        row["achieved_GBps"] = nbytes / row["ms"] / 1e6
-        row["ms_by_blocks_per_sm"] = {
-            b: time_ms(torch, lambda b=b: rc.writeback_rows(
-                src, dst, 1, blocks=b * sms), 3) for b in (1, 2, 4)}
-        rows.append(row)
+        ms, prev_ms, lib_ms = rotation(torch, (
+            lambda: rc.writeback_rows(src, dst, 1),
+            lambda: rc.writeback_rows(src, dst, 1, route="words"),
+            lambda: dst[0].copy_(src, non_blocking=True)), 5, timer=time_ms)
+        rows.append({
+            "name": "relay_copy_writeback", "route": "cuda",
+            "kernel_route": rc.WRITEBACK_ROUTE, "previous_route": "words",
+            "source": "src/repro_torch/kernels/csrc/relay_copy.cu",
+            "replaces": "src/repro/kernels/relay_copy.py:128",
+            "shape": [1, w], "dtype": str(dt).split(".")[1],
+            "host_alloc": "pinned (torch.empty(pin_memory=True))",
+            "grid_blocks": rc.LINE_BLOCKS, "previous_grid_blocks": sms,
+            "max_abs_err": 0.0, "ms": ms, "previous_ms": prev_ms,
+            "library_ms": lib_ms,
+            "timing": "ms, previous_ms, library_ms (copy_): back-to-back "
+                      "calls, in turns on the same buffers",
+            "plain_ms": time_ms(torch, lambda: rc.writeback_rows_plain(
+                src, dst, 0), 5),
+            "bound_ms": nbytes / PCIE5_X16_BPS * 1e3, "bound_by": "bytes",
+            "achieved_GBps": nbytes / ms / 1e6,
+            "previous_GBps": nbytes / prev_ms / 1e6,
+            "library_GBps": nbytes / lib_ms / 1e6})
     return rows
 
 
@@ -418,8 +681,7 @@ def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
         emit({"phase": "train-step", **steps[-1]})
     launches = {n: c.launches for n, c in counters.items()}
     routes = route_counts(counters)
-    fetched = counters["relay_copy"].bytes - fetch0 + \
-        STEPS * cfg.n_layers * stash_row            # + the stash's copy_
+    fetched = counters["relay_copy"].bytes - fetch0   # the stash's too
     written = counters["relay_copy_writeback"].bytes - wb0
     peak24 = torch.cuda.max_memory_allocated()
     reserved24 = torch.cuda.max_memory_reserved()
@@ -555,6 +817,7 @@ def main(argv=None):
     from repro_torch.core.schedule import ExecutionConfig
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import host_alloc as ha
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import relay_copy as rc
     from repro_torch.kernels import rmsnorm as rms
@@ -623,46 +886,45 @@ def main(argv=None):
     g = torch.Generator(dev).manual_seed(7)
     rows = []
 
-    # K4: one packed f32 granite layer row out of the pinned EPS, then the
-    # same copy at other grid sizes (blocks per SM) beside the default
+    # K4: one packed f32 granite layer row out of the pinned EPS by the line
+    # loop on LINE_BLOCKS blocks, the TMA kernel over every SM it replaced
+    # (previous_ms) and copy_, in turns on the same buffers
     start = min(1, depth - 1)
     got = rc.copy_rows(eps, start, size=1, device=dev)
+    old = rc.copy_rows(eps, start, size=1, device=dev, route="tma_tiles")
     plain = ref.ref_copy_rows(eps, start, 1, device=dev)
     torch.cuda.synchronize()
-    assert torch.equal(got, plain), "relay_copy is not bit-exact"
+    assert torch.equal(got, plain) and torch.equal(old, plain), \
+        "relay_copy is not bit-exact"
     slot = torch.empty_like(plain)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ms, prev_ms, lib_ms = rotation(torch, (
+        lambda: rc.copy_rows(eps, start, size=1, device=dev, out=slot),
+        lambda: rc.copy_rows(eps, start, size=1, device=dev, out=slot,
+                             route="tma_tiles"),
+        lambda: slot.copy_(eps[start:start + 1], non_blocking=True)), 5,
+        timer=time_ms)
     k4 = {"name": "relay_copy", "route": "cuda",
+          "kernel_route": rc.FETCH_ROUTE, "previous_route": "tma_tiles",
           "source": "src/repro_torch/kernels/csrc/relay_copy.cu",
           "replaces": "src/repro/kernels/relay_copy.py:58",
           "shape": [1, layer_elems], "dtype": "float32",
-          "blocks_per_sm": rc.BLOCKS_PER_SM, "sms": sms,
+          "host_alloc": "pinned (torch.empty(pin_memory=True))",
+          "grid_blocks": rc.LINE_BLOCKS, "previous_grid_blocks": sms,
           "max_abs_err": float((got - plain).abs().max()),
-          "ms": time_ms(torch, lambda: rc.copy_rows(
-              eps, start, size=1, device=dev, out=slot), 5),
+          "ms": ms, "previous_ms": prev_ms, "library_ms": lib_ms,
+          "timing": "ms, previous_ms, library_ms (copy_): back-to-back "
+                    "calls, in turns on the same buffers",
           "plain_ms": time_ms(torch, lambda: ref.ref_copy_rows(
               eps, start, 1, device=dev), 5),
-          "library_ms": time_ms(torch, lambda: slot.copy_(
-              eps[start:start + 1], non_blocking=True), 5),
-          "bound_ms": layer_bytes / PCIE5_X16_BPS * 1e3, "bound_by": "bytes"}
-    k4["achieved_GBps"] = layer_bytes / k4["ms"] / 1e6
-    k4["ms_by_method_blocks_per_sm"] = {
-        f"{'bulk' if bulk else 'ldst'}/{b}": time_ms(
-            torch, lambda b=b, bulk=bulk: rc.copy_rows(
-                eps, start, size=1, device=dev, out=slot, blocks=b * sms,
-                bulk=bulk), 3)
-        for bulk in (True, False) for b in (1, 2, 4, 8)}
+          "bound_ms": layer_bytes / PCIE5_X16_BPS * 1e3, "bound_by": "bytes",
+          "achieved_GBps": layer_bytes / ms / 1e6,
+          "previous_GBps": layer_bytes / prev_ms / 1e6,
+          "library_GBps": layer_bytes / lib_ms / 1e6}
     assert torch.equal(slot, plain), "relay_copy is not bit-exact"
-    # chunks that are not 16-byte aligned take the 4- and 1-byte loops
-    for dt, w in ((torch.float32, 1001), (torch.uint8, 1001)):
-        small_src = torch.arange(3 * w, dtype=torch.int64).to(dt).view(3, w) \
-            .pin_memory()
-        for r0, sz in ((1, 1), (0, 3)):
-            assert torch.equal(rc.copy_rows(small_src, r0, size=sz,
-                                            device=dev).cpu(),
-                               small_src[r0:r0 + sz]), (dt, w, r0, sz)
+    k4["checks"] = k4_checks(torch, rc, ha, dev)
     rows.append(k4)
-    del got, plain, slot
+    del got, old, plain, slot
 
     # K5: decode rows and prefill rows of granite, bf16, f32 scale: the
     # CUDA kernel, the Triton kernel it replaced and F.rms_norm in turns,
@@ -787,6 +1049,15 @@ def main(argv=None):
     report["kernels"] = {"phase": "kernels", "rows": rows}
     emit(report["kernels"])
 
+    # ------------------------------------------------------------- k4-sweep
+    wb_bytes = next(r["shape"][1] * 4 for r in rows
+                    if r["name"] == "relay_copy_writeback")
+    t0 = time.perf_counter()
+    report["k4_sweep"] = k4_sweep(torch, rc, ha, build, dev, layer_bytes,
+                                  wb_bytes, SWEEP_KINDS, *k4_arms(rc))
+    report["k4_sweep"]["seconds"] = time.perf_counter() - t0
+    emit(report["k4_sweep"])
+
     # one decode layer's compute at the serve shape, its slot already in
     # HBM: what the relay has to hide behind each row copy
     with torch.inference_mode():
@@ -808,8 +1079,53 @@ def main(argv=None):
                 w0, x0, cache0, None, ctx0), 10),
             "row_copy_ms": {"min": min(row_ms), "max": max(row_ms),
                             "mean": sum(row_ms) / len(row_ms)}}
+        # one prefill layer (B=2 x 2048 tokens) alone (warm), then three
+        # beside four row fetches on a second stream by the relay's route,
+        # by the one it replaced and by copy_ (the copy engine), in turns:
+        # what the fetch costs the layer it hides
+        xp = torch.randn(2, 2048, cfg.d_model, generator=g,
+                         device=dev).to(torch.bfloat16)
+        ctxp = eng.model.train_ctx(
+            {"tokens": torch.zeros(2, 2048, dtype=torch.long, device=dev)},
+            eng.model.groups[0])
+        apply = eng.model.groups[0].apply
+        spare = torch.empty_like(slot)[None]
+        side = torch.cuda.Stream(dev)
+
+        def beside(route):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                ev[0].record()
+                for r in range(4):
+                    if route == "copy_":
+                        spare.copy_(eps[r % depth:r % depth + 1],
+                                    non_blocking=True)
+                    else:
+                        rc.copy_rows(eps, r % depth, size=1, out=spare,
+                                     route=route)
+                ev[1].record()
+            ev[2].record()
+            for _ in range(3):
+                apply(w0, xp, None, ctxp)
+            ev[3].record()
+            torch.cuda.synchronize()
+            return ev[2].elapsed_time(ev[3]) / 3, ev[0].elapsed_time(ev[1]) / 4
+
+        alone = time_ms(torch, lambda: apply(w0, xp, None, ctxp), 3)
+        routes_ = (rc.FETCH_ROUTE, "tma_tiles", "copy_")
+        runs = {r: [] for r in routes_}
+        for r in routes_ + routes_[::-1]:
+            runs[r].append(beside(r))
+        report["layer"]["prefill_layer"] = {
+            "shape": [2, 2048, cfg.d_model], "alone_ms": alone,
+            "beside_fetch_ms": {r: sum(v[0] for v in runs[r]) / 2
+                                for r in routes_},
+            "fetch_ms_beside_layers": {r: sum(v[1] for v in runs[r]) / 2
+                                       for r in routes_}}
     emit(report["layer"])
-    del slot, w0, cache0
+    del slot, w0, cache0, xp, spare
 
     # ----------------------------------------------------------------- grid
     # the relay ring on the card: pack x prefetch x G (at a depth G=2 does
@@ -964,6 +1280,10 @@ def main(argv=None):
         serve_routes
     assert serve_routes["rmsnorm"] == {
         "cuda": serve_launches["rmsnorm"], "triton": 0}, serve_routes
+    # and every K4 fetch the relay's route
+    assert serve_routes["relay_copy"] == {
+        rc.FETCH_ROUTE: serve_launches["relay_copy"], "tma_tiles": 0,
+        "words": 0}, serve_routes
 
     # the serving state goes before the training phases pin theirs
     del eng, params, eps, caches, pl, pl2, last, logits
@@ -1077,6 +1397,11 @@ def main(argv=None):
               "flash_attention_bwd_dkv"):
         assert train_routes[n] == {"wgmma": train_launches[n],
                                    "cuda_core": 0}, (n, train_routes)
+    # and every K4 fetch and write-back the relay's route
+    for n, route in (("relay_copy", rc.FETCH_ROUTE),
+                     ("relay_copy_writeback", rc.WRITEBACK_ROUTE)):
+        assert train_routes[n] == {route: train_launches[n], "tma_tiles": 0,
+                                   "words": 0}, (n, train_routes)
     path_kernels = {"serve": ("relay_copy", "rmsnorm", "flash_attention_fwd"),
                     "train": ("relay_copy", "relay_copy_writeback",
                               "flash_attention_fwd", "flash_attention_bwd_dq",
@@ -1089,7 +1414,7 @@ def main(argv=None):
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "previous_ms", "library_err")
+            "previous_ms", "library_err", "achieved_GBps")
     main_rows = {}
     for r in rows:                      # the first row of each kernel: the
         main_rows.setdefault(r["name"], r)   # path's shape, its dtype

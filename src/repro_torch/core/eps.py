@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core.tree import tree_map
+from repro_torch.kernels import relay_copy
 
 
 class Placement(NamedTuple):
@@ -50,7 +51,11 @@ def _pin(a):
     # writes into a fresh block
     torch.cuda.synchronize()
     out = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-    return out.copy_(a)
+    if a.device.type != "cuda" or not a.numel():
+        return out.copy_(a)
+    # a device tensor goes out through K4's write-back (current stream)
+    relay_copy.writeback_rows(a.contiguous().reshape(-1), out.view(1, -1), 0)
+    return out
 
 
 def single_device_placement(device, stream: bool) -> Placement:

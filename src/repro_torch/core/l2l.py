@@ -57,6 +57,7 @@ from repro_torch.core.eps import EPSPlacements, make_placements
 from repro_torch.core.relay import Sink, Stream, relay_scan
 from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten_like
+from repro_torch.kernels import relay_copy
 from repro_torch.optim import Optimizer, clip_by_norm, tree_global_norm
 
 
@@ -143,10 +144,13 @@ def _make_packed_update(optimizer: Optimizer, run_opt) -> Callable:
 # ===========================================================================
 def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                     placements: Optional[EPSPlacements] = None,
-                    device="cpu", copy_stream=None) -> Callable:
+                    device="cpu", copy_stream=None,
+                    writeback_stream=None) -> Callable:
     """Returns step(params, opt_state, batch) -> (params', opt_state',
     metrics).  ``opt_state`` = {"step": int, "embed", "head", "groups"
-    [, "loss_scale"]} — build with ``init_opt_state``."""
+    [, "loss_scale"]} — build with ``init_opt_state``.  On CUDA the
+    relay's fetches run on ``copy_stream`` and its write-backs on
+    ``writeback_stream`` (each made when not given)."""
     assert not exec_cfg.dynamic_depth, "dynamic_depth is not ported yet"
     assert not exec_cfg.host_optimizer, "host_optimizer is not ported yet"
     assert exec_cfg.tiers == 2, "tiers=3 (the disk tier) is not ported yet"
@@ -158,6 +162,8 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         placements = make_placements(exec_cfg, len(model.groups), device)
     if device.type == "cuda" and copy_stream is None:
         copy_stream = torch.cuda.Stream(device)
+    if device.type == "cuda" and writeback_stream is None:
+        writeback_stream = torch.cuda.Stream(device)
     UB = exec_cfg.n_microbatches
     PK = exec_cfg.pack_params
     SE = exec_cfg.stash_every
@@ -175,11 +181,12 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                           group=exec_cfg.layers_per_relay,
                           prefetch=exec_cfg.prefetch_depth,
                           transport=exec_cfg.transport, device=device,
-                          copy_stream=copy_stream, **kw)
+                          copy_stream=copy_stream,
+                          writeback_stream=writeback_stream, **kw)
 
     def sink(place, n):
         return Sink(place, n, transport=exec_cfg.transport,
-                    copy_stream=copy_stream)
+                    stream=writeback_stream)
 
     def step(params, opt_state, batch):
         static = {"embed": params["embed"], "head": params["head"]}
@@ -312,7 +319,8 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
 
             for si in reversed(range(len(bounds))):
                 s0, s1 = bounds[si]
-                entry = _row_to_device(entries.tree, si, device, copy_stream)
+                entry = _row_to_device(entries.tree, si, device, copy_stream,
+                                       writeback_stream)
                 seg = sink(sp, s1 - s0)
                 seg.write(0, entry)
                 if s1 - s0 > 1:
@@ -401,15 +409,17 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
     return step
 
 
-def _row_to_device(tree, row: int, device, copy_stream):
+def _row_to_device(tree, row: int, device, copy_stream, writeback_stream):
     """Row ``row`` of a stacked tree on the compute device: from pinned
-    host memory through the copy stream (behind its earlier write-backs),
-    the compute stream waiting for it."""
+    host memory by K4 on the copy stream, behind the write-backs issued so
+    far, the compute stream waiting for it."""
     if device.type != "cuda" or tree_leaves(tree)[0].device.type == "cuda":
         return tree_map(lambda a: a[row], tree)
     compute = torch.cuda.current_stream(device)
+    copy_stream.wait_stream(writeback_stream)
     with torch.cuda.stream(copy_stream):
-        out = tree_map(lambda a: a[row].to(device, non_blocking=True), tree)
+        out = relay_copy.fetch_slot(tree, row, 1, squeeze=True,
+                                    device=device)
     compute.wait_stream(copy_stream)
     for a in tree_leaves(out):
         a.record_stream(compute)
@@ -421,7 +431,7 @@ def _row_to_device(tree, row: int, device, copy_stream):
 # ===========================================================================
 def make_grads_fn(model, exec_cfg: ExecutionConfig,
                   placements: Optional[EPSPlacements] = None, device="cpu",
-                  copy_stream=None) -> Callable:
+                  copy_stream=None, writeback_stream=None) -> Callable:
     """Returns grads(params, batch) -> (loss, grads) computed with the L2L
     schedule (layer-major, recompute, trailing gradient shipment): the
     train step with an 'optimizer' that stores the gradient.  Only the
@@ -440,7 +450,7 @@ def make_grads_fn(model, exec_cfg: ExecutionConfig,
         eager_optimizer=False, clip_mode="none")
     collector = _grad_collector()
     base_step = make_train_step(model, collector, cfg, placements, device,
-                                copy_stream)
+                                copy_stream, writeback_stream)
 
     def fn(params, batch):
         opt = init_opt_state(collector, params)

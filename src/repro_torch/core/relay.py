@@ -42,10 +42,10 @@ depth.
 
 **Per-layer inputs (``xs``)**, e.g. the boundary stash of the backward,
 are a stacked ``(N, ...)`` tree fetched one stop at a time with the
-weights: a tree resting in pinned host memory is copied into its own
-ring of k + 1 slot buffers on the copy stream (``copy_``, as the
-reference moves it with ``device_put``); a device-resident tree is
-sliced as views (a body may update them in place: the decode caches).
+weights: a tree resting in pinned host memory is copied by K4 into its
+own ring of k + 1 slot buffers on the copy stream (the reference moves it
+with ``device_put``); a device-resident tree is sliced as views (a body
+may update them in place: the decode caches).
 
 **Products that go back to the EPS (``sinks``).**  A training body
 returns per-layer products (the stash, updated weights and optimizer
@@ -54,14 +54,21 @@ in its placement's resting place, and layer i's product is written into
 row i as soon as it is made: through K4's write-back
 (``relay_copy.writeback_slot``) into pinned host memory, or into a
 device buffer (K4 under ``transport="pallas"``, ``copy_`` under "xla").
-So host-placed products never gather on the device.  Ordering: every
-write-back runs on the SAME copy stream as every fetch of the engine,
-behind an event of the compute stream that made the product, and the
-product is marked with ``record_stream`` for the copy stream so its
-memory is not reused before the write has read it.  Stream order then
-puts each row's write-back before any later fetch of that row, in the
-same step (the backward reading the forward's stash, the trailing
-update reading the shipped gradients) and in the next step's forward.
+So host-placed products never gather on the device.  Ordering: the
+write-backs run on the engine's write-back stream, beside the fetches on
+its copy stream, so the link carries both directions at once (the rates
+are in ``relay_copy``'s source note).  Each write-back waits on an event
+of the compute stream that
+made the product, and the product is marked with ``record_stream`` for
+the write-back stream so its memory is not reused before the write has
+read it.  Each fetch first makes the copy stream wait for every
+write-back issued so far, which puts each row's write-back before any
+later fetch of that row, in the same step (the backward reading the
+forward's stash, the trailing update reading the shipped gradients) and
+in the next step's forward.  A write-back into a pinned block that an
+earlier fetch still reads cannot happen either: every product's compute
+waited on a fetch of its own pass, behind all earlier fetches on the
+copy stream (and the engine joins both streams at the end of a step).
 A host reader of a sink synchronizes first.
 """
 from __future__ import annotations
@@ -89,11 +96,11 @@ class Sink:
     ``tree`` is the result."""
 
     def __init__(self, placement: Placement, n: int, *, transport="xla",
-                 copy_stream=None):
+                 stream=None):
         self.placement = placement
         self.n = n
         self.transport = transport
-        self.copy_stream = copy_stream
+        self.stream = stream          # the CUDA stream the write-backs run on
         self.tree = None
 
     def write(self, row: int, tree) -> None:
@@ -114,18 +121,18 @@ class Sink:
         if not on_cuda:
             relay_copy.writeback_slot(tree, out=self.tree, row=row)
             return
-        copier = self.copy_stream
+        writer = self.stream
         compute = torch.cuda.current_stream(leaves[0].device)
         made = torch.cuda.Event()
         made.record(compute)
-        with torch.cuda.stream(copier):
-            copier.wait_event(made)
+        with torch.cuda.stream(writer):
+            writer.wait_event(made)
             if host or self.transport == "pallas":
                 relay_copy.writeback_slot(tree, out=self.tree, row=row)
             else:
                 tree_map(lambda a, d: d[row].copy_(a), tree, self.tree)
         for a in leaves:
-            a.record_stream(copier)
+            a.record_stream(writer)
 
 
 def _index(tree, j: int):
@@ -140,7 +147,7 @@ def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
                xs=None, sinks: Sequence[Sink] = (), sink_row0: int = 0,
                reverse: bool = False, group: int = 1, prefetch: int = 0,
                transport: str = "xla", device="cpu", copy_stream=None,
-               active: Optional[tuple] = None,
+               writeback_stream=None, active: Optional[tuple] = None,
                idle_body: Optional[Callable] = None):
     """Run ``body(carry, slots, x) -> (carry, ys)`` once per layer.
 
@@ -150,11 +157,12 @@ def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
     that sink for layer i.  ``reverse=True`` walks layers N-1..0.
     Returns ``(carry, tuple(sink.tree for sink in sinks) or None)``.
 
-    ``copy_stream`` is the CUDA stream the fetches (and the sinks'
-    write-backs) run on; pass the engine's one stream to every pass (the
-    caching allocator reuses a freed slot's memory only for later
-    allocations on the stream it was allocated on, and one stream orders
-    every write-back before any later fetch of its row).
+    ``copy_stream`` is the CUDA stream the fetches run on, and
+    ``writeback_stream`` the one the sinks' write-backs run on (default:
+    the copy stream); pass the engine's streams to every pass (the caching
+    allocator reuses a freed slot's memory only for later allocations on
+    the stream it was allocated on).  Every fetch waits for the
+    write-backs issued before it.
     """
     assert active is None and idle_body is None, \
         "dynamic depth (active / idle_body) is not ported yet"
@@ -205,6 +213,8 @@ def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
             return slots, x, None, j
         if len(released) >= 2:
             released[-2].synchronize()
+        if writeback_stream is not None and writeback_stream != copier:
+            copier.wait_stream(writeback_stream)
         with torch.cuda.stream(copier):
             if bufs[j] is None:
                 alloc = lambda a: torch.empty(
@@ -228,8 +238,9 @@ def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
             if xs is None:
                 x = None
             elif host_xs:
-                x = tree_map(lambda b, a: b[:size].copy_(
-                    a[start:start + size], non_blocking=True), xbuf, xs)
+                x = relay_copy.fetch_slot(
+                    xs, start, size, device=device,
+                    out=tree_map(lambda b: b[:size], xbuf))
             else:
                 x = _rows(xs, start, size)
         ready = torch.cuda.Event()

@@ -22,8 +22,8 @@ update), ``l2l-p`` (Alg 4, eager per-layer update).  An Engine runs on
 card it raises instead of moving to the CPU.  The optimizer defaults to
 ``adam()``.  A training step is functional: it returns a new state and
 leaves the one it was given as it was.  When it returns, the compute
-stream has been ordered behind the step's last write-back; a host reader
-of the pinned rows synchronizes first.
+stream has been ordered behind the step's last fetch and write-back (each
+on its own stream); a host reader of the pinned rows synchronizes first.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.engine.registry import register
 from repro_torch.engine.state import TrainState
+from repro_torch.kernels import relay_copy
 from repro_torch.models.model import LayeredModel
 from repro_torch.optim import Optimizer, adam
 
@@ -70,9 +71,13 @@ class Engine:
         self.placements = placements or make_placements(
             self.exec_cfg, len(model.groups), self.device)
         # one copy stream for every relay pass of this engine, so freed
-        # slots are reused instead of allocated anew on a fresh stream
-        self.copy_stream = (torch.cuda.Stream(self.device)
-                            if self.device.type == "cuda" else None)
+        # slots are reused instead of allocated anew on a fresh stream; the
+        # training passes' write-backs run beside it on a stream of their
+        # own
+        cuda = self.device.type == "cuda"
+        self.copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        self.writeback_stream = (torch.cuda.Stream(self.device) if cuda
+                                 else None)
         self._fns: dict = {}
 
     def _normalize_cfg(self, exec_cfg: ExecutionConfig) -> ExecutionConfig:
@@ -102,7 +107,10 @@ class Engine:
                             (g.n_layers,) + tuple(a.shape), dtype=a.dtype,
                             device="cpu" if pinned else dev,
                             pin_memory=pinned), row)
-                tree_map(lambda d, r, _l=li: d[_l].copy_(r), dest, row)
+                # K4's write-back, into pinned or device rows
+                relay_copy.writeback_slot(
+                    tree_map(lambda a: a.contiguous(), row), out=dest,
+                    row=li)
             groups.append(dest)
         return {"embed": embed, "head": head, "groups": tuple(groups)}
 
@@ -166,16 +174,19 @@ class Engine:
     def _make_step(self):
         return _l2l.make_train_step(self.model, self.optimizer,
                                     self.exec_cfg, self.placements,
-                                    self.device, self.copy_stream)
+                                    self.device, self.copy_stream,
+                                    self.writeback_stream)
 
     def _make_grads(self):
         return _l2l.make_grads_fn(self.model, self.exec_cfg, self.placements,
-                                  self.device, self.copy_stream)
+                                  self.device, self.copy_stream,
+                                  self.writeback_stream)
 
     def _end_of_step(self):
         if self.copy_stream is not None:
-            torch.cuda.current_stream(self.device).wait_stream(
-                self.copy_stream)
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_stream(self.copy_stream)
+            compute.wait_stream(self.writeback_stream)
 
     def train_step(self, state: TrainState, batch):
         """One optimizer step: (state, batch) -> (new state, metrics).  A

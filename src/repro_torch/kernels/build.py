@@ -38,9 +38,14 @@ _F32 = ctypes.c_float
 # C entry points and their argument types (every pointer and stream is
 # c_void_p: ctypes would otherwise pass a 32-bit int and cut the pointer)
 SIGNATURES = {
-    "rc_copy_rows": (_P, _P, _I64, _I64, _I64,   # src dst starts row_bytes
-                     ctypes.POINTER(_I64), _I32, _I32, _I32, _P),
-    # chunks n_chunks blocks bulk stream
+    "rc_copy_spans": (_P, _P, ctypes.POINTER(_I64), _I32,  # src dst spans n
+                      _I32, _I32, _I32, _I32, _I32, _P),
+    # method tile stages blocks span stream
+    "rc_host_alloc": (_I64, ctypes.c_uint, ctypes.POINTER(_P)),
+    "rc_host_free": (_P,),
+    "rc_host_register": (_P, _I64, ctypes.c_uint),
+    "rc_host_unregister": (_P,),
+    "rc_chase": (_P, _I64, _P, _P),               # chain steps out stream
     "fa_fwd": (_P, _P, _P, _P, _P,                       # q k v o lse
                _I32, _I32, _I32, _I32, _I32, _I32,       # B H Hkv Sq Sk D
                ctypes.POINTER(_I64),                     # 12 strides

@@ -253,3 +253,77 @@ def test_writeback_slot_bitwise(dtype):
         w = np.asarray(w.astype(jnp.float32))
         assert np.array_equal(o[1].float().numpy(), w)
         assert not o[0].any() and not o[2].any()
+
+
+# ---- K4's spans: the pure-Python part of the launch --------------------
+from repro_torch.kernels import host_alloc as tha  # noqa: E402
+
+
+def _random_spans(rs):
+    es = int(rs.choice([1, 2, 4]))
+    size, w = int(rs.choice([1, 1, 2, 3])), int(rs.randint(1, 3000))
+    start = int(rs.randint(0, 4))
+    src_addr = int(rs.randint(0, 1 << 20)) * int(rs.choice([1, 4, 16]))
+    dst_addr = int(rs.randint(0, 1 << 16)) * 256
+    host_is_src = bool(rs.rand() < 0.5)
+    lines = bool(rs.rand() < 0.7)
+    spans = trc._spans(trc._chunk_plan(size, w), es, w * es, start, 0,
+                       src_addr=src_addr, dst_addr=dst_addr,
+                       host_is_src=host_is_src, lines=lines)
+    return (es, size, w, start, src_addr, dst_addr, host_is_src, lines,
+            spans)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_spans_cover_the_plan_exactly_once(seed):
+    """Merged or split at the host's 128-byte lines, the spans of a chunk
+    plan cover its bytes [0, size * w * es) of the slot exactly once, each
+    at its own row offset of the source."""
+    rs = np.random.RandomState(seed)
+    for _ in range(200):
+        es, size, w, start, sa, da, host_src, lines, spans = \
+            _random_spans(rs)
+        covered = np.zeros(size * w * es, dtype=np.int64)
+        for s, d, n in spans:
+            assert n > 0 and s - d == start * w * es
+            covered[d:d + n] += 1
+        assert (covered == 1).all()
+        if not lines:
+            continue
+        for s, d, n in spans:
+            host = (sa + s) if host_src else (da + d)
+            if (sa + s - da - d) % 16 == 0 and n >= trc.LINE \
+                    and host % trc.LINE == 0:
+                assert n % trc.LINE == 0      # a body: whole lines
+
+
+def test_spans_merge_and_peel():
+    # one span per chunk of the plan, or the plan's chunks merged (the
+    # half-row plan of one row, three whole rows) and split at the host's
+    # 128-byte lines: a row that starts 16 bytes into a line gets a
+    # 112-byte head, whole lines and a tail
+    assert trc._spans(trc._chunk_plan(1, 1000), 4, 4000, 0, 0) == \
+        [(0, 0, 2000), (2000, 2000, 2000)]
+    assert trc._spans(trc._chunk_plan(1, 1024), 4, 4096, 0, 0,
+                      lines=True) == [(0, 0, 4096)]
+    assert trc._spans(trc._chunk_plan(3, 1024), 4, 4096, 2, 0,
+                      lines=True) == [(8192, 0, 12288)]
+    got = trc._spans(((0, 0, 1028),), 4, 4112, 1, 0, lines=True)
+    assert got == [(4112, 0, 112), (4224, 112, 3968), (8192, 4080, 32)]
+    # sides that disagree modulo 16 bytes are not split (word loop)
+    assert trc._spans(trc._chunk_plan(1, 1001), 4, 4004, 1, 0,
+                      lines=True) == [(4004, 0, 4004)]
+
+
+def test_relay_copy_routes():
+    assert trc.FETCH_ROUTE == trc.WRITEBACK_ROUTE == "lines"
+    assert trc.ROUTES["lines"].blocks == trc.LINE_BLOCKS
+    assert set(trc.copy_rows.launches_by_route) == set(trc.ROUTES)
+    assert set(trc.writeback_rows.launches_by_route) == set(trc.ROUTES)
+    # a CPU tensor takes the plain version, whatever the route
+    src = torch.arange(12.0).view(3, 4)
+    for route in trc.ROUTES:
+        assert torch.equal(trc.copy_rows(src, 1, size=2, route=route),
+                           src[1:3])
+    with pytest.raises(ValueError):
+        tha.empty((4,), torch.float32, kind="pageable")
