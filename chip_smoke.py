@@ -52,11 +52,28 @@ Phases, one JSON line each:
    launches — K2, K4 and K5's counts over the serving path (the serve
               phase and phase 6's two prefills), read before the
               comparison engines run;
+   serve-dense — chatglm3-6b (all 28 layers unless the host cannot pin
+              them), command-r-35b and qwen1.5-110b (4 layers) at full
+              width through the serve phase's engine settings: decode_init
+              on 4 prompts of 16 tokens, 4 greedy steps, Engine.prefill held
+              to decode_init's last-token logits (and in f32 at depth 1,
+              where qwen's K5 rows reach their 32 KB limit); the counters
+              set to 0 before each model and read after its prefill;
 7. train-grid — the training knobs (pack, prefetch, G, stash_every,
               where weights and stash rest, l2l against l2l-p) at smoke
               size on the card: loss, params and Adam slots bitwise equal;
 8. identity — bert-large at full width, depth 2, f32: one l2l-p step
               against the baseline engine on the same batch;
+   checkpoint — bert-large at full width, depth 2, under l2l-p with
+              pinned rows: 2 steps, Engine.save, restore into a fresh engine,
+              2 more steps, against 4 uninterrupted steps bit for bit;
+   train-rmsnorm — chatglm3-6b at full width, depth 4 (an RMSNorm model,
+              GQA 16), l2l-p with the train phase's knobs: 3 steps at B=8,
+              S=512, UB=2 with every counter set to 0 just before and read
+              just after (K5 under grad: ``rmsnorm_diff``); then Engine.grads
+              in f32 against the same call with K5's plain version patched
+              in, every norm scale's gradient not zero, and K3a/K3b at the
+              path's GQA-16 microbatch against their plain version;
 9. train    — bert-large at full width and all 24 layers, l2l-p with
               weight_stream, pack_params, prefetch 1, transport "pallas",
               use_pallas, offload_stash, Adam: 5 steps at B=32, S=512,
@@ -65,13 +82,13 @@ Phases, one JSON line each:
               HBM of two steps at depth 12 beside depth 24's;
    library  — SDPA backward's device time and K3a's and K3b's, under
               torch.profiler, into the kernel rows;
-10. launches — every kernel's count over the two main paths (all > 0),
-              and the counts by route: every bf16 K2, K3a and K3b launch of
-              both paths on the wgmma route, none on the CUDA-core one, and
-              every K5 launch of the serve path on the CUDA route, none on
-              the Triton one, and every K4 fetch and write-back of both
-              paths on the relay's route ("lines"), none on the kernels it
-              replaced.
+10. launches — every kernel's count over the four main paths (serve,
+              serve-dense, train, train-rmsnorm; each of a path's kernels
+              > 0), and the counts by route: every bf16 K2, K3a and K3b
+              launch on the wgmma route, none on the CUDA-core one, every
+              K5 launch on the CUDA route, none on the Triton one, and every
+              K4 fetch and write-back on the relay's route ("lines"), none
+              on the kernels it replaced.
 
 Then the kernel table line, the card's name and power limit, and the
 result line.  Any failed check raises, so the script exits nonzero and
@@ -706,10 +723,7 @@ def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
         "loss on the repeated batch did not fall over 5 steps"
     out["profile"] = profile_step(torch, eng, state, batch)
     del eng, state, eps, metrics
-    gc.collect()
-    torch.cuda.empty_cache()
-    if hasattr(torch._C, "_host_emptyCache"):
-        torch._C._host_emptyCache()
+    free_host(torch)
 
     # the paper's claim: device memory does not grow with depth
     eng, state, _ = build(12)
@@ -728,30 +742,424 @@ def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
     return out
 
 
-def backward_device_ms(torch, F, dev, fa, rows):
-    """SDPA backward's device time, the K3a and K3b rows' ``library_ms``,
-    and the two kernels' own (``profiled_ms``), each by ``device_ms`` on
-    fresh inputs of the rows' shape."""
+def free_host(torch):
+    """Return freed device and pinned blocks (the next phase pins its
+    own EPS)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+
+
+# the dense configurations the port's blocks cover, served at full width:
+# (arch, depth cap); chatglm3-6b at full depth (28 layers, 22.9 GB of f32
+# rows), the two d-8192 models at 4 layers (2.8 and 5.4 GB per f32 row)
+DENSE_SERVE = (("chatglm3-6b", 0), ("command-r-35b", 4), ("qwen1.5-110b", 4))
+
+
+def serve_dense_phase(torch, engines, ExecutionConfig, exec_cfg, get_config,
+                      LayeredModel, tree_leaves, is_spec, packing,
+                      sample_batch, counters, dev):
+    """decode_init on 4 prompts of 16 tokens and 4 greedy decode steps of
+    each DENSE_SERVE model through the granite serve phase's engine
+    settings, then Engine.prefill held to decode_init's last-token logits;
+    the counters set to 0 just before each model and read just after its
+    prefill.  Then the same prefill against decode_init in f32 at depth 1
+    (K5's f32 rows reach their 32 KB limit at d 8192), not counted."""
+    B, P, GEN = 4, 16, 4
+    out, launches, routes = [], {}, {}
+    for arch, cap in DENSE_SERVE:
+        full = get_config(arch, "full")
+        row = 4 * sum(math.prod(sp.shape[1:]) for sp in tree_leaves(
+            LayeredModel(full).param_specs()["groups"][0], is_leaf=is_spec))
+        depth = host_depth(row, full.n_layers, reserve=24 * 2 ** 30)
+        depth = min(depth, cap) if cap else depth
+        cfg = full.replace(n_layers=depth, use_pallas=True)
+        eng = engines.create("l2l", cfg, exec_cfg)
+        t0 = time.perf_counter()
+        params = eng.init_params(torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        eps = params["groups"][0].segs["float32"]
+        assert eps.is_pinned() and eps.shape == (depth, row // 4)
+        prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                               generator=torch.Generator(dev).manual_seed(1))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters.values())
+        t0 = time.perf_counter()
+        caches, last = eng.decode_init(params, prompt, P + GEN)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        tok = sample_batch(last)[:, None]
+        toks = [tok]
+        t0 = time.perf_counter()
+        for i in range(GEN):
+            logits, caches = eng.decode_step(params, caches, tok, P + i)
+            assert bool(torch.isfinite(logits).all()), (arch, "logits")
+            tok = sample_batch(logits[:, -1])[:, None]
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        pl = eng.prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        got = {n: c.launches for n, c in counters.items()}
+        got_routes = route_counts(counters)
+        toks = torch.cat(toks, dim=1)
+        rel = float((pl.float() - last.float()).norm() / last.float().norm())
+        agree = int((pl.argmax(-1) == last.argmax(-1)).sum())
+        # f32 at depth 1: a wrong mask, position or cache slot shows as O(1)
+        e1 = engines.create("l2l", cfg.replace(n_layers=1, dtype="float32"),
+                            exec_cfg)
+        sub = {**params, "groups": (packing.Packed(
+            {"float32": eps[:1]}, params["groups"][0].spec),)}
+        _, r1 = e1.decode_init(sub, prompt, P)
+        g1 = e1.prefill(sub, {"tokens": prompt})
+        gap1 = float((g1.float() - r1.float()).norm() / r1.float().norm())
+        line = {"arch": arch, "depth": depth, "full_depth": full.n_layers,
+                "d_model": cfg.d_model, "heads": [cfg.n_heads,
+                                                  cfg.n_kv_heads],
+                "norm": cfg.norm_type, "layer_row_bytes": row,
+                "eps_pinned_bytes": depth * row, "init_s": init_s,
+                "tokens": toks.tolist(), "decode_init_s": t_init,
+                "decode_s": t_dec, "tok_per_s": B * GEN / t_dec,
+                "relay_GBps": GEN * depth * row / t_dec / 1e9,
+                "rel_l2_prefill_vs_decode_init": {"bf16_full": rel,
+                                                  "f32_depth1": gap1},
+                "argmax_agree": agree, "launches": got,
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        emit({"phase": "serve-dense", **line})
+        out.append(line)
+        # f32 at depth 1: the granite prefill phase's 1e-4; bf16 at the
+        # depth served, with the same top-1 token on all but at most one
+        # row: 0.25 beyond 4 layers (chatglm3-6b's 28 measured 0.110),
+        # 0.05 at 4 (measured 0.007 and 0.013), where granite's phase
+        # allows 0.35 at its 40 (measured 0.138)
+        assert toks.shape == (B, GEN + 1) and bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()), arch
+        assert bool(torch.isfinite(pl).all()), arch
+        line["bf16_bound"] = 0.25 if depth > 4 else 0.05
+        assert gap1 <= 1e-4 and rel <= line["bf16_bound"] and \
+            agree >= B - 1, line
+        for n, v in got.items():
+            launches[n] = launches.get(n, 0) + v
+        for n, r in got_routes.items():
+            for k, v in r.items():
+                routes.setdefault(n, {}).setdefault(k, 0)
+                routes[n][k] += v
+        del eng, e1, params, eps, caches, last, logits, pl, sub, r1, g1
+        free_host(torch)
+    return out, launches, routes
+
+
+def k3_gqa_check(torch, dev, fa, kops, cfg, B, S):
+    """K3a and K3b at a training microbatch of ``cfg``'s heads (chatglm3:
+    32 q over 2 kv heads, a GQA group of 16), bf16, causal, against the
+    plain version; graph-timed."""
+    g = torch.Generator(dev).manual_seed(12)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16() \
+        .requires_grad_()
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
+            .requires_grad_() for _ in range(2))
+    o = kops.flash_attention(q, k, v, causal=True)
+    do = torch.randn(o.shape, generator=g, device=dev).bfloat16()
+    got = torch.autograd.grad(o, (q, k, v), do)
+    qt, kt, vt, ot, dot = (t.detach().transpose(1, 2)
+                           for t in (q, k, v, o, do))
+    _, lse = fa.flash_attention_fwd_bhsd(qt, kt, vt, causal=True)
+    plain = fa.flash_attention_bwd_bhsd_plain(qt, kt, vt, ot, lse, dot,
+                                              causal=True)
+    torch.cuda.synchronize()
+    errs = [float((x.float() - y.transpose(1, 2).float()).abs().max())
+            for x, y in zip(got, plain)]
+    tops = [float(y.float().abs().max()) for y in plain]
+    delta = (dot.float() * ot.float()).sum(-1).contiguous()
+    dq_ms = graph_ms(torch, lambda: fa.flash_attention_bwd_dq(
+        qt, kt, vt, dot, lse, delta, causal=True), 20)
+    dkv_ms = graph_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+        qt, kt, vt, dot, lse, delta, causal=True), 20)
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_bhsd_plain(
+        qt, kt, vt, ot, lse, dot, causal=True), 5)
+    pairs = B * H * S * (S + 1) // 2
+    out = {"shape": [B, S, H, D], "kv_heads": Hkv, "group": H // Hkv,
+           "dtype": "bfloat16", "dq_max_abs_err": errs[0],
+           "dk_max_abs_err": errs[1], "dv_max_abs_err": errs[2],
+           "max_abs_grad": tops, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+           "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
+           "dq_bound_ms": 6 * D * pairs / H100_BF16_OPS * 1e3,
+           "dkv_bound_ms": 8 * D * pairs / H100_BF16_OPS * 1e3,
+           "dkv_blocks": -(-S // 128) * B * Hkv}
+    # as the train kernel rows: 1e-2 of the largest gradient of each
+    assert all(e <= 1e-2 * t for e, t in zip(errs, tops)), out
+    return out
+
+
+def train_rmsnorm_phase(torch, engines, ExecutionConfig, knobs, get_config,
+                        SyntheticLM, DataConfig, adam, make_schedule,
+                        counters, kops, rms, fa, dev):
+    """chatglm3-6b at full width, depth 4, under l2l-p: 3 steps with every
+    counter set to 0 just before and read just after (K5 under grad); then
+    one Engine.grads in f32 against the same call with K5's plain version
+    patched in, and K3 at the path's GQA-16 shape."""
+    import numpy as np
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.testing import fan_in_params
+    B, S, UB, STEPS, DEPTH = 8, 512, 2, 3, 4
+    full = get_config("chatglm3-6b", "full")
+    cfg = full.replace(n_layers=DEPTH, use_pallas=True)
+    opt = adam(schedule=make_schedule(1e-4, warmup=10))
+    eng = engines.create("l2l-p", cfg, ExecutionConfig(n_microbatches=UB,
+                                                       **knobs),
+                         optimizer=opt)
+    t0 = time.perf_counter()
+    state = eng.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                   seed=0)).batch(0).items()}
+    eps = state.params["groups"][0].segs["float32"]
+    eps_bytes = sum(a.numel() * a.element_size() for a in
+                    [eps] + [s.segs["float32"] for s in
+                             state.opt_state["groups"][0].values()])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    forwards0 = kops.rmsnorm_diff.forwards
+    steps = []
+    for i in range(STEPS):
+        t0 = time.perf_counter()
+        state, metrics = eng.train_step(state, batch)
+        issued = time.perf_counter() - t0
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps.append({"step": i, "s": dt, "host_issue_s": issued,
+                      "tok_per_s": B * S / dt, "loss": loss,
+                      "grad_norm": float(metrics["grad_norm"])})
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    diff_forwards = kops.rmsnorm_diff.forwards - forwards0
+    peak = torch.cuda.max_memory_allocated()
+    out = {"phase": "train-rmsnorm", "arch": full.name, "depth": DEPTH,
+           "full_depth": full.n_layers,
+           "reduced": f"depth {full.n_layers} -> {DEPTH}: a full-depth f32 "
+                      "EPS with Adam slots is ~69 GB pinned",
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "batch": B, "seq": S,
+           "microbatches": UB, "knobs": knobs, "init_s": init_s,
+           "eps_pinned_bytes": eps_bytes, "steps": steps,
+           "steady_s_per_step": float(np.mean([s["s"] for s in steps[1:]])),
+           "peak_allocated_bytes": peak,
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "rmsnorm_diff_forwards": diff_forwards,
+           "launches_per_step": {n: v / STEPS for n, v in launches.items()}}
+    assert all(np.isfinite(s["loss"]) for s in steps), steps
+    # K5 ran under grad: the differentiable forwards, each one K5 launch
+    # on the CUDA route
+    assert diff_forwards > 0 and \
+        routes["rmsnorm"]["cuda"] >= diff_forwards, (diff_forwards, routes)
+    del eng, state, eps, metrics
+    free_host(torch)
+
+    # Engine.grads in f32 (the CUDA-core attention, K5's f32 kernel) against
+    # the same call with K5's plain version patched in, at the usual scales
+    # (fan_in_params): 1e-4 relative L2 per leaf; every norm scale's
+    # gradient finite and not zero, layer by layer.  At the reference's own
+    # init (std 1/sqrt(depth) per matrix, scores in the thousands) the
+    # backward amplifies a norm output's last bit.  A second witness there:
+    # the plain version against itself with the norm computed in f64 and
+    # rounded once to f32 (the correctly rounded output, which differs from
+    # the f32 plain version's by an ulp where K5's does); K5's distance is
+    # bounded by 10 times the witness's
+    ge = engines.create("l2l-p", cfg.replace(dtype="float32"),
+                        ExecutionConfig(n_microbatches=UB, **knobs))
+
+    def f64_norm(x, scale, *, eps, **_):
+        xd = x.double()
+        return (xd * torch.rsqrt((xd * xd).mean(-1, keepdim=True) + eps)
+                * scale.double()).to(x.dtype)
+
+    def grads_with(norm, params):
+        kernel = kops.rmsnorm_2d
+        kops.rmsnorm_2d = norm
+        try:
+            return ge.grads(params, batch)
+        finally:
+            kops.rmsnorm_2d = kernel
+
+    def distance(got, want):
+        (loss_a, ga), (loss_b, gb) = got, want
+        torch.cuda.synchronize()
+        rels = {key: float((a.float() - b.float()).norm() / b.float().norm())
+                for (key, a), (_, b) in zip(tree_leaves_with_path(ga),
+                                            tree_leaves_with_path(gb))}
+        worst = max(rels, key=rels.get)
+        return {"max_rel_l2_per_leaf": rels[worst], "worst_leaf": worst,
+                "leaves": len(rels), "loss_rel": abs(float(loss_a) - float(
+                    loss_b)) / abs(float(loss_b))}
+
+    def compare(params):
+        k5 = rms.rmsnorm_2d.launches_by_route["cuda"]
+        kern = ge.grads(params, batch)
+        k5 = rms.rmsnorm_2d.launches_by_route["cuda"] - k5
+        plain = grads_with(rms.rmsnorm_2d_plain, params)
+        wit = distance(grads_with(f64_norm, params), plain)
+        return kern[1], {"k5_launches": k5, "loss_kernel": float(kern[0]),
+                         "loss_plain": float(plain[0]),
+                         **distance(kern, plain),
+                         "f64_norm_vs_plain": wit}
+
+    _, at_init = compare(ge.init_params(torch.Generator(dev).manual_seed(1)))
+    g1 = torch.Generator(dev).manual_seed(1)
+    grads_k, check = compare(fan_in_params(
+        ge.model.param_specs(),
+        lambda shape: torch.randn(shape, generator=g1, device=dev)))
+    layers = grads_k["groups"][0]
+    scales = [layers["ln1"]["scale"], layers["ln2"]["scale"],
+              grads_k["head"]["ln_f"]["scale"][None]]
+    nonzero = [int(g.abs().sum(-1).gt(0).sum()) for g in scales]
+    finite = all(bool(torch.isfinite(g).all()) for g in scales)
+    out["grads_check"] = {
+        "dtype": "float32", "params": "fan-in scales (fan_in_params)",
+        **check, "bound_rel_l2": 1e-4, "norm_scale_rows_nonzero": nonzero,
+        "norm_scale_rows": [g.shape[0] for g in scales],
+        "norm_scale_grad_abs_mean": [float(g.abs().mean()) for g in scales],
+        "at_reference_init": {**at_init, "bound": "10x f64_norm_vs_plain"}}
+    assert check["k5_launches"] > 0 and finite and \
+        check["max_rel_l2_per_leaf"] <= 1e-4 and \
+        nonzero == out["grads_check"]["norm_scale_rows"] and \
+        check["loss_rel"] <= 1e-5, out["grads_check"]
+    assert at_init["k5_launches"] > 0 and at_init["max_rel_l2_per_leaf"] \
+        <= 10 * at_init["f64_norm_vs_plain"]["max_rel_l2_per_leaf"], \
+        out["grads_check"]
+    del ge, grads_k, layers, scales
+    free_host(torch)
+    out["k3_gqa"] = k3_gqa_check(torch, dev, fa, kops, cfg, B // UB, S)
+    return out, launches, routes
+
+
+def checkpoint_phase(torch, engines, ExecutionConfig, knobs, bert,
+                     SyntheticLM, DataConfig, adam, make_schedule, bridge,
+                     tree_leaves, dev):
+    """bert-large at full width and depth 2 (the identity phase's model)
+    under l2l-p with pinned rows: 2 steps, Engine.save from the pinned
+    rows, restore into a fresh engine, 2 more steps; losses, final params
+    and Adam slots against an uninterrupted 4-step run, bit for bit."""
+    import numpy as np
+    import shutil
+    B, S, UB = 8, 512, 2
+    cfg = bert.replace(n_layers=2)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=2))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()} for i in range(4)]
+
+    def make():
+        return engines.create("l2l-p", cfg, ExecutionConfig(
+            n_microbatches=UB, **knobs), optimizer=adam(
+                schedule=make_schedule(1e-4, warmup=10)))
+
+    def run(eng, state, steps):
+        losses = []
+        for i in steps:
+            state, m = eng.train_step(state, batches[i])
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    def leaves(state):
+        p, o, step, _ = bridge.train_state_to_numpy(state)
+        return tree_leaves(p) + tree_leaves(o), step
+
+    ea = make()
+    want, want_losses = run(ea, ea.init(torch.Generator(dev).manual_seed(9)),
+                            range(4))
+    want_leaves, want_step = leaves(want)
+    del want
+    free_host(torch)
+    eb = make()
+    half, losses = run(eb, eb.init(torch.Generator(dev).manual_seed(9)),
+                       range(2))
+    assert half.params["groups"][0].segs["float32"].is_pinned()
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = eb.save(str(ckdir), half)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    del eb, half
+    free_host(torch)
+    ec = make()
+    t0 = time.perf_counter()
+    back, step = ec.restore(str(ckdir))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert step == 2 and back.params["groups"][0].segs["float32"].is_pinned()
+    final, more = run(ec, back, range(2, 4))
+    got_leaves, got_step = leaves(final)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    out = {"phase": "checkpoint", "arch": bert.name, "depth": 2,
+           "batch": B, "seq": S, "microbatches": UB, "knobs": knobs,
+           "snapshot_bytes": nbytes, "save_s": save_s,
+           "restore_s": restore_s,
+           "save_GBps": nbytes / save_s / 1e9,
+           "restore_GBps": nbytes / restore_s / 1e9,
+           "losses_uninterrupted": want_losses,
+           "losses_resumed": losses + more,
+           "leaves": len(got_leaves)}
+    out["bitwise"] = (want_losses == losses + more and got_step == want_step
+                      and len(got_leaves) == len(want_leaves) and all(
+                          a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                          for a, b in zip(got_leaves, want_leaves)))
+    assert out["bitwise"], out
+    del ec, back, final
+    free_host(torch)
+    return out
+
+
+def backward_device_ms(torch, F, dev, fa, rows, gqa):
+    """SDPA backward's device time and K3a's and K3b's own, each by
+    ``device_ms`` on fresh inputs: at the K3a and K3b rows' shape (their
+    ``library_ms`` and ``profiled_ms``) and at the GQA shape of ``gqa``
+    (``k3_gqa_check``'s result, which gains the same keys).  With kv heads
+    fewer than q heads, SDPA gets them repeated inside the autograd graph,
+    so its backward also sums dk and dv over each group, as K3b does."""
+    def measure(B, S, H, Hkv, D):
+        g = torch.Generator(dev).manual_seed(11)
+        q, do = (torch.randn(B, S, H, D, generator=g, device=dev)
+                 .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+        k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev)
+                .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+        o, lse = fa.flash_attention_fwd_bhsd(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        ke, ve = (ks, vs) if Hkv == H else (
+            t.repeat_interleave(H // Hkv, dim=1) for t in (ks, vs))
+        ref_o = F.scaled_dot_product_attention(qs, ke, ve, is_causal=True)
+        res = {"shape": [B, S, H, D], "kv_heads": Hkv,
+               "sdpa_backward_device_ms": device_ms(
+                   torch, lambda: torch.autograd.grad(
+                       ref_o, (qs, ks, vs), do, retain_graph=True), 20)}
+        for kern in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+            res[kern.__name__ + "_device_ms"] = device_ms(
+                torch, lambda kern=kern: kern(q, k, v, do, lse, delta,
+                                              causal=True), 20)
+        return res
+
     B, S, H, D = next(r["shape"] for r in rows
                       if r["name"] == "flash_attention_bwd_dq")
-    g = torch.Generator(dev).manual_seed(11)
-    q, k, v, do = (torch.randn(B, S, H, D, generator=g, device=dev)
-                   .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
-    o, lse = fa.flash_attention_fwd_bhsd(q, k, v, causal=True)
-    delta = (do.float() * o.float()).sum(-1).contiguous()
-    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-    ref_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    lib_ms = device_ms(torch, lambda: torch.autograd.grad(
-        ref_o, (qs, ks, vs), do, retain_graph=True), 20)
-    out = {"phase": "library", "shape": [B, S, H, D],
-           "sdpa_backward_device_ms": lib_ms}
-    for kern in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
-        ms = device_ms(torch, lambda kern=kern: kern(
-            q, k, v, do, lse, delta, causal=True), 20)
-        out[kern.__name__ + "_device_ms"] = ms
-        for r in rows:
-            if r["name"] == kern.__name__:
-                r["library_ms"], r["profiled_ms"] = lib_ms, ms
+    out = {"phase": "library", **measure(B, S, H, H, D)}
+    for r in rows:
+        if r["name"] in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            r["library_ms"] = out["sdpa_backward_device_ms"]
+            r["profiled_ms"] = out[r["name"] + "_device_ms"]
+    B, S, H, D = gqa["shape"]
+    out["gqa"] = measure(B, S, H, gqa["kv_heads"], D)
+    gqa["library_ms"] = out["gqa"]["sdpa_backward_device_ms"]
+    gqa["library_covers"] = ("SDPA backward over the kv heads repeated: "
+                             "dq, dk and dv")
     return out
 
 
@@ -929,19 +1337,33 @@ def main(argv=None):
     # K5: decode rows and prefill rows of granite, bf16, f32 scale: the
     # CUDA kernel, the Triton kernel it replaced and F.rms_norm in turns,
     # from a CUDA graph (device time) and eagerly (the host's launch path
-    # included, which is what a decode step pays)
-    d = cfg.d_model
-    scale = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
-    wb = scale.to(torch.bfloat16)
-    for R in (4, 4 * 2048):
-        x = torch.randn(R, d, generator=g, device=dev).to(torch.bfloat16)
+    # included, which is what a decode step pays); then qwen1.5-110b's
+    # d 8192 as serve-dense gives it: the decode rows and the 4 x 16 prompt
+    # rows in bf16, and the prompt rows in f32 (32 KB rows, the kernel's
+    # widest), the depth-1 check's dtype.  bf16 within one bf16 ulp of the
+    # plain version; f32 within 1e-5 of its largest value (the sums run in
+    # another order)
+    qwen = get_config("qwen1.5-110b", "full")
+    for R, d, dt in ((4, cfg.d_model, torch.bfloat16),
+                     (4 * 2048, cfg.d_model, torch.bfloat16),
+                     (4, qwen.d_model, torch.bfloat16),
+                     (4 * 16, qwen.d_model, torch.bfloat16),
+                     (4 * 16, qwen.d_model, torch.float32)):
+        scale = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+        wb = scale.to(dt)
+        x = torch.randn(R, d, generator=g, device=dev).to(dt)
         got = rms.rmsnorm_2d(x, scale, eps=cfg.norm_eps)
         old = rms.rmsnorm_2d(x, scale, eps=cfg.norm_eps, route="triton")
         plain = rms.rmsnorm_2d_plain(x, scale, eps=cfg.norm_eps)
         torch.cuda.synchronize()
-        assert bf16_ulp_ok(torch, got, plain), "rmsnorm beyond 1 bf16 ulp"
-        assert bf16_ulp_ok(torch, old, plain), "triton rmsnorm beyond 1 ulp"
-        nbytes = 2 * R * d * 2 + d * 4
+        for out_, what in ((got, "rmsnorm"), (old, "triton rmsnorm")):
+            if dt == torch.bfloat16:
+                assert bf16_ulp_ok(torch, out_, plain), \
+                    f"{what} ({R}, {d}) beyond 1 bf16 ulp"
+            else:
+                assert float((out_ - plain).abs().max()) <= \
+                    1e-5 * float(plain.abs().max()), f"{what} ({R}, {d}) f32"
+        nbytes = 2 * R * d * x.element_size() + d * 4
         fns = (lambda: rms.rmsnorm_2d(x, scale, eps=cfg.norm_eps),
                lambda: rms.rmsnorm_2d(x, scale, eps=cfg.norm_eps,
                                       route="triton"),
@@ -952,7 +1374,7 @@ def main(argv=None):
             "name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:17",
-            "shape": [R, d], "dtype": "bfloat16",
+            "shape": [R, d], "dtype": str(dt).replace("torch.", ""),
             "max_abs_err": float((got.float() - plain.float()).abs().max()),
             "previous_max_abs_err": float((old.float() - plain.float())
                                           .abs().max()),
@@ -960,8 +1382,8 @@ def main(argv=None):
             "eager_ms": eager, "previous_eager_ms": prev_eager,
             "library_eager_ms": lib_eager,
             "timing": "ms, previous_ms (the Triton kernel), library_ms "
-                      "(F.rms_norm, bf16 weight): a CUDA graph of the "
-                      "calls; eager_ms, previous_eager_ms, "
+                      "(F.rms_norm, weight in x's dtype): a CUDA graph of "
+                      "the calls; eager_ms, previous_eager_ms, "
                       "library_eager_ms, plain_ms: back-to-back eager "
                       "calls; each set in turns",
             "plain_ms": time_ms(torch, lambda: rms.rmsnorm_2d_plain(
@@ -975,11 +1397,22 @@ def main(argv=None):
     # training microbatch (B=8, S=512).  bf16 (the paths' dtype: the wgmma
     # kernel, timed in turns with the CUDA-core kernel bf16 took before) and
     # f32 (the CUDA-core kernel).  lse comes from the same strided call.
+    # Then the dense models' heads: chatglm3-6b's (32 q over 2 kv, a GQA
+    # group of 16) at a train-rmsnorm microbatch (B=4, S=512) and at
+    # serve-dense's prompts, and command-r-35b's and qwen1.5-110b's (64 over
+    # 8, D 128, the same for both) at serve-dense's prompts.
     bert_cfg = get_config("bert-large", "full")
+    glm = get_config("chatglm3-6b", "full")
+    cr = get_config("command-r-35b", "full")
+    assert (cr.n_heads, cr.n_kv_heads, cr.d_head) == \
+        (qwen.n_heads, qwen.n_kv_heads, qwen.d_head)
     for B_, S, H, Hkv, Dh in (
             (2, 2048, cfg.n_heads, cfg.n_kv_heads, cfg.d_head),
             (4, 16, cfg.n_heads, cfg.n_kv_heads, cfg.d_head),
-            (8, 512, bert_cfg.n_heads, bert_cfg.n_heads, bert_cfg.d_head)):
+            (8, 512, bert_cfg.n_heads, bert_cfg.n_heads, bert_cfg.d_head),
+            (4, 512, glm.n_heads, glm.n_kv_heads, glm.d_head),
+            (4, 16, glm.n_heads, glm.n_kv_heads, glm.d_head),
+            (4, 16, qwen.n_heads, qwen.n_kv_heads, qwen.d_head)):
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             q = torch.randn(B_, S, H, Dh, generator=g, device=dev).to(dt)
             k = torch.randn(B_, S, Hkv, Dh, generator=g, device=dev).to(dt)
@@ -1285,12 +1718,17 @@ def main(argv=None):
         rc.FETCH_ROUTE: serve_launches["relay_copy"], "tma_tiles": 0,
         "words": 0}, serve_routes
 
-    # the serving state goes before the training phases pin theirs
+    # the serving state goes before the next phases pin theirs
     del eng, params, eps, caches, pl, pl2, last, logits
-    gc.collect()
-    torch.cuda.empty_cache()
-    if hasattr(torch._C, "_host_emptyCache"):
-        torch._C._host_emptyCache()
+    free_host(torch)
+
+    # ---------------------------------------------------------- serve-dense
+    t0 = time.perf_counter()
+    dense, dense_launches, dense_routes = serve_dense_phase(
+        torch, engines, ExecutionConfig, exec_cfg, get_config, LayeredModel,
+        tree_leaves, is_spec, packing, sample_batch, counters, dev)
+    report["serve_dense"] = {"phase": "serve-dense", "models": dense,
+                             "seconds": time.perf_counter() - t0}
 
     counters = {"relay_copy": rc.copy_rows,
                 "relay_copy_writeback": rc.writeback_rows,
@@ -1377,6 +1815,18 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ----------------------------------------------------------- checkpoint
+    report["checkpoint"] = checkpoint_phase(
+        torch, engines, ExecutionConfig, slice_knobs, bert, SyntheticLM,
+        DataConfig, adam, make_schedule, bridge, tree_leaves, dev)
+    emit(report["checkpoint"])
+
+    # -------------------------------------------------------- train-rmsnorm
+    report["train_rmsnorm"], rms_launches, rms_routes = train_rmsnorm_phase(
+        torch, engines, ExecutionConfig, slice_knobs, get_config, SyntheticLM,
+        DataConfig, adam, make_schedule, counters, kops, rms, fa, dev)
+    emit(report["train_rmsnorm"])
+
     # ---------------------------------------------------------------- train
     report["train"] = train_phase(torch, engines, ExecutionConfig, bert,
                                   slice_knobs, SyntheticLM, DataConfig,
@@ -1384,28 +1834,41 @@ def main(argv=None):
     train_launches = report["train"].pop("launches")
     train_routes = report["train"].pop("routes")
     emit(report["train"])
-    report["library"] = backward_device_ms(torch, F, dev, fa, rows)
+    report["library"] = backward_device_ms(torch, F, dev, fa, rows,
+                                           report["train_rmsnorm"]["k3_gqa"])
     emit(report["library"])
 
     # ------------------------------------------------------------- launches
-    launches = {"serve": serve_launches, "train": train_launches}
-    routes = {"serve": serve_routes, "train": train_routes}
+    launches = {"serve": serve_launches, "serve-dense": dense_launches,
+                "train": train_launches, "train-rmsnorm": rms_launches}
+    routes = {"serve": serve_routes, "serve-dense": dense_routes,
+              "train": train_routes, "train-rmsnorm": rms_routes}
     emit({"launches": launches, "routes": routes})
-    # every bf16 K2, K3a and K3b launch of the training path took the wgmma
-    # route
-    for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
-              "flash_attention_bwd_dkv"):
-        assert train_routes[n] == {"wgmma": train_launches[n],
-                                   "cuda_core": 0}, (n, train_routes)
-    # and every K4 fetch and write-back the relay's route
-    for n, route in (("relay_copy", rc.FETCH_ROUTE),
-                     ("relay_copy_writeback", rc.WRITEBACK_ROUTE)):
-        assert train_routes[n] == {route: train_launches[n], "tma_tiles": 0,
-                                   "words": 0}, (n, train_routes)
+    for path in ("serve-dense", "train", "train-rmsnorm"):
+        got, by = launches[path], routes[path]
+        # every bf16 K2, K3a and K3b launch of the path took the wgmma route
+        for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            if n in by:
+                assert by[n] == {"wgmma": got[n], "cuda_core": 0}, (path, n,
+                                                                   by)
+        # every K5 launch the CUDA kernel
+        assert by["rmsnorm"] == {"cuda": got["rmsnorm"], "triton": 0}, \
+            (path, by)
+        # and every K4 fetch and write-back the relay's route
+        for n, route in (("relay_copy", rc.FETCH_ROUTE),
+                         ("relay_copy_writeback", rc.WRITEBACK_ROUTE)):
+            if n in by:
+                assert by[n] == {route: got[n], "tma_tiles": 0, "words": 0}, \
+                    (path, n, by)
+    train_kernels = ("relay_copy", "relay_copy_writeback",
+                     "flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv", "fused_adam")
     path_kernels = {"serve": ("relay_copy", "rmsnorm", "flash_attention_fwd"),
-                    "train": ("relay_copy", "relay_copy_writeback",
-                              "flash_attention_fwd", "flash_attention_bwd_dq",
-                              "flash_attention_bwd_dkv", "fused_adam")}
+                    "serve-dense": ("relay_copy", "rmsnorm",
+                                    "flash_attention_fwd"),
+                    "train": train_kernels,
+                    "train-rmsnorm": train_kernels + ("rmsnorm",)}
     for path, names in path_kernels.items():
         assert all(launches[path].get(n, 0) > 0 for n in names), \
             (path, launches[path])

@@ -199,4 +199,6 @@ def list_archs():
 
 def _load_all():
     # import registers (the port carries the architectures it runs so far)
-    from repro_torch.configs import granite_3_8b, bert_large  # noqa: F401
+    from repro_torch.configs import (bert_large, chatglm3_6b,  # noqa: F401
+                                     command_r_35b, granite_3_8b,
+                                     qwen1_5_110b)

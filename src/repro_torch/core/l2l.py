@@ -449,11 +449,17 @@ def make_grads_fn(model, exec_cfg: ExecutionConfig,
         transport=exec_cfg.transport,
         eager_optimizer=False, clip_mode="none")
     collector = _grad_collector()
+    if placements is None:
+        placements = make_placements(cfg, len(model.groups), device)
     base_step = make_train_step(model, collector, cfg, placements, device,
                                 copy_stream, writeback_stream)
 
     def fn(params, batch):
         opt = init_opt_state(collector, params)
+        # the collector's slots rest beside their weights (pinned rows when
+        # streaming), where the trailing relay fetches them
+        opt["groups"] = tuple(placements.opts[gi].host(g)
+                              for gi, g in enumerate(opt["groups"]))
         _, new_opt, metrics = base_step(params, opt, batch)
         is_slot = lambda x: isinstance(x, dict) and set(x) == {"m"}
         unwrap = lambda t: tree_map(lambda s: s["m"], t, is_leaf=is_slot)

@@ -41,6 +41,23 @@ def tree_leaves(tree, is_leaf=None) -> list:
     return out
 
 
+def tree_leaves_with_path(tree, prefix: str = "") -> list:
+    """[(key path, leaf)] in flatten order, the keys joined with ``/``: dict
+    keys and sequence indices, as JAX's ``tree_flatten_with_path`` gives
+    them (the checkpoint manifest's key paths)."""
+    if tree is None:
+        return []
+    if not is_node(tree):
+        return [(prefix, tree)]
+    kids = _children(tree)
+    keys = sorted(tree) if isinstance(tree, dict) else range(len(kids))
+    out = []
+    for k, c in zip(keys, kids):
+        out.extend(tree_leaves_with_path(c, f"{prefix}/{k}" if prefix
+                                         else str(k)))
+    return out
+
+
 def tree_map(fn, tree, *rest, is_leaf=None):
     """Apply ``fn`` leafwise over ``tree`` (and same-structured ``rest``)."""
     if tree is None:

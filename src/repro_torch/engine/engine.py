@@ -15,6 +15,8 @@
     state = eng.init(torch.Generator("cuda").manual_seed(0))
     state, metrics = eng.train_step(state, batch)
     loss, grads = eng.grads(state, batch)
+    eng.save("ckpts", state)                      # ckpts/ckpt_<step>/
+    state, step = eng.restore("ckpts")            # newest good snapshot
 
 Registered schedules: ``baseline`` (Alg 1/2), ``l2l`` (Alg 3, trailing
 update), ``l2l-p`` (Alg 4, eager per-layer update).  An Engine runs on
@@ -23,15 +25,19 @@ card it raises instead of moving to the CPU.  The optimizer defaults to
 ``adam()``.  A training step is functional: it returns a new state and
 leaves the one it was given as it was.  When it returns, the compute
 stream has been ordered behind the step's last fetch and write-back (each
-on its own stream); a host reader of the pinned rows synchronizes first.
+on its own stream); a host reader of the pinned rows synchronizes first
+(``save`` does).  Snapshots (``checkpoint.io``) are the unpacked per-leaf
+trees of the reference, so the two packages restore each other's.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import baseline as _baseline
 from repro_torch.core import decode as _decode, l2l as _l2l, packing
@@ -41,6 +47,7 @@ from repro_torch.core.tree import tree_map
 from repro_torch.engine.registry import register
 from repro_torch.engine.state import TrainState
 from repro_torch.kernels import relay_copy
+from repro_torch.models.common import is_spec
 from repro_torch.models.model import LayeredModel
 from repro_torch.optim import Optimizer, adam
 
@@ -212,6 +219,64 @@ class Engine:
                                      self._batch(batch))
         self._end_of_step()
         return out
+
+    # -- checkpoints --------------------------------------------------------
+    def state_fingerprint(self) -> str:
+        """The on-disk layout a snapshot binds to (arch, depth, width,
+        vocab, optimizer); the relay knobs are absent, so snapshots
+        interchange across them.  The reference's string, character for
+        character."""
+        cfg = self.model.cfg
+        return (f"{cfg.name}:L{cfg.n_layers}:d{cfg.d_model}:"
+                f"v{cfg.vocab_size}:opt={self.optimizer.name}")
+
+    def save(self, directory: str, state: TrainState,
+             step: Optional[int] = None, prefix: str = "ckpt",
+             keep_last: int = 0) -> str:
+        """Write ``state`` as ``<directory>/<prefix>_<step>/`` in the
+        unpacked per-leaf layout (packed rows are viewed through their
+        PackSpecs), crash-consistently; ``keep_last=N`` prunes all but the
+        N newest snapshots.  Waits for the card first: the pinned rows are
+        written by kernels the host does not see."""
+        step = int(state.step) if step is None else int(step)
+        params, opt = state.params, state.legacy_opt()
+        if self.exec_cfg.pack_params:
+            opt = packing.unpack_opt_state(opt, params)
+            params = packing.unpack_params(params)
+        opt["step"] = np.asarray(opt["step"], np.int32)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return ckpt_io.save_train_state(
+            directory, params, opt, step, prefix=prefix,
+            keep_last=keep_last, fingerprint=self.state_fingerprint())
+
+    def _snapshot_like(self):
+        """(params, opt) of the snapshot layout as ``meta`` tensors, from
+        the model's ParamSpecs and the optimizer's slots: shapes and dtypes
+        with no storage."""
+        dt = self.model.param_dtype()
+        params = tree_map(lambda s: torch.empty(s.shape, dtype=dt,
+                                                device="meta"),
+                          self.model.param_specs(), is_leaf=is_spec)
+        opt = self._init_opt_legacy(params)
+        opt["step"] = torch.empty((), dtype=torch.int32, device="meta")
+        return params, opt
+
+    def restore(self, directory: str, step: Optional[int] = None,
+                prefix: str = "ckpt"):
+        """-> (TrainState, step) from the newest snapshot that verifies
+        (crc32 and fingerprint), or ``step``'s; a corrupt newest snapshot
+        falls back to the previous good one.  The groups go straight from
+        the host copy into their resting place (pinned rows when
+        streaming, packed when ``pack_params``); only the embedding and
+        head reach the device whole."""
+        like_p, like_o = self._snapshot_like()
+        params, opt, step = ckpt_io.restore_train_state(
+            directory, like_p, like_o, step=step, prefix=prefix,
+            fingerprint=self.state_fingerprint())
+        params = self._place_params(params)
+        return TrainState.from_legacy(params, self._place_opt(opt, params)), \
+            step
 
     # -- inference ----------------------------------------------------------
     def prefill(self, params, batch):

@@ -6,6 +6,7 @@ import torch
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_bhsd,
                                                  flash_attention_fwd_bhsd)
 from repro_torch.kernels.fused_adam import fused_adam_flat
+from repro_torch.kernels.ref import ref_rmsnorm
 from repro_torch.kernels.rmsnorm import rmsnorm_2d
 
 
@@ -68,3 +69,39 @@ def rmsnorm(x, scale, *, eps=1e-6):
     shape = x.shape
     return rmsnorm_2d(x.reshape(-1, shape[-1]), scale,
                       eps=eps, block_rows=1).reshape(shape)
+
+
+class _RMSNormDiff(torch.autograd.Function):
+    """Differentiable RMSNorm (the reference's ``_rmsnorm_ad``): the
+    forward kernel (K5) saves ``(x, scale)``; the backward is the vjp of
+    the plain function (``ref_rmsnorm``: f32 mean of squares, rsqrt,
+    scale, cast back) recomputed from them, as the reference's backward is
+    ``jax.vjp`` of ``_rmsnorm_reference`` and no kernel."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        rmsnorm_diff.forwards += 1
+        return rmsnorm(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        xd, sd = x.detach().requires_grad_(), scale.detach().requires_grad_()
+        with torch.enable_grad():
+            out = ref_rmsnorm(xd, sd, eps=ctx.eps)
+            dx, dscale = torch.autograd.grad(out, (xd, sd), g)
+        return dx, dscale, None
+
+
+def rmsnorm_diff(x, scale, *, eps=1e-6):
+    """Differentiable RMSNorm: x (..., d), scale (d,) -> (..., d).  K5 in
+    the forward (its plain version for CPU tensors), the recomputed vjp in
+    the backward.  ``rmsnorm_diff.forwards`` counts the forwards, so a
+    caller can tell that a path went through it (each launches K5 once on
+    a CUDA tensor)."""
+    return _RMSNormDiff.apply(x, scale, eps)
+
+
+rmsnorm_diff.forwards = 0

@@ -82,13 +82,21 @@ def _refusal(x, scale) -> str:
 
 def rmsnorm_2d(x, scale, *, eps=1e-6, block_rows=256, route="cuda"):
     """x: (R, d) with d contiguous (any row stride; rows up to 32 KB on the
-    card), scale: (d,) -> (R, d) in x's dtype; RMSNorm in f32.
+    card), scale: (d,) -> (R, d) in x's dtype; RMSNorm in f32.  Forward
+    only: a tensor that requires grad, while grad is enabled, is refused
+    on either device (``kernels.ops.rmsnorm_diff`` is the differentiable
+    one).
 
     CPU tensors run the plain version whatever the route; CUDA tensors
     launch the ``route``'s kernel on the current stream.  Every check here
     runs once per decode-step norm, so each is the cheapest that tells."""
     if route not in ROUTES:
         raise ValueError(f"rmsnorm_2d: route {route!r} not in {ROUTES}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        # the kernel writes a fresh tensor autograd cannot follow: a
+        # gradient through it would be cut without a word
+        raise RuntimeError("rmsnorm_2d is forward only: use "
+                           "kernels.ops.rmsnorm_diff under autograd")
     R, d = x.shape
     block_rows = min(block_rows, R)
     assert R % block_rows == 0, f"rows {R} must tile by {block_rows}"

@@ -8,28 +8,46 @@ Alg-3 L2L or the baseline for comparison — on the synthetic LM data::
         --offload-stash
 
 Runs on the card unless ``--device cpu``.  Prints each logged step's loss,
-grad norm and wall time, then one JSON line.  Checkpoints, the disk tier,
-the host optimizer and dynamic depth are not ported: their flags raise.
+grad norm and wall time (``step <n>`` lines), then one JSON line.
+
+Checkpoints and preemption, as the reference's CLI has them::
+
+    ... --ckpt-dir ckpts --ckpt-every 5 --keep-last 2 --resume auto
+
+``--ckpt-every N`` saves after every N-th step (``ckpt_<step>/``, the
+unpacked layout ``checkpoint.io`` writes, which the reference reads);
+``--resume auto`` restarts from the newest snapshot in ``--ckpt-dir`` that
+verifies (a fresh run when there is none), ``--resume DIR`` from DIR's
+(an error when it has none).  SIGTERM or SIGINT finishes the step in
+flight, saves, writes ``PREEMPTED.json`` (``{"step", "signal"}``) and
+exits 0; a clean finish removes the marker and saves the last step if no
+periodic save did.  ``data.batch(i)`` is seeded per step, so a resumed run
+replays the same data: its final state equals an uninterrupted run's bit
+for bit.  The disk tier, the host optimizer and dynamic depth are not
+ported: their flags raise.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import engine as engines
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs.base import get_config
 from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.optim import get_optimizer, make_schedule
 
 # flags of the reference's CLI whose features the port does not have
-NOT_PORTED = ("--ckpt-dir", "--ckpt-every", "--keep-last", "--resume",
-              "--step-delay-ms", "--tiers", "--host-budget", "--tier-dir",
-              "--host-optimizer", "--dynamic-depth", "--run-layers")
+NOT_PORTED = ("--tiers", "--host-budget", "--tier-dir", "--host-optimizer",
+              "--dynamic-depth", "--run-layers")
+PREEMPT_MARKER = "PREEMPTED.json"
 
 
 def main(argv=None):
@@ -76,6 +94,18 @@ def main(argv=None):
     ap.add_argument("--d-model", type=int, default=0)
     ap.add_argument("--n-layers", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--keep-last", type=int, default=0,
+                    help="keep only the newest N snapshots (0 = all)")
+    ap.add_argument("--resume", default="",
+                    help="'auto': the newest verified snapshot in "
+                         "--ckpt-dir (a fresh run when none); or a "
+                         "checkpoint directory (an error when it holds no "
+                         "good snapshot)")
+    ap.add_argument("--step-delay-ms", type=int, default=0,
+                    help="sleep after every step (widens the window for "
+                         "preemption tests)")
     for flag in NOT_PORTED:
         ap.add_argument(flag, default=None, nargs="?", const=True,
                         help=argparse.SUPPRESS)
@@ -119,13 +149,47 @@ def main(argv=None):
     dev = eng.device
     print(f"arch={cfg.name} engine={eng.name} layers={cfg.n_layers} "
           f"d={cfg.d_model} device={dev}", flush=True)
-    state = eng.init(torch.Generator(device=dev).manual_seed(args.seed))
+    start_step, resumed_from = 0, None
+    state = None
+    if args.resume:
+        resume_dir = args.ckpt_dir if args.resume == "auto" else args.resume
+        if not resume_dir:
+            ap.error("--resume auto needs --ckpt-dir")
+        good = ckpt_io.latest_good(resume_dir,
+                                   fingerprint=eng.state_fingerprint())
+        if good is not None:
+            state, start_step = eng.restore(resume_dir, step=good)
+            resumed_from = good
+            print(f"resumed from {resume_dir} at step {start_step} "
+                  f"(verified snapshot)", flush=True)
+        elif args.resume != "auto":
+            raise SystemExit(
+                f"--resume {resume_dir}: no verifiable checkpoint")
+    if state is None:
+        state = eng.init(torch.Generator(device=dev).manual_seed(args.seed))
+
+    # preemption: finish the step in flight, save, exit resumable
+    stop = {"sig": None}
+
+    def on_signal(signum, frame):
+        stop["sig"] = signum
+
+    old_handlers = {s: signal.signal(s, on_signal)
+                    for s in (signal.SIGTERM, signal.SIGINT)}
+
+    def save_snapshot(step):
+        eng.save(args.ckpt_dir, state, step=step, keep_last=args.keep_last)
+        return step
+
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, global_batch=args.batch,
                                   seed=args.seed))
     losses, times = [], []
     skipped = 0
-    for i in range(args.steps):
+    preempted = False
+    last_saved = start_step if resumed_from is not None else None
+    for i in range(start_step, args.steps):
+        # batch(i) is a function of i alone: a resumed run replays the data
         batch = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
         t0 = time.perf_counter()
         state, metrics = eng.train_step(state, batch)
@@ -135,19 +199,43 @@ def main(argv=None):
         times.append(time.perf_counter() - t0)
         losses.append(loss)
         skipped += int(metrics.get("skipped_steps", 0))
-        if i % args.log_every == 0 or i == args.steps - 1:
+        if (i - start_step) % args.log_every == 0 or i == args.steps - 1:
             print(f"step {i:5d}  loss {loss:8.4f}  gnorm "
                   f"{float(metrics['grad_norm']):8.3f}  {times[-1]:.3f}s",
                   flush=True)
+        if args.step_delay_ms:
+            time.sleep(args.step_delay_ms / 1e3)
+        if args.ckpt_dir and args.ckpt_every and \
+                (i + 1) % args.ckpt_every == 0:
+            last_saved = save_snapshot(i + 1)
+        if stop["sig"] is not None:
+            preempted = True
+            if args.ckpt_dir:
+                if last_saved != i + 1:
+                    last_saved = save_snapshot(i + 1)
+                with open(os.path.join(args.ckpt_dir, PREEMPT_MARKER),
+                          "w") as f:
+                    json.dump({"step": i + 1, "signal": int(stop["sig"]),
+                               "total_steps": args.steps}, f)
+            break
+    for s, h in old_handlers.items():
+        signal.signal(s, h)
+    if args.ckpt_dir and not preempted:
+        # the last step is saved once, whether or not a periodic save was
+        if last_saved != args.steps:
+            last_saved = save_snapshot(args.steps)
+        marker = os.path.join(args.ckpt_dir, PREEMPT_MARKER)
+        if os.path.exists(marker):
+            os.remove(marker)
     steady = (float(np.mean(times[1:])) if len(times) > 1 else None)
     print(json.dumps({"final_loss": losses[-1] if losses else None,
                       "initial_loss": losses[0] if losses else None,
                       "first_step_s": times[0] if times else None,
                       "steady_s_per_step": steady,
                       "steps": args.steps, "final_step": int(state.step),
+                      "resumed_from": resumed_from, "preempted": preempted,
                       "skipped_steps": skipped, "device": str(dev)}))
     return losses
-
 
 if __name__ == "__main__":
     main()

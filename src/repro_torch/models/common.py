@@ -81,11 +81,16 @@ def norm_spec(cfg) -> dict:
 
 def apply_norm(w, x, eps: float = 1e-6):
     """LayerNorm (``bias`` present) or RMSNorm, in f32, cast back to x's
-    dtype.  RMSNorm goes through ``kernels.ops.rmsnorm``: the CUDA kernel
-    (K5) for a CUDA tensor, its plain version for a CPU one.  LayerNorm is
-    plain torch: the reference has no kernel for it."""
+    dtype.  RMSNorm runs K5 (the CUDA kernel for a CUDA tensor, its plain
+    version for a CPU one): through ``kernels.ops.rmsnorm_diff`` while
+    grad is enabled, so the vjp reaches x and the scale; through the
+    forward-only ``kernels.ops.rmsnorm`` otherwise (serving's short launch
+    path).  LayerNorm is plain torch: the reference has no kernel for
+    it."""
     if "bias" not in w:
         from repro_torch.kernels import ops as kops
+        if torch.is_grad_enabled():
+            return kops.rmsnorm_diff(x, w["scale"], eps=eps)
         return kops.rmsnorm(x, w["scale"], eps=eps)
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)

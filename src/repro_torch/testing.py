@@ -1,0 +1,31 @@
+"""Helpers for checks of the port against its plain versions and the
+reference."""
+from __future__ import annotations
+
+import math
+
+
+def fan_in_params(tree, randn):
+    """Parameters at the usual scales, shaped like ``tree`` (ParamSpecs,
+    tensors or arrays; the stacked layer groups inside tuples): weights
+    N(0, 1/fan_in), biases and the embedding N(0, 0.02^2), norm scales
+    1 + N(0, 0.01).  ``randn(shape)`` draws a standard normal tensor or
+    array; the leaves are drawn in flatten order (dict keys sorted).
+
+    The model's own init gives every stacked matrix std 1/sqrt(n_layers),
+    where the backward amplifies rounding; at these scales two versions of
+    a kernel are compared, not that amplification."""
+    def draw(node, name="", stacked=False):
+        if isinstance(node, dict):
+            return {k: draw(node[k], k, stacked) for k in sorted(node)}
+        if isinstance(node, tuple) and not hasattr(node, "shape"):
+            return tuple(draw(v, name, True) for v in node)   # the groups
+        shape = tuple(node.shape)
+        fan = shape[1:] if stacked else shape
+        x = randn(shape)
+        if name == "scale":
+            return 1.0 + 0.1 * x
+        if name.startswith("b") or name == "tok":
+            return 0.02 * x
+        return x / math.sqrt(fan[0] * (fan[1] if name == "wo" else 1))
+    return draw(tree)

@@ -24,6 +24,13 @@ from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models.model import LayeredModel  # noqa: E402
 
 
+# the dense configurations the port runs; the last three add qkv biases
+# and a half-width rope (chatglm3, GQA 16 at full width), a parallel block
+# with tied embeddings (command-r) and qkv biases at d 8192 (qwen1.5)
+ARCHS = ["granite-3-8b", "bert-large", "chatglm3-6b", "command-r-35b",
+         "qwen1.5-110b"]
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -79,8 +86,8 @@ def test_attend_matches_reference(chunk, causal, window):
 
 
 # granite: RMSNorm, gated SiLU, GQA, rope theta 1e7; bert-large:
-# layernorm, tanh-GELU, biased q/k/v/o and MLP
-@pytest.mark.parametrize("arch", ["granite-3-8b", "bert-large"])
+# layernorm, tanh-GELU, biased q/k/v/o and MLP; and the three above
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_dense_apply_matches_reference(arch, use_pallas):
     cfg = jget_config(arch, "smoke").replace(
@@ -141,7 +148,7 @@ def test_dense_decode_matches_reference(per_row):
                                    atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "bert-large"])
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_pack_params_rows_byte_identical(arch, dtype):
     cfg = jget_config(arch, "smoke")
@@ -166,7 +173,7 @@ def test_pack_params_rows_byte_identical(arch, dtype):
         got.spec.leaves[1].offset * got.segs[dtype].element_size()
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "bert-large"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_param_specs_match_reference(arch):
     ref = JModel(jget_config(arch, "smoke")).param_specs()
     got = LayeredModel(get_config(arch, "smoke")).param_specs()

@@ -30,11 +30,15 @@ SLICE = dict(weight_stream=True, pack_params=True, prefetch_depth=1,
 B, PROMPT, STEPS = 2, 8, 6
 
 
-@pytest.fixture(scope="module")
-def reference():
+# granite-3-8b (slice 1) and the dense configs the port's blocks cover
+ARCHS = ["granite-3-8b", "chatglm3-6b", "command-r-35b", "qwen1.5-110b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def reference(request):
     """The JAX engine's greedy run and prefill logits, with the params."""
-    cfg = jget_config("granite-3-8b", "smoke").replace(dtype="float32",
-                                                       use_pallas=True)
+    cfg = jget_config(request.param, "smoke").replace(dtype="float32",
+                                                      use_pallas=True)
     eng = jengines.create("l2l", cfg, JExec(**SLICE), donate=False)
     params = eng.model.init_params(jax.random.PRNGKey(0))
     prompt = np.random.RandomState(0).randint(
@@ -56,7 +60,8 @@ def reference():
                                          {"tokens": jnp.asarray(prompt)}))
     finally:
         jcommon.use_pallas_rmsnorm(prev)
-    return dict(params=jax.tree.map(np.asarray, params), prompt=prompt,
+    return dict(arch=request.param,
+                params=jax.tree.map(np.asarray, params), prompt=prompt,
                 tokens=np.concatenate(toks, 1), logits=np.stack(logits),
                 prefill=prefill)
 
@@ -74,26 +79,25 @@ def _greedy(eng, params, prompt, steps=STEPS):
     return torch.cat(toks, 1), torch.stack(logits)
 
 
-def _port_engine(**exec_kw):
-    cfg = get_config("granite-3-8b", "smoke").replace(dtype="float32",
-                                                      use_pallas=True)
+def _port_engine(arch="granite-3-8b", **exec_kw):
+    cfg = get_config(arch, "smoke").replace(dtype="float32", use_pallas=True)
     return engines.create("l2l", cfg, ExecutionConfig(**exec_kw),
                           device="cpu")
 
 
 def test_greedy_tokens_match_jax_engine(reference):
-    eng = _port_engine(**SLICE)
+    eng = _port_engine(reference["arch"], **SLICE)
     params = bridge.params_from_numpy(reference["params"])
     toks, logits = _greedy(eng, params,
                            torch.from_numpy(reference["prompt"]))
     np.testing.assert_array_equal(toks.numpy(), reference["tokens"])
-    # 2 f32 layers + tied head, per token: 1e-4 on logits of size ~1
+    # 2 f32 layers + the head, per token: 1e-4 on logits of size ~1
     np.testing.assert_allclose(logits.numpy(), reference["logits"],
                                atol=1e-4, rtol=1e-4)
 
 
 def test_prefill_logits_match_jax_engine(reference):
-    eng = _port_engine(**SLICE)
+    eng = _port_engine(reference["arch"], **SLICE)
     params = bridge.params_from_numpy(reference["params"])
     got = eng.prefill(params, {"tokens": torch.from_numpy(
         reference["prompt"])})

@@ -17,12 +17,14 @@ from repro import engine as jengines  # noqa: E402
 from repro.configs.base import get_config as jget_config  # noqa: E402
 from repro.core import packing as jpacking  # noqa: E402
 from repro.core.schedule import ExecutionConfig as JExec  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import engine as engines  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.schedule import ExecutionConfig  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
+from repro_torch.testing import fan_in_params  # noqa: E402
 
 SLICE = dict(weight_stream=True, pack_params=True, prefetch_depth=1,
              transport="pallas", offload_stash=True, n_microbatches=2)
@@ -43,70 +45,91 @@ def _np(tree):
 
 
 def _draw_params(like, seed=0):
-    """numpy parameters shaped like the reference's, at the usual scales:
-    weights N(0, 1/fan_in), biases and the embedding N(0, 0.02²),
-    norm scales 1 + N(0, 0.01).  (The reference's own init gives every
+    """numpy parameters shaped like the reference's, at the usual scales
+    (``repro_torch.testing.fan_in_params``), drawn in f64 by a seeded
+    RandomState and stored in f32.  (The reference's own init gives every
     stacked matrix std 1/sqrt(n_layers) — 0.71 at the smoke depth, where
     the backward amplifies f32 rounding; ``test_grads_at_reference_init``
     compares at that init too.)"""
     rs = np.random.RandomState(seed)
-
-    def draw(path, a):
-        name = path[-1].key
-        shape = a.shape[1:] if "groups" in jax.tree_util.keystr(path) \
-            else a.shape
-        if name == "scale":
-            x = 1.0 + 0.1 * rs.randn(*a.shape)
-        elif name.startswith("b") or name == "tok":
-            x = 0.02 * rs.randn(*a.shape)
-        else:
-            fan = shape[0] * (shape[1] if name == "wo" else 1)
-            x = rs.randn(*a.shape) / np.sqrt(fan)
-        return x.astype(np.float32)
-    return jax.tree_util.tree_map_with_path(draw, like)
+    drawn = fan_in_params(like, lambda shape: rs.randn(*shape))
+    return jax.tree.map(lambda a: a.astype(np.float32), drawn)
 
 
-@pytest.fixture(scope="module")
-def reference():
-    """The JAX engine's l2l-p step from numpy parameters, and from its own
-    init.  Adam's first step leaves m = (1 - b1)·g = 0.1·g, so each step's
-    gradients are read back from m (one compiled program, not two)."""
-    from repro.engine.state import TrainState as JState
-    cfg = jget_config("bert-large", "smoke").replace(dtype="float32",
-                                                     use_pallas=True)
-    eng = jengines.create("l2l-p", cfg, JExec(**SLICE), donate=False)
-    batch = _batch(cfg.vocab_size)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+def _jax_engine(arch):
+    cfg = jget_config(arch, "smoke").replace(dtype="float32", use_pallas=True)
+    return jengines.create("l2l-p", cfg, JExec(**SLICE), donate=False)
 
-    def step(state):
+
+def _jax_step(eng, state, jb):
+    """One step of the JAX engine -> (state, metrics, unpacked opt,
+    grads).  Adam's first step leaves m = (1 - b1)·g = 0.1·g, so the
+    gradients are read back from m (one compiled program, not two).  Its
+    RMSNorm is ``rmsnorm_diff`` (the Pallas forward in interpret mode), the
+    counterpart of the port's."""
+    prev = jcommon.use_pallas_rmsnorm(True)
+    try:
         new, metrics = eng.train_step(state, jb)
-        opt = jpacking.unpack_opt_state(new.legacy_opt(), new.params)
-        opt = {k: _np(opt[k]) for k in ("embed", "head", "groups")}
-        is_slot = lambda x: isinstance(x, dict) and set(x) == {"m", "v"}
-        grads = jax.tree.map(lambda s: s["m"] / np.float32(0.1), opt,
-                             is_leaf=is_slot)
-        return new, metrics, opt, grads
+    finally:
+        jcommon.use_pallas_rmsnorm(prev)
+    opt = jpacking.unpack_opt_state(new.legacy_opt(), new.params)
+    opt = {k: _np(opt[k]) for k in ("embed", "head", "groups")}
+    is_slot = lambda x: isinstance(x, dict) and set(x) == {"m", "v"}
+    grads = jax.tree.map(lambda s: s["m"] / np.float32(0.1), opt,
+                         is_leaf=is_slot)
+    return new, metrics, opt, grads
 
+
+def _drawn_reference(arch):
+    """The JAX engine's l2l-p step from numpy parameters at the usual
+    scales (``_draw_params``), with what the parity tests read."""
+    from repro.engine.state import TrainState as JState
+    eng = _jax_engine(arch)
+    batch = _batch(eng.model.cfg.vocab_size)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
     own = eng.init(jax.random.PRNGKey(0))
     params = _draw_params(_np(jpacking.unpack_params(own.params)))
     packed = eng._relay_params(jax.tree.map(jnp.asarray, params))
     state = JState.from_legacy(packed, eng._init_opt_legacy(packed))
     opt = jpacking.unpack_opt_state(state.legacy_opt(), state.params)
-    new, metrics, new_opt, grads = step(state)
-    _, own_metrics, _, own_grads = step(own)
-    return dict(params=params, opt={k: _np(opt[k]) for k in
+    new, metrics, new_opt, grads = _jax_step(eng, state, jb)
+    return dict(arch=arch, eng=eng, own=own, jb=jb,
+                params=params, opt={k: _np(opt[k]) for k in
                                     ("embed", "head", "groups")},
                 batch=batch, new_params=_np(jpacking.unpack_params(
                     new.params)),
                 new_opt=new_opt, loss=float(metrics["loss"]),
-                grad_norm=float(metrics["grad_norm"]), grads=grads,
-                own_params=_np(jpacking.unpack_params(own.params)),
-                own_loss=float(own_metrics["loss"]), own_grads=own_grads)
+                grad_norm=float(metrics["grad_norm"]), grads=grads)
 
 
-def _cfg(**kw):
-    return get_config("bert-large", "smoke").replace(dtype="float32",
-                                                     use_pallas=True, **kw)
+@pytest.fixture(scope="module")
+def reference():
+    """bert-large's: the step from numpy parameters, and from the JAX
+    engine's own init."""
+    ref = _drawn_reference("bert-large")
+    _, own_metrics, _, own_grads = _jax_step(ref["eng"], ref["own"],
+                                             ref["jb"])
+    return dict(ref, own_params=_np(jpacking.unpack_params(
+        ref["own"].params)), own_loss=float(own_metrics["loss"]),
+        own_grads=own_grads)
+
+
+# bert-large (slice 2) and the dense configs the port's blocks cover:
+# RMSNorm through rmsnorm_diff, qkv biases, a half-width rope, GQA,
+# a parallel block with tied embeddings
+ARCHS = ["bert-large", "chatglm3-6b", "command-r-35b", "qwen1.5-110b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def step_reference(request, reference):
+    if request.param == "bert-large":
+        return reference
+    return _drawn_reference(request.param)
+
+
+def _cfg(arch="bert-large", **kw):
+    return get_config(arch, "smoke").replace(dtype="float32",
+                                             use_pallas=True, **kw)
 
 
 def _engine(name="l2l-p", cfg=None, **exec_kw):
@@ -134,9 +157,9 @@ def _rel_max(a, b):
     return num / max(max(float(np.abs(y).max()) for y in lb), 1e-12)
 
 
-def test_l2lp_step_matches_jax(reference):
-    ref = reference
-    eng = _engine(**SLICE)
+def test_l2lp_step_matches_jax(step_reference):
+    ref = step_reference
+    eng = _engine(cfg=_cfg(ref["arch"]), **SLICE)
     new, metrics = eng.train_step(_state(ref), _tbatch(ref["batch"]))
     params, opt, step, _ = bridge.train_state_to_numpy(new)
     assert step == 1
@@ -302,7 +325,9 @@ def test_train_cli_on_cpu(capsys):
         "--offload-stash", "--log-every", "1"])
     assert len(losses) == 3 and all(np.isfinite(losses))
     assert '"final_step": 3' in capsys.readouterr().out
-    for flag in (["--tiers", "3"], ["--host-optimizer"], ["--resume",
-                                                          "auto"]):
+    # the flags whose features are not ported raise; --resume auto needs
+    # a --ckpt-dir (tests/test_torch_checkpoint.py runs the checkpoints)
+    for flag in (["--tiers", "3"], ["--host-optimizer"], ["--dynamic-depth"],
+                 ["--resume", "auto"]):
         with pytest.raises(SystemExit):
             train_cli.main(["--device", "cpu", *flag])
