@@ -59,6 +59,22 @@ Phases, one JSON line each:
               to decode_init's last-token logits (and in f32 at depth 1,
               where qwen's K5 rows reach their 32 KB limit); the counters
               set to 0 before each model and read after its prefill;
+   serve-continuous — granite-3-8b at full width and depth through a
+              continuous-batching ServeEngine with the serve phase's
+              engine settings (8 slots, 128 pages of 16 positions, 384
+              per slot, prefill chunks of 64): 12 greedy requests
+              (prompts of 32-256 tokens, 8-16 new) that wait on slots and
+              pages and join as others leave, the counters set to 0 just
+              before the first tick and read after the last; ticks,
+              seconds, tok/s, the median tick, K4 fetches and K5 launches
+              per tick, the scheduler's stats, the peak beside
+              ``Engine.serve_memory_estimate``; every request done, every
+              page and slot free, the peak under 25% of the model's
+              bytes; then the request that waited longest alone through a
+              fresh ServeEngine, its tokens equal to the crowd's bit for
+              bit; then at depth 2 in f32, three requests against
+              decode_init / decode_step with each prompt on every row,
+              tokens equal;
 7. train-grid — the training knobs (pack, prefetch, G, stash_every,
               where weights and stash rest, l2l against l2l-p) at smoke
               size on the card: loss, params and Adam slots bitwise equal;
@@ -82,9 +98,14 @@ Phases, one JSON line each:
               HBM of two steps at depth 12 beside depth 24's;
    library  — SDPA backward's device time and K3a's and K3b's, under
               torch.profiler, into the kernel rows;
-10. launches — every kernel's count over the four main paths (serve,
-              serve-dense, train, train-rmsnorm; each of a path's kernels
-              > 0), and the counts by route: every bf16 K2, K3a and K3b
+   memory-model — ``Engine.memory_estimate`` for the train phase's
+              bert-large at depths 24 and 12 beside its peaks, and the
+              serve estimate beside serve-continuous's peak (printed, not
+              tied: the model counts the reference's buffers);
+10. launches — every kernel's count over the five main paths (serve,
+              serve-dense, serve-continuous, train, train-rmsnorm; each
+              of a path's kernels > 0), and the counts by route: every
+              bf16 K2, K3a and K3b
               launch on the wgmma route, none on the CUDA-core one, every
               K5 launch on the CUDA route, none on the Triton one, and every
               K4 fetch and write-back on the relay's route ("lines"), none
@@ -852,6 +873,148 @@ def serve_dense_phase(torch, engines, ExecutionConfig, exec_cfg, get_config,
     return out, launches, routes
 
 
+# serve-continuous: granite-3-8b's crowd (ServeConfig, requests, seed)
+CROWD = dict(max_batch=8, page_size=16, max_seq=384, n_pages=128,
+             prefill_chunk=64)
+CROWD_REQUESTS = 12
+
+
+def serve_continuous_phase(torch, np, engines, exec_cfg, cfg, model_bytes,
+                           layer_bytes, packing, ServeConfig, counters,
+                           dev):
+    """granite-3-8b at full width through a continuous-batching ServeEngine
+    with the serve phase's engine settings: 12 greedy requests (prompts
+    of 32-256 tokens, 8-16 new tokens, from a seed) into 8 slots and 128
+    pages of 16 positions, so requests wait on slots and on pages and
+    join as others leave; the counters set to 0 just before the crowd's
+    first tick and read just after its last.  Then one of the requests
+    alone through a fresh ServeEngine (its tokens must equal the crowd's
+    bit for bit), and at depth 2 in f32 three requests against
+    decode_init / decode_step with each prompt on every row.
+    -> (line, launches, routes)."""
+    eng = engines.create("l2l", cfg, exec_cfg)
+    t0 = time.perf_counter()
+    params = eng.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eps = params["groups"][0].segs["float32"]
+    assert eps.is_pinned()
+    scfg = ServeConfig(**CROWD)
+    rs = np.random.RandomState(3)
+    lens = rs.randint(32, 257, size=CROWD_REQUESTS)
+    news = rs.randint(8, 17, size=CROWD_REQUESTS)
+    prompts = [rs.randint(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+               for n in lens]
+
+    def serve(reqs_in):
+        """Submit, tick until idle; -> (server, requests, tick seconds,
+        seconds, [active, pending, unreserved free pages] after each
+        tick)."""
+        srv = eng.serve_session(params, scfg)
+        reqs = [srv.submit(p, int(n)) for p, n in reqs_in]
+        ticks, occupancy = [], []
+        t0 = time.perf_counter()
+        while not srv.scheduler.idle:
+            t1 = time.perf_counter()
+            srv.tick()
+            ticks.append(time.perf_counter() - t1)
+            st = srv.scheduler.stats()
+            occupancy.append([st["active"], st["pending"],
+                              st["free_pages"] - st["reserved_pages"]])
+        return srv, reqs, ticks, time.perf_counter() - t0, occupancy
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    srv, reqs, ticks, secs, occupancy = serve(zip(prompts, news))
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    stats = srv.stats()
+    n_tok = sum(len(r.generated) for r in reqs)
+    est = eng.serve_memory_estimate(scfg)
+    # the request that waited longest for a slot: alone it must decode
+    # the same tokens as in the crowd
+    pick = max(range(CROWD_REQUESTS), key=lambda i: reqs[i].t_first)
+    _, (solo,), solo_ticks, solo_s, _ = serve([(prompts[pick],
+                                                news[pick])])
+    n = len(ticks)
+    line = {
+        "phase": "serve-continuous", "arch": cfg.name, "depth": cfg.n_layers,
+        "serve_config": CROWD, "requests": CROWD_REQUESTS,
+        "prompt_lens": lens.tolist(), "max_new": news.tolist(),
+        "init_s": init_s, "ticks": n, "seconds": secs,
+        "tokens": n_tok, "tok_per_s": n_tok / secs,
+        "tick_s_median": float(np.median(ticks)),
+        "tick_s_first": ticks[0],
+        "relay_fetches_per_tick": launches["relay_copy"] / n,
+        "relay_GBps": launches["relay_copy"] * layer_bytes / secs / 1e9,
+        "rmsnorm_per_tick": launches["rmsnorm"] / n,
+        "scheduler_stats": stats,
+        "active_pending_free_pages_by_tick": occupancy,
+        "peak_allocated_bytes": peak,
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+        "model_param_bytes": model_bytes, "peak_over_model": peak / model_bytes,
+        "estimate_serve_total_device_bytes": est.total_device,
+        "estimate_serve_kv_page_bytes": est.kv_page_bytes,
+        "estimate_serve": {k: getattr(est, k) for k in (
+            "params_device", "activations", "kv_page_bytes",
+            "transport_buffer", "relay_stops_per_tick")},
+        "solo": {"request": pick, "prompt_len": int(lens[pick]),
+                 "max_new": int(news[pick]), "ticks": len(solo_ticks),
+                 "seconds": solo_s,
+                 "tok_per_s": len(solo.generated) / solo_s,
+                 "tick_s_median": float(np.median(solo_ticks)),
+                 "tokens": solo.generated},
+        "crowd_tokens": [r.generated for r in reqs],
+        "launches": launches}
+    emit({k: v for k, v in line.items() if k != "crowd_tokens"})
+    for r, m in zip(reqs, news):
+        assert r.status == "done" and len(r.generated) == m and all(
+            0 <= t < cfg.vocab_size for t in r.generated), (r.rid, r.status)
+    assert stats["free_pages"] == CROWD["n_pages"] and \
+        stats["free_slots"] == CROWD["max_batch"] and \
+        stats["reserved_pages"] == 0 and stats["active"] == 0 and \
+        stats["pending"] == 0, stats
+    assert solo.generated == reqs[pick].generated, \
+        ("crowded and solo tokens differ", pick)
+    assert peak < 0.25 * model_bytes, "device footprint above 25% of the model"
+
+    # f32 at depth 2: three requests through the tick against the one-shot
+    # path with each prompt repeated on all three rows (the reference's
+    # own bar, tests/test_serve.py's greedy reference)
+    e2 = engines.create("l2l", cfg.replace(n_layers=2, dtype="float32"),
+                        exec_cfg)
+    sub = {**params, "groups": (packing.Packed(
+        {"float32": eps[:2]}, params["groups"][0].spec),)}
+    f32 = ServeConfig(max_batch=3, page_size=8, n_pages=12, max_seq=32,
+                      prefill_chunk=8)
+    short = [rs.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+             for n in (24, 13, 7)]
+    srv2 = e2.serve_session(sub, f32)
+    got = [srv2.submit(p, 6) for p in short]
+    srv2.run()
+    want = []
+    for p in short:
+        toks = torch.from_numpy(np.tile(p, (3, 1))).to(dev)
+        caches, last = e2.decode_init(sub, toks, f32.max_seq)
+        tok = last.argmax(-1)[:, None]
+        out = [int(tok[0, 0])]
+        for i in range(5):
+            logits, caches = e2.decode_step(sub, caches, tok, len(p) + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            out.append(int(tok[0, 0]))
+        want.append(out)
+    line["f32_depth2"] = {"tokens": [r.generated for r in got],
+                          "oneshot_tokens": want}
+    emit({"phase": "serve-continuous-f32", **line["f32_depth2"]})
+    assert [r.generated for r in got] == want, line["f32_depth2"]
+    del eng, e2, params, sub, eps, srv, srv2
+    free_host(torch)
+    return line, launches, routes
+
+
 def k3_gqa_check(torch, dev, fa, kops, cfg, B, S):
     """K3a and K3b at a training microbatch of ``cfg``'s heads (chatglm3:
     32 q over 2 kv heads, a GQA group of 16), bf16, causal, against the
@@ -1234,6 +1397,7 @@ def main(argv=None):
     from repro_torch.core.tree import tree_leaves
     from repro_torch.models.common import is_spec
     from repro_torch.models.model import LayeredModel
+    from repro_torch.serve import ServeConfig
     from repro_torch.serve.sampling import sample_batch
 
     dev = torch.device("cuda")
@@ -1337,7 +1501,8 @@ def main(argv=None):
     # K5: decode rows and prefill rows of granite, bf16, f32 scale: the
     # CUDA kernel, the Triton kernel it replaced and F.rms_norm in turns,
     # from a CUDA graph (device time) and eagerly (the host's launch path
-    # included, which is what a decode step pays); then qwen1.5-110b's
+    # included, which is what a decode step pays), and the 8 slots x 64
+    # rows of a serve-continuous tick; then qwen1.5-110b's
     # d 8192 as serve-dense gives it: the decode rows and the 4 x 16 prompt
     # rows in bf16, and the prompt rows in f32 (32 KB rows, the kernel's
     # widest), the depth-1 check's dtype.  bf16 within one bf16 ulp of the
@@ -1346,6 +1511,8 @@ def main(argv=None):
     qwen = get_config("qwen1.5-110b", "full")
     for R, d, dt in ((4, cfg.d_model, torch.bfloat16),
                      (4 * 2048, cfg.d_model, torch.bfloat16),
+                     (CROWD["max_batch"] * CROWD["prefill_chunk"],
+                      cfg.d_model, torch.bfloat16),
                      (4, qwen.d_model, torch.bfloat16),
                      (4 * 16, qwen.d_model, torch.bfloat16),
                      (4 * 16, qwen.d_model, torch.float32)):
@@ -1742,6 +1909,14 @@ def main(argv=None):
                        prefetch_depth=1, transport="pallas",
                        offload_stash=True)
 
+    # ----------------------------------------------------- serve-continuous
+    t0 = time.perf_counter()
+    report["serve_continuous"], cont_launches, cont_routes = \
+        serve_continuous_phase(torch, np, engines, exec_cfg, cfg,
+                               model_bytes, layer_bytes, packing,
+                               ServeConfig, counters, dev)
+    report["serve_continuous"]["phase_seconds"] = time.perf_counter() - t0
+
     def leaves_np(state):
         p, o, _, _ = bridge.train_state_to_numpy(state)
         return tree_leaves(p), tree_leaves(o)
@@ -1838,13 +2013,38 @@ def main(argv=None):
                                            report["train_rmsnorm"]["k3_gqa"])
     emit(report["library"])
 
+    # --------------------------------------------------------- memory-model
+    # the analytic model (the reference's buffers, not PyTorch's
+    # allocator) beside this run's peaks: printed, not tied
+    def train_estimate(depth):
+        e = engines.create("l2l-p", bert.replace(n_layers=depth),
+                           ExecutionConfig(n_microbatches=4, **slice_knobs))
+        return e.memory_estimate(batch=32, seq=512).total_device
+    peaks = report["train"]["peak_allocated_bytes_by_depth"]
+    cont = report["serve_continuous"]
+    report["memory_model"] = {
+        "phase": "memory-model",
+        "bert_large_train": {d: {"estimate_total_device_bytes":
+                                 train_estimate(int(d)),
+                                 "peak_allocated_bytes": peaks[d]}
+                             for d in ("24", "12")},
+        "granite_serve_continuous": {
+            "estimate_total_device_bytes":
+                cont["estimate_serve_total_device_bytes"],
+            "estimate_kv_page_bytes": cont["estimate_serve_kv_page_bytes"],
+            "peak_allocated_bytes": cont["peak_allocated_bytes"]}}
+    emit(report["memory_model"])
+
     # ------------------------------------------------------------- launches
     launches = {"serve": serve_launches, "serve-dense": dense_launches,
+                "serve-continuous": cont_launches,
                 "train": train_launches, "train-rmsnorm": rms_launches}
     routes = {"serve": serve_routes, "serve-dense": dense_routes,
+              "serve-continuous": cont_routes,
               "train": train_routes, "train-rmsnorm": rms_routes}
     emit({"launches": launches, "routes": routes})
-    for path in ("serve-dense", "train", "train-rmsnorm"):
+    for path in ("serve-dense", "serve-continuous", "train",
+                 "train-rmsnorm"):
         got, by = launches[path], routes[path]
         # every bf16 K2, K3a and K3b launch of the path took the wgmma route
         for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -1867,6 +2067,7 @@ def main(argv=None):
     path_kernels = {"serve": ("relay_copy", "rmsnorm", "flash_attention_fwd"),
                     "serve-dense": ("relay_copy", "rmsnorm",
                                     "flash_attention_fwd"),
+                    "serve-continuous": ("relay_copy", "rmsnorm"),
                     "train": train_kernels,
                     "train-rmsnorm": train_kernels + ("rmsnorm",)}
     for path, names in path_kernels.items():

@@ -135,6 +135,12 @@ class Sink:
             a.record_stream(writer)
 
 
+def n_stops(n_layers: int, group: int) -> int:
+    """Relay stops one pass makes over ``n_layers`` (ceil division)."""
+    g = max(1, group)
+    return -(-n_layers // g)
+
+
 def _index(tree, j: int):
     return tree_map(lambda a: a[j], tree)
 

@@ -8,6 +8,8 @@
     params = eng.init_params(torch.Generator("cuda").manual_seed(0))
     caches, logits = eng.decode_init(params, prompt, live_seq=32)
     logits, caches = eng.decode_step(params, caches, token, cur_pos=16)
+    srv = eng.serve_session(params, ServeConfig(max_batch=8, max_seq=384))
+    srv.submit(prompt_ids, max_new=16); done = srv.run()
 
     eng = engines.create("l2l-p", get_config("bert-large"), ExecutionConfig(
         n_microbatches=4, weight_stream=True, pack_params=True,
@@ -42,6 +44,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import baseline as _baseline
 from repro_torch.core import decode as _decode, l2l as _l2l, packing
 from repro_torch.core.eps import make_placements
+from repro_torch.core.memory_model import (MemoryReport, estimate,
+                                           estimate_serve)
 from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.engine.registry import register
@@ -50,6 +54,7 @@ from repro_torch.kernels import relay_copy
 from repro_torch.models.common import is_spec
 from repro_torch.models.model import LayeredModel
 from repro_torch.optim import Optimizer, adam
+from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 
 def resolve_device(device) -> torch.device:
@@ -65,6 +70,7 @@ def resolve_device(device) -> torch.device:
 class Engine:
     """Lifecycle facade over a schedule's relay functions."""
     name = "base"
+    memory_mode = "baseline"
 
     def __init__(self, model, exec_cfg: Optional[ExecutionConfig] = None, *,
                  optimizer: Optional[Optimizer] = None, device="cuda",
@@ -312,11 +318,65 @@ class Engine:
                 cur_pos)
 
 
+    # -- continuous-batching serve ------------------------------------------
+    def serve_session(self, state_or_params, serve_cfg=None, **kw):
+        """Open a continuous-batching serve session (``repro_torch.serve``):
+        a paged-KV ServeEngine over this engine's model, relay knobs,
+        placements and copy stream.  ``serve_cfg`` is a ``ServeConfig``;
+        keyword shape knobs (max_batch, page_size, ...) build one when
+        omitted::
+
+            srv = eng.serve_session(params, max_batch=8, max_seq=64)
+            srv.submit(prompt_ids, max_new=32)
+            done = srv.run()
+        """
+        params = getattr(state_or_params, "params", state_or_params)
+        if serve_cfg is None:
+            serve_cfg = ServeConfig(**kw)
+        return ServeEngine(self, params, serve_cfg)
+
+    def serve_memory_estimate(self, serve_cfg, **kw) -> MemoryReport:
+        """Analytic serve-mode byte split (paged pool + slot state +
+        relay transit) for this engine's knobs at a ServeConfig shape."""
+        kw.setdefault("weight_stream", self.exec_cfg.weight_stream)
+        kw.setdefault("prefetch_depth", self.exec_cfg.prefetch_depth)
+        kw.setdefault("pack_params", self.exec_cfg.pack_params)
+        kw.setdefault("layers_per_relay", self.exec_cfg.layers_per_relay)
+        kw.setdefault("transport", self.exec_cfg.transport)
+        return estimate_serve(
+            self.model, max_batch=serve_cfg.max_batch,
+            page_size=serve_cfg.page_size, n_pages=serve_cfg.n_pages,
+            max_seq=serve_cfg.max_seq,
+            prefill_chunk=serve_cfg.prefill_chunk, **kw)
+
+    # -- analysis -----------------------------------------------------------
+    def memory_estimate(self, *, batch: int, seq: int,
+                        **kw) -> MemoryReport:
+        """Analytic two-tier device/EPS byte split (paper eqs. 1-4) for
+        this engine's schedule at the given shape."""
+        kw.setdefault("n_microbatches", self.exec_cfg.n_microbatches)
+        kw.setdefault("offload_stash", self.exec_cfg.offload_stash)
+        kw.setdefault("stash_every", self.exec_cfg.stash_every)
+        kw.setdefault("segment_scan", self.exec_cfg.segment_scan)
+        kw.setdefault("prefetch_depth", self.exec_cfg.prefetch_depth)
+        kw.setdefault("pack_params", self.exec_cfg.pack_params)
+        kw.setdefault("layers_per_relay", self.exec_cfg.layers_per_relay)
+        kw.setdefault("tiers", self.exec_cfg.tiers)
+        kw.setdefault("host_budget", self.exec_cfg.host_budget_bytes)
+        kw.setdefault("transport", self.exec_cfg.transport)
+        return estimate(self.model, batch=batch, seq=seq,
+                        mode=self.memory_mode, **kw)
+
+
 @register("baseline")
 class BaselineEngine(Engine):
     """Algorithms 1/2: conventional execution, the whole model on the
     device; Alg 2 (gradient accumulation) when ``n_microbatches > 1``."""
     name = "baseline"
+
+    @property
+    def memory_mode(self):
+        return "baseline_remat" if self.exec_cfg.remat else "baseline"
 
     def _normalize_cfg(self, exec_cfg):
         # no relay: the packed layout, the copy transport and the EPS are
@@ -344,6 +404,7 @@ class L2LEngine(Engine):
     """Algorithm 3: layer-major relay, gradients shipped to the EPS and
     applied in a trailing relay; serves exactly as ``l2l-p``."""
     name = "l2l"
+    memory_mode = "l2l"
 
     def _normalize_cfg(self, exec_cfg):
         return dataclasses.replace(exec_cfg, eager_optimizer=False)
@@ -354,6 +415,7 @@ class L2LPEngine(Engine):
     """Algorithm 4 (L2L-p): the optimizer for layer l runs inside the
     reverse relay; serves exactly as ``l2l``."""
     name = "l2l-p"
+    memory_mode = "l2l_p"
 
     def _normalize_cfg(self, exec_cfg):
         return dataclasses.replace(exec_cfg, eager_optimizer=True)

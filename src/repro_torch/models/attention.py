@@ -1,8 +1,8 @@
 """GQA / MHA attention: projections, chunked online-softmax ``attend``,
 the full-sequence path through the flash kernel (K2), and decode against
-a ring-buffer KV cache (the port of ``repro/models/attention.py``, GQA
-parts).  MLA, cross-attention and grouped decode come with their
-families.
+a ring-buffer KV cache, plain or with the KV heads kept grouped
+(``attend_grouped_decode``) (the port of ``repro/models/attention.py``,
+GQA parts).  MLA and cross-attention come with their families.
 """
 from __future__ import annotations
 
@@ -101,6 +101,30 @@ def attend(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     return o.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def attend_grouped_decode(q, k, v, q_pos, k_pos, *, causal: bool,
+                          window: int = 0, soft_cap: float = 0.0):
+    """Decode attention without expanding the KV heads
+    (``cfg.grouped_decode_attn``): q's heads are viewed as (KV, G) groups
+    and each einsum contracts against the cache's own KV heads.
+
+    q: (B,Sq,H,D); k,v: (B,S,KV,D) -> (B,Sq,H,D)."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    q5 = (q * scale).reshape(B, Sq, KV, G, D).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", q5, k.float())
+    if soft_cap > 0:
+        s = soft_cap * torch.tanh(s / soft_cap)
+    allow = _mask(q_pos, k_pos, causal, window)          # (B,1,Sq,S)
+    s = torch.where(allow[:, :, None], s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p / l, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
 def expand_kv(k, n_q_per_kv: int):
     """(B,S,KV,D) -> (B,S,KV*n,D) by repeating each kv head."""
     if n_q_per_kv == 1:
@@ -197,13 +221,27 @@ def decode_positions(x, cur_pos):
 def ring_scatter(buf, new, pos):
     """In place: ``new[b, t]`` lands at slot ``pos[b, t] % S`` of row b of
     ``buf`` (B, S, ...); entries with ``pos < 0`` are dropped.  Returns
-    ``buf``."""
-    S = buf.shape[1]
-    valid = pos >= 0
-    bidx = torch.arange(buf.shape[0], device=buf.device)[:, None] \
-        .expand_as(pos)
-    buf[bidx[valid], torch.remainder(pos, S)[valid].long()] = \
-        new[valid].to(buf.dtype)
+    ``buf``.
+
+    No device sync (a boolean-mask index would wait for the card): a
+    dropped entry is aimed at the first kept entry's slot with that
+    entry's value — or, when no entry is kept, at ``buf[0, 0]`` with its
+    own value — so every duplicate write carries the same bits."""
+    B, S = buf.shape[:2]
+    valid = (pos >= 0).reshape(-1)
+    bidx = torch.arange(B, device=buf.device)[:, None].expand_as(pos) \
+        .reshape(-1)
+    sidx = torch.remainder(pos, S).reshape(-1).long()
+    vals = new.reshape((-1,) + tuple(new.shape[2:])).to(buf.dtype)
+    first = torch.argmax(valid.to(torch.int32))       # 0 when none is kept
+    some = valid.any()
+    b0 = torch.where(some, bidx[first], 0)
+    s0 = torch.where(some, sidx[first], 0)
+    v0 = torch.where(some, vals[first], buf[0, 0])
+    keep = valid.view((-1,) + (1,) * (vals.dim() - 1))
+    buf.index_put_((torch.where(valid, bidx, b0),
+                    torch.where(valid, sidx, s0)),
+                   torch.where(keep, vals, v0))
     return buf
 
 
@@ -234,7 +272,12 @@ def decode_self_attention(w, x, cache, cfg, cur_pos, *, window: int = 0,
         ring_scatter(cache["k"], k_new, pos)
         ring_scatter(cache["v"], v_new, pos)
         ring_scatter(cache["pos"], pos, pos)
-    o = attend(q, expand_kv(cache["k"].to(dt), cfg.n_q_per_kv),
-               expand_kv(cache["v"].to(dt), cfg.n_q_per_kv), pos,
-               cache["pos"], causal=True, window=window, chunk=0)
+    if cfg.grouped_decode_attn:
+        o = attend_grouped_decode(q, cache["k"].to(dt), cache["v"].to(dt),
+                                  pos, cache["pos"], causal=True,
+                                  window=window)
+    else:
+        o = attend(q, expand_kv(cache["k"].to(dt), cfg.n_q_per_kv),
+                   expand_kv(cache["v"].to(dt), cfg.n_q_per_kv), pos,
+                   cache["pos"], causal=True, window=window, chunk=0)
     return out_project(w, o), cache

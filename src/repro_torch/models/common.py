@@ -13,7 +13,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 
 
 class ParamSpec(NamedTuple):
@@ -60,6 +60,12 @@ def stack_specs(spec_tree, n: int, axis_name: str = "layers"):
         lambda s: ParamSpec((n,) + s.shape, (axis_name,) + s.axes, s.init,
                             s.scale),
         spec_tree, is_leaf=is_spec)
+
+
+def param_bytes(spec_tree, bytes_per_el: int = 4) -> int:
+    """Bytes of every leaf of a ParamSpec tree at ``bytes_per_el``."""
+    return sum(math.prod(s.shape) * bytes_per_el
+               for s in tree_leaves(spec_tree, is_leaf=is_spec))
 
 
 # ---------------------------------------------------------------------------

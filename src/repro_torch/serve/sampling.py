@@ -25,7 +25,9 @@ def sample(logits, seeds, positions, temperature, top_k):
 
     temperature: (B,) — 0 = greedy; top_k: (B,) — 0 = full vocab, else
     keep entries >= the k-th largest (ties all kept); seeds/positions:
-    (B,) — the per-request stream, ignored on greedy rows."""
+    (B,) — the per-request stream, ignored on greedy rows.  All four are
+    host sequences (lists, or the serve tick's numpy arrays), read on the
+    host, so no row's check waits for the card."""
     lf = logits.float()
     out = torch.argmax(lf, dim=-1)
     V = lf.shape[-1]

@@ -67,7 +67,10 @@ def reference(request):
 
 
 def _greedy(eng, params, prompt, steps=STEPS):
-    caches, last = eng.decode_init(params, prompt, prompt.shape[1] + steps)
+    """(tokens (B, steps + 1), logits (steps + 1, B, V)); the cache holds
+    the whole context, or the decode window's ring."""
+    live = eng.exec_cfg.decode_window or prompt.shape[1] + steps
+    caches, last = eng.decode_init(params, prompt, live)
     logits = [last]
     tok = last.argmax(-1)[:, None]
     toks = [tok]
@@ -154,7 +157,8 @@ def test_streaming_init_equals_model_init(pack):
 
 
 def test_oneshot_cli_runs_in_process(capsys):
-    toks = serve_cli.main(["--device", "cpu", "--variant", "smoke",
+    toks = serve_cli.main(["--mode", "oneshot", "--device", "cpu",
+                           "--variant", "smoke",
                            "--batch", "2", "--prompt-len", "4", "--gen", "3",
                            "--weight-stream", "--pack", "--prefetch", "1",
                            "--transport", "pallas"])
@@ -182,3 +186,36 @@ def test_sampling_greedy_first_max_and_seeded_determinism():
     solo = sample(big[2:3], [9], [3], [0.8], [5])
     pair = sample(big[[0, 2]], [1, 9], [3, 3], [0.8, 0.8], [5, 5])
     assert int(solo[0]) == int(pair[1])
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_decode_window_ring_matches_jax_engine(grouped):
+    """The ``decode_window`` ring buffer: granite smoke in f32, a window of
+    8, a 6-token prompt and 14 greedy steps (the ring wraps twice), the
+    port under the slice's knobs against the JAX engine: logits within
+    1e-4, tokens equal; with the KV heads expanded and kept grouped."""
+    W, P_LEN, N = 8, 6, 14
+    jcfg = jget_config("granite-3-8b", "smoke").replace(
+        dtype="float32", grouped_decode_attn=grouped)
+    jeng = jengines.create("l2l", jcfg, JExec(decode_window=W), donate=False)
+    params = jeng.model.init_params(jax.random.PRNGKey(3))
+    prompt = np.random.RandomState(3).randint(
+        0, jcfg.vocab_size, size=(B, P_LEN)).astype(np.int32)
+    caches, last = jeng.decode_init(params, jnp.asarray(prompt), W)
+    want = [np.asarray(last)]
+    tok = jnp.argmax(last, -1).astype(jnp.int32)[:, None]
+    for i in range(N):
+        lg, caches = jeng.decode_step(params, caches, tok,
+                                      jnp.int32(P_LEN + i))
+        want.append(np.asarray(lg[:, -1]))
+        tok = jnp.argmax(lg[:, -1], -1).astype(jnp.int32)[:, None]
+    want = np.stack(want)
+
+    cfg = get_config("granite-3-8b", "smoke").replace(
+        dtype="float32", grouped_decode_attn=grouped)
+    eng = engines.create("l2l", cfg, ExecutionConfig(decode_window=W,
+                                                     **SLICE), device="cpu")
+    toks, logits = _greedy(eng, bridge.params_from_numpy(
+        jax.tree.map(np.asarray, params)), torch.from_numpy(prompt), N)
+    np.testing.assert_allclose(logits.numpy(), want, atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(toks.numpy(), want.argmax(-1).T)
