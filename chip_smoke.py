@@ -90,21 +90,50 @@ Phases, one JSON line each:
               in f32 against the same call with K5's plain version patched
               in, every norm scale's gradient not zero, and K3a/K3b at the
               path's GQA-16 microbatch against their plain version;
+   dynamic-depth — ``ExecutionConfig.dynamic_depth``, the counters set
+              to 0 just before and read just after: granite-3-8b at full
+              width and the serve phase's depth with its settings,
+              decode_init and 4 greedy steps on its 4 prompts at run depth
+              n = 40 (tokens equal to the serve phase's, bit for bit) and
+              n = 20 on the same engine and rows (tok/s, K4 fetches per
+              step, relay GB/s at both); bert-large at full width,
+              capacity 24, the train phase's settings, one step at n = 12
+              (rows 12-23 of the weights and Adam slots unchanged bit for
+              bit) and one at n = 24, the steps' peaks side by side.  Not
+              counted: the n = 12 loss against a static 12-layer engine's
+              first step on the same rows, and a capacity-4 granite engine
+              at n = 2 against a static 2-layer one on the same rows
+              (prefill and decode logits), each bit for bit;
 9. train    — bert-large at full width and all 24 layers, l2l-p with
               weight_stream, pack_params, prefetch 1, transport "pallas",
-              use_pallas, offload_stash, Adam: 5 steps at B=32, S=512,
-              UB=4 on one repeated synthetic batch, every kernel counter
-              set to 0 just before and read just after; then the peak
-              HBM of two steps at depth 12 beside depth 24's;
+              use_pallas, offload_stash, Adam: the peak HBM of two steps
+              at depth 12, then 5 steps at B=32, S=512, UB=4 on one
+              repeated synthetic batch, every kernel counter set to 0
+              just before and read just after (step 1's rows kept for the
+              next phase);
+   host-optimizer — the train phase's engine with ``host_optimizer``, 5
+              steps on the same batch, the counters set to 0 just before
+              and read just after: step 1's rows held to the train phase's
+              (max abs 1e-6, an equal loss; whether bitwise is printed,
+              and when bitwise the five losses equal the train phase's),
+              and the square root of layer 0's second moment on the
+              card against PyTorch's CPU kernel and ``sqrt_rn`` (which
+              must agree with the card);
+              per step the seconds, relay GB each way, K4 fetches and
+              write-backs, K1 launches (must be 0), the CPU's update ms
+              per layer and the main thread's wait on the worker; then
+              one profiled step of the train phase and one of this
+              phase (the device's idle share), after every timed phase;
    library  — SDPA backward's device time and K3a's and K3b's, under
               torch.profiler, into the kernel rows;
    memory-model — ``Engine.memory_estimate`` for the train phase's
               bert-large at depths 24 and 12 beside its peaks, and the
               serve estimate beside serve-continuous's peak (printed, not
               tied: the model counts the reference's buffers);
-10. launches — every kernel's count over the five main paths (serve,
-              serve-dense, serve-continuous, train, train-rmsnorm; each
-              of a path's kernels > 0), and the counts by route: every
+10. launches — every kernel's count over the seven main paths (serve,
+              serve-dense, serve-continuous, train, train-rmsnorm,
+              dynamic-depth, host-optimizer; each of a path's kernels > 0,
+              and K1 0 on host-optimizer), and the counts by route: every
               bf16 K2, K3a and K3b
               launch on the wgmma route, none on the CUDA-core one, every
               K5 launch on the CUDA route, none on the Triton one, and every
@@ -668,9 +697,11 @@ def train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, ref, get_config,
 
 def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
                 DataConfig, adam, make_schedule, counters, dev):
-    """5 l2l-p steps of bert-large at full width, every counter set to 0
-    just before and read just after; then 2 steps at depth 12 for the
-    peak-memory comparison."""
+    """2 l2l-p steps of bert-large at full width and depth 12 for the
+    peak-memory comparison, then 5 at depth 24 with every counter set to
+    0 just before and read just after.  Returns (line, step 1's state
+    tensors and loss, (engine, state, batch) for the profiled step that
+    comes after the timed phases)."""
     import numpy as np
     B, S, UB, STEPS = 32, 512, 4, 5
     opt = adam(schedule=make_schedule(1e-4, warmup=10))
@@ -688,6 +719,21 @@ def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
     batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
                    seed=0)).batch(0).items()}
+
+    # the paper's claim: device memory does not grow with depth (depth 12
+    # first, so the depth-24 state kept for the profile is not counted)
+    eng, state, _ = build(12)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        state, _m = eng.train_step(state, batch)
+    torch.cuda.synchronize()
+    peak12 = torch.cuda.max_memory_allocated()
+    reserved12 = torch.cuda.max_memory_reserved()
+    del eng, state, _m
+    free_host(torch)
+
     eng, state, init_s = build(cfg.n_layers)
     eps = state.params["groups"][0].segs["float32"]
     layer_bytes = eps.shape[1] * 4
@@ -717,6 +763,8 @@ def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
                       "tok_per_s": B * S / dt, "loss": loss,
                       "grad_norm": float(metrics["grad_norm"])})
         emit({"phase": "train-step", **steps[-1]})
+        if i == 0:       # the host-optimizer phase's reference rows
+            step1 = {"tensors": state_tensors(torch, state), "loss": loss}
     launches = {n: c.launches for n, c in counters.items()}
     routes = route_counts(counters)
     fetched = counters["relay_copy"].bytes - fetch0   # the stash's too
@@ -742,25 +790,10 @@ def train_phase(torch, engines, ExecutionConfig, bert, knobs, SyntheticLM,
     assert all(np.isfinite(s["loss"]) for s in steps), steps
     assert steps[-1]["loss"] < steps[0]["loss"], \
         "loss on the repeated batch did not fall over 5 steps"
-    out["profile"] = profile_step(torch, eng, state, batch)
-    del eng, state, eps, metrics
-    free_host(torch)
-
-    # the paper's claim: device memory does not grow with depth
-    eng, state, _ = build(12)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        state, _m = eng.train_step(state, batch)
-    torch.cuda.synchronize()
-    out["peak_allocated_bytes_by_depth"] = {
-        "12": torch.cuda.max_memory_allocated(), "24": peak24}
-    out["peak_reserved_bytes_by_depth"] = {
-        "12": torch.cuda.max_memory_reserved(), "24": reserved24}
-    del eng, state
-    gc.collect()
-    return out
+    out["peak_allocated_bytes_by_depth"] = {"12": peak12, "24": peak24}
+    out["peak_reserved_bytes_by_depth"] = {"12": reserved12,
+                                           "24": reserved24}
+    return out, step1, (eng, state, batch)
 
 
 def free_host(torch):
@@ -1202,6 +1235,264 @@ def train_rmsnorm_phase(torch, engines, ExecutionConfig, knobs, get_config,
     free_host(torch)
     out["k3_gqa"] = k3_gqa_check(torch, dev, fa, kops, cfg, B // UB, S)
     return out, launches, routes
+
+
+def dynamic_depth_phase(torch, engines, ExecutionConfig, exec_cfg, cfg,
+                        prompt, serve_tokens, packing, sample_batch, bert,
+                        knobs, SyntheticLM, DataConfig, adam, make_schedule,
+                        counters, dev):
+    """Dynamic depth on the card (``ExecutionConfig.dynamic_depth``).  The
+    path, with the counters set to 0 just before and read just after:
+
+    * serve: granite-3-8b at full width and the serve phase's depth with
+      the serve phase's settings, decode_init and 4 greedy steps on its
+      4 prompts at n = depth (tokens equal to the serve phase's first
+      ones), then at n = depth / 2 on the same engine and rows;
+    * train: bert-large at full width, capacity 24, the train phase's
+      settings, one step at n = 12 (rows 12-23 of the weights and Adam
+      slots unchanged bit for bit), then one at n = 24; the peaks side by
+      side.
+
+    Then the comparisons: the n = 12 loss against a static 12-layer
+    engine's first step on the same rows, and a capacity-4 granite engine
+    at n = 2 against a static 2-layer engine on the same first two rows
+    (prefill and decode logits), each bit for bit."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.engine.state import TrainState
+    B, P = prompt.shape
+    live = P + len(serve_tokens[0]) - 1    # the serve phase's cache
+    GEN = 4           # of the serve phase's 8 steps: the phase's time budget
+    serve_tokens = [row[:GEN + 1] for row in serve_tokens]
+    dyn_cfg = dataclasses.replace(exec_cfg, dynamic_depth=True)
+    out = {"phase": "dynamic-depth", "arch": cfg.name,
+           "capacity": cfg.n_layers, "batch": B, "prompt": P, "steps": GEN}
+    t0 = time.perf_counter()
+    eng = engines.create("l2l", cfg, dyn_cfg)
+    params = eng.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    fetch = counters["relay_copy"]
+    reset_counts(counters.values())
+    by_depth = {}
+    for n in (cfg.n_layers, cfg.n_layers // 2):
+        t0 = time.perf_counter()
+        caches, last = eng.decode_init(params, prompt, live, n_layers=n)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        tok = sample_batch(last)[:, None]
+        toks = [tok]
+        f0, b0 = fetch.launches, fetch.bytes
+        t0 = time.perf_counter()
+        for i in range(GEN):
+            logits, caches = eng.decode_step(params, caches, tok, P + i,
+                                             n_layers=n)
+            tok = sample_batch(logits[:, -1])[:, None]
+            toks.append(tok)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        by_depth[str(n)] = {
+            "decode_init_s": t_init, "decode_s": dt,
+            "tok_per_s": B * GEN / dt,
+            "fetches_per_step": (fetch.launches - f0) / GEN,
+            "relay_GBps": (fetch.bytes - b0) / dt / 1e9,
+            "tokens": torch.cat(toks, 1).tolist()}
+        del caches, last, logits
+    out["serve"] = by_depth
+    del eng, params
+    free_host(torch)
+
+    Bt, S, UB = 32, 512, 4
+    tcfg = bert.replace(use_pallas=True)
+    opt = adam(schedule=make_schedule(1e-4, warmup=10))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=tcfg.vocab_size, seq_len=S, global_batch=Bt,
+                   seed=0)).batch(0).items()}
+    eng = engines.create("l2l-p", tcfg, ExecutionConfig(
+        n_microbatches=UB, dynamic_depth=True, **knobs), optimizer=opt)
+    state0 = state = eng.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    steps, after12 = [], None
+    for n in (12, tcfg.n_layers):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state, m = eng.train_step(state, batch, n_layers=n)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        # the step's own growth: the states kept for the comparisons
+        # below hold their embedding and head on the device
+        steps.append({"n": n, "s": time.perf_counter() - t0, "loss": loss,
+                      "peak_allocated_bytes": peak,
+                      "allocated_at_start_bytes": start,
+                      "step_peak_growth_bytes": peak - start})
+        if n == 12:
+            after12 = state
+    launches = {k: c.launches for k, c in counters.items()}
+    routes = route_counts(counters)
+    out["train"] = steps
+    rows = tree_leaves((state0.params["groups"], state0.opt_state["groups"]))
+    new_rows = tree_leaves((after12.params["groups"],
+                            after12.opt_state["groups"]))
+    out["idle_rows_unchanged"] = all(
+        torch.equal(a[12:], b[12:]) for a, b in zip(new_rows, rows))
+    out["active_rows_moved"] = all(
+        not torch.equal(a[:12], b[:12]) for a, b in zip(new_rows, rows))
+    del eng, state, after12, rows, new_rows
+    # a static 12-layer engine's first step on the same rows
+    se = engines.create("l2l-p", tcfg.replace(n_layers=12),
+                        ExecutionConfig(n_microbatches=UB, **knobs),
+                        optimizer=opt)
+    first12 = lambda t: tree_map(lambda a: a[:12], t)
+    st12 = TrainState(
+        params={**state0.params,
+                "groups": (first12(state0.params["groups"][0]),)},
+        opt_state={**state0.opt_state,
+                   "groups": (first12(state0.opt_state["groups"][0]),)},
+        step=state0.step)
+    _, ms = se.train_step(st12, batch)
+    out["static12_loss"] = float(ms["loss"])
+    del se, st12, state0, ms
+    free_host(torch)
+
+    # capacity 4 at n = 2 against a static 2-layer engine, the same rows
+    e4 = engines.create("l2l", cfg.replace(n_layers=4), dyn_cfg)
+    p4 = e4.init_params(torch.Generator(dev).manual_seed(0))
+    e2 = engines.create("l2l", cfg.replace(n_layers=2), exec_cfg)
+    g4 = p4["groups"][0]
+    p2 = {**p4, "groups": (packing.Packed(
+        {k: v[:2] for k, v in g4.segs.items()}, g4.spec),)}
+
+    def run(e, p, **kw):
+        caches, lg = e.decode_init(p, prompt, P + 1, **kw)
+        step, _ = e.decode_step(p, caches, lg.argmax(-1)[:, None], P, **kw)
+        return [lg, step[:, -1], e.prefill(p, {"tokens": prompt}, **kw)]
+
+    got, want = run(e4, p4, n_layers=2), run(e2, p2)
+    out["capacity4_n2_equals_static2"] = all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    del e4, p4, e2, p2, g4, got, want
+    free_host(torch)
+
+    full_n, half_n = str(cfg.n_layers), str(cfg.n_layers // 2)
+    out["tokens_equal_serve_phase"] = \
+        by_depth[full_n]["tokens"] == serve_tokens
+    out["launches"] = launches
+    assert out["tokens_equal_serve_phase"], (by_depth[full_n]["tokens"],
+                                             serve_tokens)
+    assert by_depth[half_n]["fetches_per_step"] \
+        < by_depth[full_n]["fetches_per_step"], by_depth
+    assert out["idle_rows_unchanged"] and out["active_rows_moved"], out
+    assert steps[0]["loss"] == out["static12_loss"], out
+    assert out["capacity4_n2_equals_static2"], out
+    assert all(np.isfinite(s["loss"]) for s in steps), steps
+    return out, launches, routes
+
+
+def host_optimizer_phase(torch, engines, ExecutionConfig, bert, knobs,
+                         SyntheticLM, DataConfig, adam, make_schedule,
+                         counters, step1, train_losses, dev):
+    """bert-large at full width and depth with the train phase's engine
+    plus ``host_optimizer``: 5 steps on the train phase's batch, every
+    counter set to 0 just before and read just after.  Step 1's rows are
+    held to the train phase's step-1 rows (``step1``: the reference's bar,
+    max abs 1e-6 and an equal loss); when they are bitwise the five losses
+    equal the train phase's.  Returns (line, launches, routes, (engine,
+    state, batch)): the profiled step comes after the timed phases."""
+    import numpy as np
+    from repro_torch.kernels.ref import sqrt_rn
+    B, S, UB, STEPS = 32, 512, 4, 5
+    cfg = bert.replace(use_pallas=True)
+    opt = adam(schedule=make_schedule(1e-4, warmup=10))
+    eng = engines.create("l2l-p", cfg, ExecutionConfig(
+        n_microbatches=UB, host_optimizer=True, **knobs), optimizer=opt)
+    t0 = time.perf_counter()
+    state = eng.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                   seed=0)).batch(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    fetch, wb = counters["relay_copy"], counters["relay_copy_writeback"]
+    steps = []
+    for i in range(STEPS):
+        f0, w0 = (fetch.launches, fetch.bytes), (wb.launches, wb.bytes)
+        k1 = counters["fused_adam"].launches
+        t0 = time.perf_counter()
+        state, metrics = eng.train_step(state, batch)
+        issued = time.perf_counter() - t0
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ms = metrics["host_update_ms"]
+        steps.append({
+            "step": i, "s": dt, "host_issue_s": issued, "loss": loss,
+            "tok_per_s": B * S / dt,
+            "relay_in_GB": (fetch.bytes - f0[1]) / 1e9,
+            "relay_out_GB": (wb.bytes - w0[1]) / 1e9,
+            "k4_fetches": fetch.launches - f0[0],
+            "k4_writebacks": wb.launches - w0[0],
+            "k1_launches": counters["fused_adam"].launches - k1,
+            "cpu_update_ms_median": float(np.median(ms)),
+            "cpu_update_ms_max": float(np.max(ms)),
+            "cpu_update_s_total": float(np.sum(ms)) / 1e3,
+            "main_thread_wait_s": metrics["host_wait_s"]})
+        emit({"phase": "host-optimizer-step", **steps[-1]})
+        if i == 0:
+            got = state_tensors(torch, state)
+            bitwise = all(torch.equal(a, b)
+                          for a, b in zip(got, step1["tensors"]))
+            diff = 0.0 if bitwise else max(
+                float((a - b).abs().max())
+                for a, b in zip(got, step1["tensors"]))
+            # the update's one op that is not correctly rounded everywhere:
+            # the square root of layer 0's second moment, on the card, by
+            # PyTorch's CPU kernel and by the CPU route the update takes
+            v = state.opt_state["groups"][0]["v"].segs["float32"][0].clone()
+            card = torch.sqrt(v.to(dev)).cpu()
+            sqrt_check = {"elements": v.numel(),
+                          "torch_sqrt_cpu_vs_card": int(
+                              (torch.sqrt(v) != card).sum()),
+                          "sqrt_rn_cpu_vs_card": int(
+                              (sqrt_rn(v) != card).sum())}
+            del got, v, card
+    launches = {k: c.launches for k, c in counters.items()}
+    routes = route_counts(counters)
+    steady = float(np.mean([s["s"] for s in steps[1:]]))
+    out = {"phase": "host-optimizer", "arch": cfg.name,
+           "depth": cfg.n_layers, "batch": B, "seq": S, "microbatches": UB,
+           "knobs": {**knobs, "host_optimizer": True}, "init_s": init_s,
+           "steps": steps, "steady_s_per_step": steady,
+           "steady_tok_per_s": B * S / steady,
+           "step1_max_abs_vs_device_optimizer": diff,
+           "step1_bitwise": bitwise, "sqrt_check": sqrt_check,
+           "step1_loss": steps[0]["loss"],
+           "step1_loss_device_optimizer": step1["loss"],
+           "losses_equal_train_phase":
+               [s["loss"] for s in steps] == train_losses,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "torch_threads": torch.get_num_threads()}
+    assert all(s["k1_launches"] == 0 for s in steps), steps
+    assert diff <= 1e-6 and steps[0]["loss"] == step1["loss"], out
+    assert sqrt_check["sqrt_rn_cpu_vs_card"] == 0, sqrt_check
+    assert not bitwise or out["losses_equal_train_phase"], out
+    return out, launches, routes, (eng, state, batch)
+
+
+def state_tensors(torch, state):
+    """Every tensor of a train state on the host: the pinned rows as they
+    are (a step never writes its inputs), the device's as copies."""
+    from repro_torch.core.tree import tree_leaves
+    torch.cuda.synchronize()
+    return [a if a.device.type == "cpu" else a.to("cpu") for a in
+            tree_leaves((state.params, state.opt_state))]
 
 
 def checkpoint_phase(torch, engines, ExecutionConfig, knobs, bert,
@@ -2002,13 +2293,41 @@ def main(argv=None):
         DataConfig, adam, make_schedule, counters, kops, rms, fa, dev)
     emit(report["train_rmsnorm"])
 
+    # -------------------------------------------------------- dynamic-depth
+    t0 = time.perf_counter()
+    report["dynamic_depth"], dyn_launches, dyn_routes = dynamic_depth_phase(
+        torch, engines, ExecutionConfig, exec_cfg, cfg, prompt,
+        report["serve"]["tokens"], packing, sample_batch, bert, slice_knobs,
+        SyntheticLM, DataConfig, adam, make_schedule, counters, dev)
+    report["dynamic_depth"]["phase_seconds"] = time.perf_counter() - t0
+    emit(report["dynamic_depth"])
+
     # ---------------------------------------------------------------- train
-    report["train"] = train_phase(torch, engines, ExecutionConfig, bert,
-                                  slice_knobs, SyntheticLM, DataConfig,
-                                  adam, make_schedule, counters, dev)
+    report["train"], step1, train_keep = train_phase(
+        torch, engines, ExecutionConfig, bert, slice_knobs, SyntheticLM,
+        DataConfig, adam, make_schedule, counters, dev)
     train_launches = report["train"].pop("launches")
     train_routes = report["train"].pop("routes")
+
+    # ------------------------------------------------------- host-optimizer
+    t0 = time.perf_counter()
+    report["host_optimizer"], host_launches, host_routes, host_keep = \
+        host_optimizer_phase(torch, engines, ExecutionConfig, bert,
+                             slice_knobs, SyntheticLM, DataConfig, adam,
+                             make_schedule, counters, step1,
+                             [s["loss"] for s in report["train"]["steps"]],
+                             dev)
+    report["host_optimizer"]["phase_seconds"] = time.perf_counter() - t0
+    del step1
+
+    # the profiled steps, after every timed phase
+    report["train"]["profile"] = profile_step(torch, *train_keep)
+    del train_keep
     emit(report["train"])
+    report["host_optimizer"]["profile"] = profile_step(torch, *host_keep)
+    del host_keep
+    free_host(torch)
+    emit(report["host_optimizer"])
     report["library"] = backward_device_ms(torch, F, dev, fa, rows,
                                            report["train_rmsnorm"]["k3_gqa"])
     emit(report["library"])
@@ -2038,13 +2357,16 @@ def main(argv=None):
     # ------------------------------------------------------------- launches
     launches = {"serve": serve_launches, "serve-dense": dense_launches,
                 "serve-continuous": cont_launches,
-                "train": train_launches, "train-rmsnorm": rms_launches}
+                "train": train_launches, "train-rmsnorm": rms_launches,
+                "dynamic-depth": dyn_launches,
+                "host-optimizer": host_launches}
     routes = {"serve": serve_routes, "serve-dense": dense_routes,
               "serve-continuous": cont_routes,
-              "train": train_routes, "train-rmsnorm": rms_routes}
+              "train": train_routes, "train-rmsnorm": rms_routes,
+              "dynamic-depth": dyn_routes, "host-optimizer": host_routes}
     emit({"launches": launches, "routes": routes})
     for path in ("serve-dense", "serve-continuous", "train",
-                 "train-rmsnorm"):
+                 "train-rmsnorm", "dynamic-depth", "host-optimizer"):
         got, by = launches[path], routes[path]
         # every bf16 K2, K3a and K3b launch of the path took the wgmma route
         for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -2069,10 +2391,14 @@ def main(argv=None):
                                     "flash_attention_fwd"),
                     "serve-continuous": ("relay_copy", "rmsnorm"),
                     "train": train_kernels,
-                    "train-rmsnorm": train_kernels + ("rmsnorm",)}
+                    "train-rmsnorm": train_kernels + ("rmsnorm",),
+                    "dynamic-depth": train_kernels + ("rmsnorm",),
+                    "host-optimizer": train_kernels[:-1]}
     for path, names in path_kernels.items():
         assert all(launches[path].get(n, 0) > 0 for n in names), \
             (path, launches[path])
+    # the host optimizer's path runs no K1: the update is on the host
+    assert launches["host-optimizer"]["fused_adam"] == 0, launches
     total = {n: sum(launches[p].get(n, 0) for p in launches)
              for n in counters}
 

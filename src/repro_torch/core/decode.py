@@ -6,6 +6,10 @@ decode step relays the layer stack through HBM one slot at a time — the
 paper's constant device footprint, applied to inference.  Caches are
 updated IN PLACE: a step writes each layer's new k/v/pos into the stacked
 cache tensors it was given (the reference returns new caches).
+
+With ``dynamic_depth`` a step runs the first ``n_active`` layers: the
+others leave the hidden state and their cache rows untouched, and their
+weights are not fetched.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.eps import EPSPlacements, make_placements
-from repro_torch.core.relay import Stream, relay_scan
+from repro_torch.core.relay import Stream, depth_window, relay_scan
 from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.models.common import is_spec
 
@@ -23,18 +27,23 @@ from repro_torch.models.common import is_spec
 def make_serve_step(model, exec_cfg: ExecutionConfig,
                     placements: Optional[EPSPlacements] = None,
                     device="cpu", copy_stream=None) -> Callable:
-    """Returns serve_step(params, caches, token, cur_pos) -> (logits,
-    caches).  ``caches``: tuple over decode groups of stacked per-layer
-    cache trees (updated in place and returned); ``token``: (B, T) int
-    tensor on the device; ``cur_pos``: a Python int (T = 1) or per-row
-    (B,)/(B,T) positions (negative = padding rows, no cache write)."""
-    assert not exec_cfg.dynamic_depth, "dynamic depth is not ported yet"
+    """Returns serve_step(params, caches, token, cur_pos[, n_active]) ->
+    (logits, caches).  ``caches``: tuple over decode groups of stacked
+    per-layer cache trees (updated in place and returned); ``token``:
+    (B, T) int tensor on the device; ``cur_pos``: a Python int (T = 1) or
+    per-row (B,)/(B,T) positions (negative = padding rows, no cache
+    write); ``n_active``: the run depth, with ``dynamic_depth``."""
     if placements is None:
         placements = make_placements(exec_cfg, len(model.groups), device)
+    DYN = exec_cfg.dynamic_depth
+    if DYN:
+        assert len(model.groups) == 1, \
+            "dynamic_depth supports single-group models"
     dgroups = model.decode_groups()
     gidx = [i for i, g in enumerate(model.groups) if not g.is_encoder]
 
-    def serve_step(params, caches, token, cur_pos):
+    def serve_step(params, caches, token, cur_pos, n_active=None):
+        win = depth_window(DYN, n_active, model.groups[0].n_layers)
         static = {"embed": params["embed"], "head": params["head"]}
         x = model.decode_embed(static, token, cur_pos)
         ctx = model.decode_ctx(cur_pos, window=exec_cfg.decode_window)
@@ -52,7 +61,7 @@ def make_serve_step(model, exec_cfg: ExecutionConfig,
                 xs=caches[di], group=exec_cfg.layers_per_relay,
                 prefetch=exec_cfg.prefetch_depth,
                 transport=exec_cfg.transport, device=device,
-                copy_stream=copy_stream)
+                copy_stream=copy_stream, active=win)
         return model.decode_logits(static, x), caches
 
     return serve_step
@@ -76,14 +85,20 @@ def init_caches(model, batch: int, live_seq: int, device="cpu", dtype=None):
 
 def prefill(model, params, tokens, live_seq: int,
             exec_cfg: Optional[ExecutionConfig] = None, placements=None,
-            device="cpu", copy_stream=None):
+            device="cpu", copy_stream=None, n_layers=None):
     """Build caches by feeding the prompt one token at a time through
-    ``serve_step``.  Returns (caches, last_logits (B, V))."""
+    ``serve_step``.  Returns (caches, last_logits (B, V)).  With
+    ``exec_cfg.dynamic_depth``, ``n_layers`` (default: the capacity) is
+    the run depth of every step."""
     exec_cfg = exec_cfg or ExecutionConfig()
     B, S = tokens.shape
     caches = init_caches(model, B, live_seq, device)
     serve = make_serve_step(model, exec_cfg, placements, device, copy_stream)
+    depth = ()
+    if exec_cfg.dynamic_depth:
+        cap = sum(g.n_layers for g in model.groups)
+        depth = (cap if n_layers is None else n_layers,)
     logits = None
     for i in range(S):
-        logits, caches = serve(params, caches, tokens[:, i:i + 1], i)
+        logits, caches = serve(params, caches, tokens[:, i:i + 1], i, *depth)
     return caches, logits[:, 0]

@@ -16,7 +16,8 @@ A ``Placement`` bundles two moves for one stream:
 On the CPU both are the identity, as the reference's are there.
 
 Training adds two use sites: ``opts[g]``, where group g's optimizer slots
-rest (beside its weights: pinned host memory when ``weight_stream``), and
+rest (beside its weights: pinned host memory when ``weight_stream``, and
+always with ``host_optimizer``, whose update runs on the host), and
 ``stash``, where the boundary activations rest between the forward and
 the backward (pinned host memory when ``offload_stash``, the paper's
 eq. (4) constant device memory; ``eps.py:174-181`` of the reference).
@@ -78,13 +79,16 @@ class EPSPlacements(NamedTuple):
 
 def make_placements(exec_cfg, n_groups: int, device="cpu") -> EPSPlacements:
     """Single-device placements (no mesh yet).  On the CPU every move is
-    the identity; on CUDA the groups and their optimizer slots rest in
-    pinned host memory when ``exec_cfg.weight_stream``, the stash when
-    ``exec_cfg.offload_stash``, else on the device."""
+    the identity; on CUDA the groups rest in pinned host memory when
+    ``exec_cfg.weight_stream``, their optimizer slots then and whenever
+    ``exec_cfg.host_optimizer``, the stash when ``exec_cfg.offload_stash``,
+    else on the device."""
     device = torch.device(device)
     if device.type != "cuda":
         noop = noop_placement()
         return EPSPlacements((noop,) * n_groups, (noop,) * n_groups, noop)
     w = single_device_placement(device, exec_cfg.weight_stream)
+    o = single_device_placement(device, exec_cfg.weight_stream
+                                or exec_cfg.host_optimizer)
     s = single_device_placement(device, exec_cfg.offload_stash)
-    return EPSPlacements((w,) * n_groups, (w,) * n_groups, s)
+    return EPSPlacements((w,) * n_groups, (o,) * n_groups, s)

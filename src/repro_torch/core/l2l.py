@@ -43,8 +43,24 @@ returns it as it was).  The host's caching allocator recycles the
 buffers of states the caller drops, so the EPS takes twice its size in
 pinned memory at the peak.
 
-Not ported (each asserts): ``dynamic_depth``, ``host_optimizer``,
-``tiers=3`` and multi-group transitions (dense models have one group).
+Dynamic depth (``dynamic_depth``): the step takes the run depth n as an
+int; every relay gets the window ``(0, n)`` (with K > 1 each segment
+``(0, clip(n - s0, 0, K))``, as the reference's ``segment_scan`` gives
+it), and the layers past n are neither fetched nor run.  Their rows of
+the new weights and optimizer slots are the input rows, carried over bit
+for bit; Algorithm 3's gradient rows there are zeros.  The host writes
+those rows right after a synchronize at the step's start, where no
+kernel reads them.
+
+The optimizer on the host (``host_optimizer``, ``core.host_opt``): the
+reverse relay fetches only the weights, each layer's gradient goes back
+to a pinned ring row and a worker thread applies the update to the
+layer's rows on the CPU while the device runs the next layer's backward
+(Algorithm 4); under Algorithm 3 the trailing update is a host loop over
+the gradient rows.  The step joins every update before it returns.
+
+Not ported (each asserts): ``tiers=3`` and multi-group transitions
+(dense models have one group).
 """
 from __future__ import annotations
 
@@ -54,7 +70,8 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.eps import EPSPlacements, make_placements
-from repro_torch.core.relay import Sink, Stream, relay_scan
+from repro_torch.core.host_opt import HostOptimizer
+from repro_torch.core.relay import Sink, Stream, depth_window, relay_scan
 from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten_like
 from repro_torch.kernels import relay_copy
@@ -87,6 +104,26 @@ def segment_bounds(n_layers: int, every: int) -> tuple:
     layer indices = 0 (mod K), a short remainder segment at the end."""
     k = max(1, int(every))
     return tuple((s, min(s + k, n_layers)) for s in range(0, n_layers, k))
+
+
+def _resting(place, like, device, dtype=None, rows=None):
+    """An uninitialized stacked tree shaped like ``like`` (``rows`` rows
+    when given) where ``place`` keeps a sink's rows: pinned host memory
+    when the placement is enabled on CUDA, else ``device``."""
+    host = device.type == "cuda" and place.enabled
+    return tree_map(lambda a: torch.empty(
+        a.shape if rows is None else (rows,) + tuple(a.shape[1:]),
+        dtype=dtype or a.dtype, pin_memory=host,
+        device="cpu" if host else device), like)
+
+
+def _carry_rows(dst, src, n: int):
+    """Rows ``[n:]`` of ``dst`` <- those of ``src`` (zeros when None)."""
+    if src is None:
+        tree_map(lambda d: d[n:].zero_(), dst)
+    else:
+        tree_map(lambda d, a: d[n:].copy_(a[n:]), dst, src)
+    return dst
 
 
 def _vjp(fn, inputs: list, cotangent):
@@ -145,14 +182,15 @@ def _make_packed_update(optimizer: Optimizer, run_opt) -> Callable:
 def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                     placements: Optional[EPSPlacements] = None,
                     device="cpu", copy_stream=None,
-                    writeback_stream=None) -> Callable:
-    """Returns step(params, opt_state, batch) -> (params', opt_state',
-    metrics).  ``opt_state`` = {"step": int, "embed", "head", "groups"
-    [, "loss_scale"]} — build with ``init_opt_state``.  On CUDA the
-    relay's fetches run on ``copy_stream`` and its write-backs on
-    ``writeback_stream`` (each made when not given)."""
-    assert not exec_cfg.dynamic_depth, "dynamic_depth is not ported yet"
-    assert not exec_cfg.host_optimizer, "host_optimizer is not ported yet"
+                    writeback_stream=None, grad_ring: int = 2) -> Callable:
+    """Returns step(params, opt_state, batch[, n_active]) -> (params',
+    opt_state', metrics).  ``opt_state`` = {"step": int, "embed", "head",
+    "groups" [, "loss_scale"]} — build with ``init_opt_state``.  With
+    ``dynamic_depth`` the step takes ``n_active``, the run depth (0 to
+    the capacity).  On CUDA the relay's fetches run on ``copy_stream``
+    and its write-backs on ``writeback_stream`` (each made when not
+    given).  ``grad_ring``: gradient rows in flight to the host optimizer
+    (Algorithm 4 with ``host_optimizer``)."""
     assert exec_cfg.tiers == 2, "tiers=3 (the disk tier) is not ported yet"
     assert len(model.groups) == 1 and not model.groups[0].has_mem, \
         "multi-group transitions are not ported yet (dense models have " \
@@ -168,10 +206,16 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
     PK = exec_cfg.pack_params
     SE = exec_cfg.stash_every
     EAGER = exec_cfg.eager_optimizer
+    HOST = exec_cfg.host_optimizer
+    DYN = exec_cfg.dynamic_depth
     CLIP = exec_cfg.clip_mode == "per_layer"
     amp = exec_cfg.loss_scale_init > 0
     group = model.groups[0]
     N = group.n_layers
+    if DYN:
+        assert N % SE == 0, \
+            "dynamic_depth needs stash_every to divide the capacity depth"
+    assert grad_ring >= 1, "the host optimizer needs a gradient row"
     wp, op, sp = placements.weights[0], placements.opts[0], placements.stash
     run_opt = optimizer.update
     packed_update = _make_packed_update(optimizer, run_opt)
@@ -184,13 +228,34 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                           copy_stream=copy_stream,
                           writeback_stream=writeback_stream, **kw)
 
-    def sink(place, n):
-        return Sink(place, n, transport=exec_cfg.transport,
-                    stream=writeback_stream)
+    def sink(place, n, tree=None):
+        out = Sink(place, n, transport=exec_cfg.transport,
+                   stream=writeback_stream)
+        out.tree = tree
+        return out
 
-    def step(params, opt_state, batch):
+    def param_sinks(W, O, n_act):
+        """The new weights' and slots' sinks; rows past the run depth are
+        the input rows (written here, where no kernel reads them)."""
+        outs = (sink(wp, N), sink(op, N))
+        if n_act < N:
+            outs[0].tree = _carry_rows(_resting(wp, W, device), W, n_act)
+            outs[1].tree = _carry_rows(_resting(op, O, device), O, n_act)
+        return outs
+
+    def step(params, opt_state, batch, n_active=None):
+        n_act = (depth_window(DYN, n_active, N) or (0, N))[1]
+        hosts = []
+        try:
+            return run(params, opt_state, batch, n_act, hosts)
+        finally:
+            for h in hosts:
+                h.close()
+
+    def run(params, opt_state, batch, n_act, hosts):
         static = {"embed": params["embed"], "head": params["head"]}
-        W = params["groups"][0]
+        W, O = params["groups"][0], opt_state["groups"][0]
+        opt_step = opt_state["step"]
         batch_ub = _reshape_ub(batch, UB)
         ub = [tree_map(lambda a, _u=u: a[_u], batch_ub) for u in range(UB)]
         W_total = batch["mask"].sum().clamp_min(1.0)
@@ -199,6 +264,48 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                   else torch.ones((), **f32))
         ctx = model.train_ctx(ub[0], group)
         aux = []
+        win = (0, n_act)
+        bounds = segment_bounds(N, SE)
+
+        def seg_hi(s0, s1):
+            """Active rows of segment [s0, s1): the window (0, hi)."""
+            return min(max(n_act - s0, 0), s1 - s0)
+
+        # ------------------------------------------------------------
+        # OUTPUT ROWS the host writes (rows the run depth leaves idle,
+        # the host optimizer's): allocated after a synchronize, so no
+        # queued kernel still reads their blocks, and no write-back is
+        # still landing in the input rows they copy
+        # ------------------------------------------------------------
+        if HOST:
+            W_host = op.host(W)       # a pinned copy when W is on the card
+        if device.type == "cuda" and (HOST or n_act < N):
+            torch.cuda.synchronize(device)
+        host = None
+        grads_out = None
+        if not EAGER:                 # Alg 3's gradient rows (zeros idle)
+            gplace = op if HOST else wp
+            grads_out = sink(gplace, N, _carry_rows(_resting(
+                gplace, W, device, torch.float32), None, n_act)
+                if n_act < N else None)
+        if HOST:
+            new_w = _carry_rows(_resting(op, W_host, device), W_host, n_act)
+            new_o = _carry_rows(_resting(op, O, device), O, n_act)
+            ring = None
+            if EAGER:
+                ring = sink(op, grad_ring, (
+                    _resting(op, W_host, device, torch.float32,
+                             rows=grad_ring),
+                    _resting(op, torch.empty(grad_ring, dtype=torch.int32),
+                             device)))
+            host = HostOptimizer(run_opt, W_host, O, new_w, new_o, opt_step,
+                                 packed=PK, amp=amp, ring=ring)
+            hosts.append(host)
+            outs = (host,) if EAGER else (grads_out,)
+        elif EAGER:
+            outs = param_sinks(W, O, n_act)
+        else:
+            outs, upd = (grads_out,), param_sinks(W, O, n_act)
 
         def apply_ub(w, x_c):
             ys = []
@@ -220,19 +327,21 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             aux.append(aux_l)
             return y_ub, ((x_c,) if _stash else None)
 
-        bounds = segment_bounds(N, SE)
         if SE == 1:
             stash = sink(sp, N)
             x_ub, _ = relay(fwd_body, x_ub, (Stream(wp, W),),
-                            sinks=(stash,))
+                            sinks=(stash,), active=win)
         else:
             # only each K-segment's entry boundary is checkpointed
             entries = sink(sp, len(bounds))
             for si, (s0, s1) in enumerate(bounds):
+                hi = seg_hi(s0, s1)
+                if not hi:
+                    continue
                 entries.write(si, x_ub)
                 x_ub, _ = relay(
                     lambda x_c, sl, x, _b=fwd_body: _b(x_c, sl, x, False),
-                    x_ub, (Stream(wp, _rows(W, s0, s1)),))
+                    x_ub, (Stream(wp, _rows(W, s0, s1)),), active=(0, hi))
         aux_total = torch.as_tensor(sum(aux) / UB, **f32)
 
         # ------------------------------------------------------------
@@ -257,8 +366,6 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         # ------------------------------------------------------------
         # BACKWARD: reverse relay; recompute-vjp per layer; eager opt
         # ------------------------------------------------------------
-        opt_step = opt_state["step"]
-
         def bwd_body(core, slots, stash_l):
             """Recompute-vjp microbatch loop (+ eager update) of one
             layer.  With pack_params the vjp differentiates the UNPACKED
@@ -285,7 +392,14 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             gn_c = gn_c + torch.where(finite_l, tree_global_norm(dw) ** 2,
                                       0.0)
             nf_c = nf_c + torch.where(finite_l, 0, 1)
-            if EAGER:
+            # the gradient as it travels: one flat f32 row aligned to the
+            # weight layout when packed
+            dw_out = (packing.pack(dw, spec=w_dev.spec, stacked=False)
+                      if PK else dw)
+            if EAGER and HOST:
+                # to the host optimizer, with the layer's finite flag
+                out = ((dw_out, finite_l.to(torch.int32)),)
+            elif EAGER:
                 new_w, new_opt = (packed_update if PK else run_opt)(
                     dw, opt_l, w_dev, opt_step)
                 if amp:
@@ -295,20 +409,19 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                     new_opt = _where(finite_l, new_opt, opt_l)
                 out = (new_w, new_opt)
             else:
-                # Alg 3: the gradient is shipped to the EPS — packed, one
-                # flat f32 row aligned to the weight layout
-                out = (packing.pack(dw, spec=w_dev.spec, stacked=False)
-                       if PK else dw,)
+                # Alg 3: the gradient is shipped to the EPS
+                out = (dw_out,)
             return (torch.stack(dxin), gn_c, nf_c), out
 
-        O = opt_state["groups"][0]
-        outs = (sink(wp, N), sink(op, N)) if EAGER else (sink(wp, N),)
+        # Alg 4 on the card fetches the Adam slots with the weights; the
+        # host optimizer reads them where they rest
+        with_opt = EAGER and not HOST
         core = (dx_ub, torch.zeros((), **f32),
                 torch.zeros((), dtype=torch.int32, device=W_total.device))
         if SE == 1:
-            streams = [Stream(wp, W)] + ([Stream(op, O)] if EAGER else [])
+            streams = [Stream(wp, W)] + ([Stream(op, O)] if with_opt else [])
             core, _ = relay(bwd_body, core, streams, xs=stash.tree,
-                            reverse=True, sinks=outs)
+                            reverse=True, sinks=outs, active=win)
         else:
             def rec_body(x_c, slots, _x):
                 """One layer of the boundary recompute: its OUTPUT
@@ -319,18 +432,22 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
 
             for si in reversed(range(len(bounds))):
                 s0, s1 = bounds[si]
+                hi = seg_hi(s0, s1)
+                if not hi:
+                    continue
                 entry = _row_to_device(entries.tree, si, device, copy_stream,
                                        writeback_stream)
                 seg = sink(sp, s1 - s0)
                 seg.write(0, entry)
-                if s1 - s0 > 1:
+                if hi > 1:
                     relay(rec_body, entry, (Stream(wp, _rows(W, s0, s1 - 1)),),
-                          sinks=(seg,), sink_row0=1)
+                          sinks=(seg,), sink_row0=1, active=(0, hi - 1))
                 streams = [Stream(wp, _rows(W, s0, s1))]
-                if EAGER:
+                if with_opt:
                     streams.append(Stream(op, _rows(O, s0, s1)))
                 core, _ = relay(bwd_body, core, streams, xs=seg.tree,
-                                reverse=True, sinks=outs, sink_row0=s0)
+                                reverse=True, sinks=outs, sink_row0=s0,
+                                active=(0, hi))
         dx_ub, gnorm_sq, nonfinite = core
 
         # ---- prepare (embedding) vjp ---------------------------------
@@ -358,7 +475,19 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             new_static = _where(finite_s, new_static, static)
             new_static_opt = _where(finite_s, new_static_opt, static_opt)
 
-        if EAGER:
+        if HOST:
+            if not EAGER:
+                # Alg 3: a host loop over the shipped gradient rows, once
+                # their write-backs have landed
+                if writeback_stream is not None:
+                    landed = torch.cuda.Event()
+                    landed.record(writeback_stream)
+                    landed.synchronize()
+                host.update_rows(range(n_act), grads_out.tree)
+            host.join()
+            # back to the card when the weights rest there
+            new_w, new_o = wp.host(host.new_w), host.new_o
+        elif EAGER:
             new_w, new_o = outs[0].tree, outs[1].tree
         else:
             # Alg 3: a trailing relay over layers — weights, the shipped
@@ -369,9 +498,9 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                     g, o, w, opt_step)
 
             _, (new_w, new_o) = relay(
-                upd_body, None, (Stream(wp, W), Stream(wp, outs[0].tree),
+                upd_body, None, (Stream(wp, W), Stream(wp, grads_out.tree),
                                  Stream(op, O)),
-                sinks=(sink(wp, N), sink(op, N)))
+                sinks=upd, active=win)
 
         new_params = {"embed": new_static["embed"],
                       "head": new_static["head"], "groups": (new_w,)}
@@ -379,6 +508,9 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                    "head": new_static_opt["head"], "groups": (new_o,)}
         metrics = {"loss": loss, "aux": aux_total,
                    "grad_norm": torch.sqrt(gnorm_sq), "weight_sum": W_total}
+        if HOST:
+            metrics["host_update_ms"] = host.update_ms
+            metrics["host_wait_s"] = host.wait_s
         if exec_cfg.skip_nonfinite:
             # anomaly sentinel: ANY non-finite layer/static gradient
             # rejects the whole step — the prior params, optimizer slots
@@ -432,10 +564,12 @@ def _row_to_device(tree, row: int, device, copy_stream, writeback_stream):
 def make_grads_fn(model, exec_cfg: ExecutionConfig,
                   placements: Optional[EPSPlacements] = None, device="cpu",
                   copy_stream=None, writeback_stream=None) -> Callable:
-    """Returns grads(params, batch) -> (loss, grads) computed with the L2L
-    schedule (layer-major, recompute, trailing gradient shipment): the
-    train step with an 'optimizer' that stores the gradient.  Only the
-    schedule and layout knobs carry over (no AMP, clip or eager update)."""
+    """Returns grads(params, batch[, n_active]) -> (loss, grads) computed
+    with the L2L schedule (layer-major, recompute, trailing gradient
+    shipment): the train step with an 'optimizer' that stores the
+    gradient.  Only the schedule and layout knobs carry over (no AMP,
+    clip, eager or host update); with ``dynamic_depth`` the rows past
+    ``n_active`` come out zero."""
     cfg = ExecutionConfig(
         n_microbatches=exec_cfg.n_microbatches,
         offload_stash=exec_cfg.offload_stash,
@@ -454,13 +588,14 @@ def make_grads_fn(model, exec_cfg: ExecutionConfig,
     base_step = make_train_step(model, collector, cfg, placements, device,
                                 copy_stream, writeback_stream)
 
-    def fn(params, batch):
+    def fn(params, batch, n_active=None):
         opt = init_opt_state(collector, params)
         # the collector's slots rest beside their weights (pinned rows when
-        # streaming), where the trailing relay fetches them
+        # streaming), where the trailing relay fetches them; the rows past
+        # a run depth keep their zeros
         opt["groups"] = tuple(placements.opts[gi].host(g)
                               for gi, g in enumerate(opt["groups"]))
-        _, new_opt, metrics = base_step(params, opt, batch)
+        _, new_opt, metrics = base_step(params, opt, batch, n_active)
         is_slot = lambda x: isinstance(x, dict) and set(x) == {"m"}
         unwrap = lambda t: tree_map(lambda s: s["m"], t, is_leaf=is_slot)
         grads = {"embed": unwrap(new_opt["embed"]),
@@ -514,14 +649,19 @@ def init_opt_state(optimizer: Optimizer, params,
 def make_prefill_fn(model, exec_cfg: ExecutionConfig,
                     placements: Optional[EPSPlacements] = None,
                     device="cpu", copy_stream=None) -> Callable:
-    """Returns prefill(params, batch) -> last-token logits (B, vocab): the
-    full prompt forward under the L2L weight relay."""
-    assert not exec_cfg.dynamic_depth, "dynamic depth is not ported yet"
+    """Returns prefill(params, batch[, n_active]) -> last-token logits
+    (B, vocab): the full prompt forward under the L2L weight relay; with
+    ``dynamic_depth`` over the first ``n_active`` layers only."""
     if placements is None:
         placements = make_placements(exec_cfg, len(model.groups), device)
     UB = exec_cfg.n_microbatches
+    DYN = exec_cfg.dynamic_depth
+    if DYN:
+        assert len(model.groups) == 1, \
+            "dynamic_depth supports single-group models"
 
-    def prefill(params, batch):
+    def prefill(params, batch, n_active=None):
+        win = depth_window(DYN, n_active, model.groups[0].n_layers)
         static = {"embed": params["embed"], "head": params["head"]}
         batch_ub = _reshape_ub(batch, UB)
         ub_batches = [tree_map(lambda a, _u=u: a[_u], batch_ub)
@@ -545,7 +685,7 @@ def make_prefill_fn(model, exec_cfg: ExecutionConfig,
                 group=exec_cfg.layers_per_relay,
                 prefetch=exec_cfg.prefetch_depth,
                 transport=exec_cfg.transport, device=device,
-                copy_stream=copy_stream)
+                copy_stream=copy_stream, active=win)
         logits = [model.decode_logits(static, x_ub[u][:, -1:, :])[:, 0]
                   for u in range(UB)]
         return torch.cat(logits)

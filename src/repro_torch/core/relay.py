@@ -70,6 +70,17 @@ earlier fetch still reads cannot happen either: every product's compute
 waited on a fetch of its own pass, behind all earlier fetches on the
 copy stream (and the engine joins both streams at the end of a step).
 A host reader of a sink synchronizes first.
+
+**Dynamic depth (``active``).**  ``active=(lo, hi)`` runs ``body`` on the
+rows inside the window and ``idle_body`` on the rows outside it, as the
+reference's gate does.  The reference fetches and re-ships idle rows
+because one traced program has fixed shapes; here the relay is eager, so
+a stop wholly outside the window is neither fetched nor written back,
+and the prefetch ring runs over the window's stops only (in reverse the
+first stop is the one that holds row hi - 1).  A G-layer stop that
+straddles the window is fetched whole and runs its idle rows one by one.
+An idle row writes no sink row: the caller owns those rows (carried over
+from its inputs, or zeros).
 """
 from __future__ import annotations
 
@@ -141,6 +152,20 @@ def n_stops(n_layers: int, group: int) -> int:
     return -(-n_layers // g)
 
 
+def depth_window(dyn: bool, n_active, capacity: int):
+    """The relay window ``(0, n_active)`` of a dynamic-depth call (None
+    without ``dynamic_depth``), with the reference's asserts."""
+    if not dyn:
+        assert n_active is None, \
+            "n_active needs ExecutionConfig.dynamic_depth"
+        return None
+    assert n_active is not None, \
+        "dynamic_depth: the call takes the run depth n_active"
+    n = int(n_active)
+    assert 0 <= n <= capacity, f"n_active {n} outside 0..{capacity}"
+    return (0, n)
+
+
 def _index(tree, j: int):
     return tree_map(lambda a: a[j], tree)
 
@@ -169,9 +194,13 @@ def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
     allocator reuses a freed slot's memory only for later allocations on
     the stream it was allocated on).  Every fetch waits for the
     write-backs issued before it.
+
+    ``active=(lo, hi)`` (ints, local rows) gates the layers: rows outside
+    the window run ``idle_body(carry, slots, x) -> (carry, ys)`` (default:
+    the carry passes through, no product); ``slots`` and ``x`` are None
+    for a row whose stop lies wholly outside the window and is not
+    fetched.
     """
-    assert active is None and idle_body is None, \
-        "dynamic depth (active / idle_body) is not ported yet"
     streams = tuple(streams)
     sinks = tuple(sinks)
     assert streams, "relay_scan needs at least one stream"
@@ -180,6 +209,16 @@ def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
     K = max(0, int(prefetch))
     S = n // G                    # full stops
     R = n - S * G                 # remainder stop (0 when G divides N)
+    lo, hi = (0, n) if active is None else (max(0, int(active[0])),
+                                            min(n, int(active[1])))
+    idle_body = idle_body or _pass_through
+    # the rows [f_lo, f_hi) of the stops the window reaches: its full
+    # stops [s_lo, s_hi), and the remainder stop when rem_on; the rows
+    # outside are neither fetched nor run
+    f_lo, f_hi = ((min(lo // G * G, S * G), n if hi > S * G
+                   else -(-hi // G) * G) if lo < hi else (0, 0))
+    s_lo, s_hi = f_lo // G, min(f_hi, S * G) // G
+    rem_on = f_hi > S * G
     device = torch.device(device)
     if device.type == "cuda":
         compute = torch.cuda.current_stream(device)
@@ -261,8 +300,9 @@ def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
             compute.wait_event(ready)
         order = range(size - 1, -1, -1) if reverse else range(size)
         for l in order:
-            carry, ys = body(carry, tuple(_index(s, l) for s in slots),
-                             None if x is None else _index(x, l))
+            fn = body if lo <= start + l < hi else idle_body
+            carry, ys = fn(carry, tuple(_index(s, l) for s in slots),
+                           None if x is None else _index(x, l))
             if ys is not None:
                 assert len(ys) == len(sinks), \
                     f"body returned {len(ys)} products for {len(sinks)} sinks"
@@ -277,22 +317,36 @@ def relay_scan(body: Callable, init, streams: Sequence[Stream], *,
             del released[:-2]
         return carry
 
-    carry = init
-    if reverse and R:
+    def skip(carry, rows):
+        """Idle rows of stops the window does not reach: nothing fetched."""
+        for _ in rows:
+            carry, ys = idle_body(carry, None, None)
+            assert ys is None, "an unfetched idle row has no product"
+        return carry
+
+    def clamp(i):
+        return min(max(i, s_lo), s_hi - 1)
+
+    carry = skip(init, range(f_hi, n) if reverse else range(f_lo))
+    if reverse and rem_on:
         carry = run_stop(carry, fetch(S * G, R), S * G, R)
-    stops = range(S - 1, -1, -1) if reverse else range(S)
-    if S and K == 0:
+    stops = range(s_hi - 1, s_lo - 1, -1) if reverse else range(s_lo, s_hi)
+    if stops and K == 0:
         for i in stops:
             carry = run_stop(carry, fetch(i * G, G), i * G, G)
-    elif S:
-        first, step = (S - 1, -1) if reverse else (0, 1)
-        pending = [fetch(min(max(first + step * d, 0), S - 1) * G, G)
+    elif stops:
+        step = -1 if reverse else 1
+        pending = [fetch(clamp(stops[0] + step * d) * G, G)
                    for d in range(K)]
         for i in stops:
-            nxt = max(i - K, 0) if reverse else min(i + K, S - 1)
-            fetched = fetch(nxt * G, G)
+            fetched = fetch(clamp(i + step * K) * G, G)
             carry = run_stop(carry, pending[0], i * G, G)
             pending = pending[1:] + [fetched]
-    if not reverse and R:
+    if not reverse and rem_on:
         carry = run_stop(carry, fetch(S * G, R), S * G, R)
+    carry = skip(carry, range(f_lo) if reverse else range(f_hi, n))
     return carry, (tuple(s.tree for s in sinks) if sinks else None)
+
+
+def _pass_through(carry, slots, x):
+    return carry, None

@@ -24,7 +24,12 @@ Registered schedules: ``baseline`` (Alg 1/2), ``l2l`` (Alg 3, trailing
 update), ``l2l-p`` (Alg 4, eager per-layer update).  An Engine runs on
 ``cuda`` unless it is built with ``device="cpu"``; on a machine without a
 card it raises instead of moving to the CPU.  The optimizer defaults to
-``adam()``.  A training step is functional: it returns a new state and
+``adam()``; with ``host_optimizer`` its layer updates run on the host
+over the pinned rows (``core.host_opt``).  With ``dynamic_depth``,
+``train_step``, ``grads``, ``prefill``, ``decode_init`` and
+``decode_step`` take ``n_layers``, the run depth (default: the
+capacity); the layers past it are not fetched and their rows stay as
+they were.  A training step is functional: it returns a new state and
 leaves the one it was given as it was.  When it returns, the compute
 stream has been ordered behind the step's last fetch and write-back (each
 on its own stream); a host reader of the pinned rows synchronizes first
@@ -71,6 +76,8 @@ class Engine:
     """Lifecycle facade over a schedule's relay functions."""
     name = "base"
     memory_mode = "baseline"
+    # gradient rows in flight to the host optimizer (Alg 4, host_optimizer)
+    grad_ring = 2
 
     def __init__(self, model, exec_cfg: Optional[ExecutionConfig] = None, *,
                  optimizer: Optional[Optimizer] = None, device="cuda",
@@ -188,7 +195,8 @@ class Engine:
         return _l2l.make_train_step(self.model, self.optimizer,
                                     self.exec_cfg, self.placements,
                                     self.device, self.copy_stream,
-                                    self.writeback_stream)
+                                    self.writeback_stream,
+                                    grad_ring=self.grad_ring)
 
     def _make_grads(self):
         return _l2l.make_grads_fn(self.model, self.exec_cfg, self.placements,
@@ -201,28 +209,43 @@ class Engine:
             compute.wait_stream(self.copy_stream)
             compute.wait_stream(self.writeback_stream)
 
-    def train_step(self, state: TrainState, batch):
+    def _depth(self, n_layers) -> tuple:
+        """The run-depth argument of a dynamic-depth call, ``(n,)`` (the
+        capacity when ``n_layers`` is None), or ``()`` without
+        ``dynamic_depth``, where ``n_layers`` must be None."""
+        if not self.exec_cfg.dynamic_depth:
+            assert n_layers is None, \
+                "n_layers needs ExecutionConfig.dynamic_depth"
+            return ()
+        cap = sum(g.n_layers for g in self.model.groups)
+        n = cap if n_layers is None else int(n_layers)
+        assert 0 <= n <= cap, f"n_layers {n} exceeds capacity {cap}"
+        return (n,)
+
+    def train_step(self, state: TrainState, batch, n_layers=None):
         """One optimizer step: (state, batch) -> (new state, metrics).  A
         state in another layout or place (unpacked, on the CPU, from
         ``bridge``) is converted first."""
         if "train_step" not in self._fns:
             self._fns["train_step"] = self._make_step()
+        depth = self._depth(n_layers)
         params, opt = self._place_state(state)
         with torch.no_grad():
             new_p, new_o, metrics = self._fns["train_step"](
-                params, opt, self._batch(batch))
+                params, opt, self._batch(batch), *depth)
         self._end_of_step()
         return TrainState.from_legacy(new_p, new_o), metrics
 
-    def grads(self, state_or_params, batch):
+    def grads(self, state_or_params, batch, n_layers=None):
         """(loss, grads) of the schedule, without an update; grads in the
-        unpacked layout."""
+        unpacked layout (zeros past a run depth)."""
         if "grads" not in self._fns:
             self._fns["grads"] = self._make_grads()
+        depth = self._depth(n_layers)
         params = getattr(state_or_params, "params", state_or_params)
         with torch.no_grad():
             out = self._fns["grads"](self._place_params(params),
-                                     self._batch(batch))
+                                     self._batch(batch), *depth)
         self._end_of_step()
         return out
 
@@ -285,37 +308,41 @@ class Engine:
             step
 
     # -- inference ----------------------------------------------------------
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, n_layers=None):
         """Last-token logits (B, vocab) of a prompt batch
         (``{"tokens": (B, S)}``) under the layer-major relay."""
         if "prefill" not in self._fns:
             self._fns["prefill"] = _l2l.make_prefill_fn(
                 self.model, self.exec_cfg, self.placements, self.device,
                 self.copy_stream)
+        depth = self._depth(n_layers)
         with torch.inference_mode():
             batch = tree_map(lambda a: a.to(self.device), batch)
-            return self._fns["prefill"](self._relay_params(params), batch)
+            return self._fns["prefill"](self._relay_params(params), batch,
+                                        *depth)
 
-    def decode_init(self, params, tokens, live_seq: int):
+    def decode_init(self, params, tokens, live_seq: int, n_layers=None):
         """Fill the decode caches from a prompt, one token per serve step.
         Returns (caches, last_logits)."""
+        self._depth(n_layers)
         with torch.inference_mode():
             return _decode.prefill(
                 self.model, self._relay_params(params),
                 tokens.to(self.device), live_seq, exec_cfg=self.exec_cfg,
                 placements=self.placements, device=self.device,
-                copy_stream=self.copy_stream)
+                copy_stream=self.copy_stream, n_layers=n_layers)
 
-    def decode_step(self, params, caches, token, cur_pos):
+    def decode_step(self, params, caches, token, cur_pos, n_layers=None):
         """One decode step: (logits (B, T, V), caches updated in place)."""
         if "decode_step" not in self._fns:
             self._fns["decode_step"] = _decode.make_serve_step(
                 self.model, self.exec_cfg, self.placements, self.device,
                 self.copy_stream)
+        depth = self._depth(n_layers)
         with torch.inference_mode():
             return self._fns["decode_step"](
                 self._relay_params(params), caches, token.to(self.device),
-                cur_pos)
+                cur_pos, *depth)
 
 
     # -- continuous-batching serve ------------------------------------------
@@ -379,11 +406,13 @@ class BaselineEngine(Engine):
         return "baseline_remat" if self.exec_cfg.remat else "baseline"
 
     def _normalize_cfg(self, exec_cfg):
-        # no relay: the packed layout, the copy transport and the EPS are
-        # L2L concerns
+        # no relay: the packed layout, the copy transport, the EPS (and
+        # its host optimizer) and the relay's run-depth gate are L2L
+        # concerns
         return dataclasses.replace(exec_cfg, pack_params=False,
                                    transport="xla", weight_stream=False,
-                                   offload_stash=False)
+                                   offload_stash=False, dynamic_depth=False,
+                                   host_optimizer=False)
 
     def init_params(self, generator: torch.Generator):
         return self.model.init_params(generator, self.device)

@@ -4,12 +4,15 @@
 Each repeats its kernel's arithmetic on whole tensors: the wrappers run
 them for CPU tensors, the CPU tests hold them to the JAX kernels in
 interpret mode, and ``chip_smoke.py`` holds each CUDA/Triton kernel to
-its plain version on the card.  Nothing on the CUDA path calls them.
+its plain version on the card.  Nothing on the CUDA path calls them but
+``sqrt_rn``, the square root that the optimizers' per-leaf chain shares
+with K1's plain version.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = -1.0e30
@@ -69,6 +72,18 @@ def ref_attention(q, k, v, *, causal=True, window=0, soft_cap=0.0,
     return o.to(q.dtype), lse
 
 
+def sqrt_rn(x):
+    """The correctly rounded square root of an f32 or f64 tensor (K1's
+    ``tl.sqrt_rn``).  On the card ``torch.sqrt`` is correctly rounded;
+    PyTorch's CPU kernel is not (about 0.6% of f32 inputs land one ulp
+    off, on one H100's host and on a CPU without a card), so on the CPU
+    numpy's ``sqrt`` takes it.  The host optimizer's update then equals
+    the card's bit for bit."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    return torch.from_numpy(np.sqrt(x.numpy()))
+
+
 def ref_adam(p, g, m, v, a, clip_scale, *, b1=0.9, b2=0.999, eps=1e-8,
              wd=0.0, wd_form=False):
     """Fused Adam/AdamW (``_adam_kernel``) as the eager chain of the
@@ -79,9 +94,9 @@ def ref_adam(p, g, m, v, a, clip_scale, *, b1=0.9, b2=0.999, eps=1e-8,
     v2 = b2 * v + (1 - b2) * gf * gf
     pf = p.float()
     if wd_form:
-        newp = pf - a * (m2 / (torch.sqrt(v2) + eps) + wd * pf)
+        newp = pf - a * (m2 / (sqrt_rn(v2) + eps) + wd * pf)
     else:
-        newp = pf - a * m2 / (torch.sqrt(v2) + eps)
+        newp = pf - a * m2 / (sqrt_rn(v2) + eps)
     return newp.to(p.dtype), m2, v2
 
 

@@ -23,8 +23,12 @@ flight, saves, writes ``PREEMPTED.json`` (``{"step", "signal"}``) and
 exits 0; a clean finish removes the marker and saves the last step if no
 periodic save did.  ``data.batch(i)`` is seeded per step, so a resumed run
 replays the same data: its final state equals an uninterrupted run's bit
-for bit.  The disk tier, the host optimizer and dynamic depth are not
-ported: their flags raise.
+for bit.
+
+``--host-optimizer`` runs the layer updates on the host over the pinned
+rows (the paper's CPU optimizer); ``--dynamic-depth --run-layers N``
+trains the first N layers of the stack (default: all), the rest
+unfetched and unchanged.  The disk tier is not ported: its flags raise.
 """
 from __future__ import annotations
 
@@ -45,8 +49,7 @@ from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.optim import get_optimizer, make_schedule
 
 # flags of the reference's CLI whose features the port does not have
-NOT_PORTED = ("--tiers", "--host-budget", "--tier-dir", "--host-optimizer",
-              "--dynamic-depth", "--run-layers")
+NOT_PORTED = ("--tiers", "--host-budget", "--tier-dir")
 PREEMPT_MARKER = "PREEMPTED.json"
 
 
@@ -89,6 +92,14 @@ def main(argv=None):
                          "relay-copy kernel too")
     ap.add_argument("--skip-nonfinite", action="store_true",
                     help="reject a step whose gradients hold inf/nan")
+    ap.add_argument("--host-optimizer", action="store_true",
+                    help="the layer updates run on the host over the "
+                         "pinned rows (the paper's CPU optimizer)")
+    ap.add_argument("--dynamic-depth", action="store_true",
+                    help="the run depth is an argument of each step")
+    ap.add_argument("--run-layers", type=int, default=0,
+                    help="with --dynamic-depth: layers to run "
+                         "(0 = all)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--d-model", type=int, default=0)
@@ -141,9 +152,15 @@ def main(argv=None):
         stash_every=args.stash_every, weight_stream=args.weight_stream,
         prefetch_depth=args.prefetch, layers_per_relay=args.group,
         pack_params=args.pack, transport=args.transport,
+        host_optimizer=args.host_optimizer,
         skip_nonfinite=args.skip_nonfinite,
+        dynamic_depth=args.dynamic_depth,
         clip_mode="per_layer" if args.clip > 0 else "none",
         clip_norm=args.clip)
+    if args.run_layers and not args.dynamic_depth:
+        ap.error("--run-layers needs --dynamic-depth")
+    run_layers = ((args.run_layers or cfg.n_layers)
+                  if args.dynamic_depth else None)
     eng = engines.create(engine_name, cfg, exec_cfg, optimizer=opt,
                          device=args.device)
     dev = eng.device
@@ -192,7 +209,7 @@ def main(argv=None):
         # batch(i) is a function of i alone: a resumed run replays the data
         batch = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
         t0 = time.perf_counter()
-        state, metrics = eng.train_step(state, batch)
+        state, metrics = eng.train_step(state, batch, n_layers=run_layers)
         loss = float(metrics["loss"])          # waits for the step
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -232,7 +249,7 @@ def main(argv=None):
                       "initial_loss": losses[0] if losses else None,
                       "first_step_s": times[0] if times else None,
                       "steady_s_per_step": steady,
-                      "steps": args.steps, "final_step": int(state.step),
+                      "run_layers": run_layers, "steps": args.steps, "final_step": int(state.step),
                       "resumed_from": resumed_from, "preempted": preempted,
                       "skipped_steps": skipped, "device": str(dev)}))
     return losses

@@ -12,7 +12,9 @@ relayed like the weights.  ``step`` is the update counter (an int).
 
 The per-leaf ``update`` is plain torch, as the reference's is plain jnp,
 with the same association term by term: adam ``p - a*m/(√v+eps)``, adamw
-``p - a*(m/(√v+eps) + wd*p)`` even at wd = 0.  Only ``flat_update`` (the
+``p - a*(m/(√v+eps) + wd*p)`` even at wd = 0; √ is correctly rounded on
+either device (``kernels.ref.sqrt_rn``), so the same update on the CPU
+(the host optimizer) and on the card agree bit for bit.  Only ``flat_update`` (the
 packed relay's one-segment-per-dtype update) goes through the fused Adam
 kernel (K1, ``kernels.ops.fused_adam``): the Triton kernel on a CUDA
 tensor, its plain version — the same chain — on a CPU one.  The step size
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.core.tree import (tree_flatten_up_to, tree_leaves,
                                    tree_map, tree_unflatten_like)
+from repro_torch.kernels.ref import sqrt_rn
 
 
 class Optimizer(NamedTuple):
@@ -121,7 +124,7 @@ def adam(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
             gf = g.float()
             m = b1 * s["m"] + (1 - b1) * gf
             v = b2 * s["v"] + (1 - b2) * gf * gf
-            newp = p.float() - a * m / (torch.sqrt(v) + eps)
+            newp = p.float() - a * m / (sqrt_rn(v) + eps)
             return newp.to(p.dtype), {"m": m, "v": v}
 
         return _per_leaf(leaf, grads, state, params)
@@ -142,7 +145,7 @@ def adamw(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
             gf = g.float()
             m = b1 * s["m"] + (1 - b1) * gf
             v = b2 * s["v"] + (1 - b2) * gf * gf
-            upd = m / (torch.sqrt(v) + eps) + weight_decay * p.float()
+            upd = m / (sqrt_rn(v) + eps) + weight_decay * p.float()
             return (p.float() - a * upd).to(p.dtype), {"m": m, "v": v}
 
         return _per_leaf(leaf, grads, state, params)

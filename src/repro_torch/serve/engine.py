@@ -60,8 +60,8 @@ class ServeConfig:
 def make_serve_tick(model, exec_cfg, placements, serve_cfg: ServeConfig,
                     device="cpu", copy_stream=None):
     """Returns tick(params, pools, plan arrays) -> (tokens (B,) on the
-    device, pools updated in place)."""
-    assert not exec_cfg.dynamic_depth, "dynamic depth is not ported yet"
+    device, pools updated in place).  The tick takes no depth: under
+    ``dynamic_depth`` it relays every layer, as the reference's does."""
     device = torch.device(device)
     page_size = serve_cfg.page_size
     dgroups = model.decode_groups()
