@@ -104,6 +104,25 @@ Phases, one JSON line each:
               first step on the same rows, and a capacity-4 granite engine
               at n = 2 against a static 2-layer one on the same rows
               (prefill and decode logits), each bit for bit;
+   serve-moe — deepseek-v2-lite-16b (MLA, 64 routed experts top 6 and 2
+              shared, a dense layer 0 then MoE layers: two layer groups)
+              at full width and depth 8 through the serve phase's engine
+              settings, the counters set to 0 just before and read just
+              after: decode_init on 4 prompts of 16 tokens, 4 greedy
+              steps, Engine.prefill on them and at B=2 x S=2048 (the
+              capacity path), then 12 greedy requests (prompts of 32-128
+              tokens, 8-16 new) into 8 slots with prefill chunks of 16
+              (128 rows a tick, the dense MoE path); not counted: the
+              request that waited longest alone (bit for bit the crowd's),
+              the 2048-token prefill's peak at depth 4 (within 5% of depth
+              8's), prefill against decode_init in f32 at depth 2, one
+              fetch of each row kind;
+   train-moe — deepseek-v2-lite-16b at full width and depth 3 (the dense
+              layer 0 + 2 MoE layers), l2l-p with the train phase's knobs,
+              3 steps at B=8, S=512, UB=2, the counters set to 0 just
+              before and read just after; then Engine.grads in f32 at depth
+              2 against the baseline engine at fan-in scales, and one step
+              at depth 2 run twice from the same state, bitwise;
 9. train    — bert-large at full width and all 24 layers, l2l-p with
               weight_stream, pack_params, prefetch 1, transport "pallas",
               use_pallas, offload_stash, Adam: the peak HBM of two steps
@@ -130,10 +149,11 @@ Phases, one JSON line each:
               bert-large at depths 24 and 12 beside its peaks, and the
               serve estimate beside serve-continuous's peak (printed, not
               tied: the model counts the reference's buffers);
-10. launches — every kernel's count over the seven main paths (serve,
+10. launches — every kernel's count over the nine main paths (serve,
               serve-dense, serve-continuous, train, train-rmsnorm,
-              dynamic-depth, host-optimizer; each of a path's kernels > 0,
-              and K1 0 on host-optimizer), and the counts by route: every
+              dynamic-depth, host-optimizer, serve-moe, train-moe; each of
+              a path's kernels > 0, K1 0 on host-optimizer, K2 and K3 0 on
+              the two MoE paths), and the counts by route: every
               bf16 K2, K3a and K3b
               launch on the wgmma route, none on the CUDA-core one, every
               K5 launch on the CUDA route, none on the Triton one, and every
@@ -1486,6 +1506,371 @@ def host_optimizer_phase(torch, engines, ExecutionConfig, bert, knobs,
     return out, launches, routes, (eng, state, batch)
 
 
+# the MoE family: deepseek-v2-lite-16b (MLA; a dense layer 0, then MoE
+# layers of 64 routed experts, top 6, and 2 shared), at full width
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 8, 3
+# serve-moe's crowd: 8 slots x 16-row chunks = 128 rows = 2E, so every
+# tick takes the exact dense MoE path
+MOE_CROWD = dict(max_batch=8, page_size=16, max_seq=160, n_pages=64,
+                 prefill_chunk=16)
+
+
+def moe_rows(LayeredModel, tree_leaves, is_spec, full):
+    """f32 bytes of one layer of each group: (dense layer 0, MoE layer)."""
+    return tuple(4 * sum(math.prod(sp.shape) for sp in
+                         tree_leaves(g.spec, is_leaf=is_spec))
+                 for g in LayeredModel(full).groups)
+
+
+def moe_depth(rows, want: int, copies: int, reserve: int) -> int:
+    """The depth (dense layer 0 + MoE layers, at most ``want``) whose
+    pinned rows fit beside ``reserve`` bytes: ``copies`` copies of each
+    group's stacked rows (host_depth's rounding)."""
+    n_moe = host_depth(copies * rows[1], want - 1,
+                       reserve + copies * 2 ** math.ceil(
+                           math.log2(rows[0])))
+    return 1 + n_moe
+
+
+def _sub(packing, params, dense_eps, moe_eps, n_moe):
+    """The first 1 + ``n_moe`` layers of a packed two-group EPS."""
+    return {**params, "groups": (
+        packing.Packed({"float32": dense_eps}, params["groups"][0].spec),
+        packing.Packed({"float32": moe_eps[:n_moe]},
+                       params["groups"][1].spec))}
+
+
+def serve_moe_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
+                    tree_leaves, is_spec, packing, rc, ServeConfig,
+                    sample_batch, counters, dev):
+    """deepseek-v2-lite-16b at full width and depth 8 (the dense layer 0 +
+    7 MoE layers) with the serve phase's engine settings, every counter
+    set to 0 just before and read just after: decode_init on 4 prompts of
+    16 tokens, 4 greedy steps, Engine.prefill on the prompts and one at
+    B=2 x S=2048 (the capacity path; MLA's plain attention in chunks of
+    512), then 12 greedy requests (prompts of 32-128 tokens, 8-16 new)
+    into 8 slots with prefill chunks of 16 (128 rows a tick: the dense
+    MoE path).  Not counted: the request that waited longest alone (its
+    tokens equal to the crowd's bit for bit), the same 2048-token prefill
+    at depth 4 (its peak within 5% of depth 8's: a group boundary does not
+    make the footprint grow), prefill against decode_init in f32 at depth
+    2, and one fetch of each row kind timed.  -> (line, launches,
+    routes)."""
+    B, P, GEN = 4, 16, 4
+    full = get_config(MOE_ARCH, "full")
+    rows = moe_rows(LayeredModel, tree_leaves, is_spec, full)
+    depth = moe_depth(rows, MOE_SERVE_DEPTH, 1, 24 * 2 ** 30)
+    cfg = full.replace(n_layers=depth, use_pallas=True)
+    eng = engines.create("l2l", cfg, exec_cfg)
+    t0 = time.perf_counter()
+    params = eng.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dense_eps = params["groups"][0].segs["float32"]
+    moe_eps = params["groups"][1].segs["float32"]
+    assert dense_eps.is_pinned() and moe_eps.is_pinned()
+    assert dense_eps.shape == (1, rows[0] // 4) and \
+        moe_eps.shape == (depth - 1, rows[1] // 4)
+    eps_bytes = rows[0] + (depth - 1) * rows[1]
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    long = torch.randint(0, cfg.vocab_size, (2, 2048), device=dev,
+                         generator=torch.Generator(dev).manual_seed(2))
+    rs = np.random.RandomState(5)
+    n_req = 12
+    lens = rs.randint(32, 129, size=n_req)
+    news = rs.randint(8, 17, size=n_req)
+    prompts = [rs.randint(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+               for n in lens]
+    scfg = ServeConfig(**MOE_CROWD)
+
+    def serve(eng_, params_, reqs_in):
+        srv = eng_.serve_session(params_, scfg)
+        reqs = [srv.submit(p, int(n)) for p, n in reqs_in]
+        ticks = []
+        t0 = time.perf_counter()
+        while not srv.scheduler.idle:
+            t1 = time.perf_counter()
+            srv.tick()
+            ticks.append(time.perf_counter() - t1)
+        return srv, reqs, ticks, time.perf_counter() - t0
+
+    # ---------------------------------------------- the counted main path
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    t0 = time.perf_counter()
+    caches, last = eng.decode_init(params, prompt, P + GEN)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tok = sample_batch(last)[:, None]
+    toks = [tok]
+    f0 = counters["relay_copy"].launches
+    b0 = counters["relay_copy"].bytes
+    t0 = time.perf_counter()
+    for i in range(GEN):
+        logits, caches = eng.decode_step(params, caches, tok, P + i)
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        tok = sample_batch(logits[:, -1])[:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    fetches_per_step = (counters["relay_copy"].launches - f0) / GEN
+    step_bytes = (counters["relay_copy"].bytes - b0) / GEN
+    decode_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    pl = eng.prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    t_pf = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pl2 = eng.prefill(params, {"tokens": long})
+    torch.cuda.synchronize()
+    t_pf2 = time.perf_counter() - t0
+    peak_by_depth = {str(depth): torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    f0 = counters["relay_copy"].launches
+    srv, reqs, ticks, secs = serve(eng, params, zip(prompts, news))
+    crowd_fetches = counters["relay_copy"].launches - f0
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    crowd_peak = torch.cuda.max_memory_allocated()
+    stats = srv.stats()
+    toks = torch.cat(toks, dim=1)
+
+    # ---------------------------------------------------- not counted
+    pick = max(range(n_req), key=lambda i: reqs[i].t_first)
+    _, (solo,), solo_ticks, solo_s = serve(eng, params,
+                                           [(prompts[pick], news[pick])])
+    d4 = min(4, depth)
+    e4 = engines.create("l2l", cfg.replace(n_layers=d4), exec_cfg)
+    sub4 = _sub(packing, params, dense_eps, moe_eps, d4 - 1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pl4 = e4.prefill(sub4, {"tokens": long})
+    torch.cuda.synchronize()
+    peak_by_depth[str(d4)] = torch.cuda.max_memory_allocated()
+    e2 = engines.create("l2l", cfg.replace(n_layers=2, dtype="float32"),
+                        exec_cfg)
+    sub2 = _sub(packing, params, dense_eps, moe_eps, 1)
+    _, r2 = e2.decode_init(sub2, prompt, P)
+    g2 = e2.prefill(sub2, {"tokens": prompt})
+    gap2 = float((g2.float() - r2.float()).norm() / r2.float().norm())
+    rel = float((pl.float() - last.float()).norm() / last.float().norm())
+    agree = int((pl.argmax(-1) == last.argmax(-1)).sum())
+    slot = torch.empty((1, rows[1] // 4), dtype=torch.float32, device=dev)
+    moe_ms = time_ms(torch, lambda: rc.copy_rows(moe_eps, 0, size=1,
+                                                 device=dev, out=slot), 3,
+                     warmup=1)
+    dense_ms = time_ms(torch, lambda: rc.copy_rows(
+        dense_eps, 0, size=1, device=dev, out=slot[:, :rows[0] // 4]), 3,
+        warmup=1)
+    n = len(ticks)
+    line = {
+        "phase": "serve-moe", "arch": full.name, "depth": depth,
+        "full_depth": full.n_layers,
+        "groups": [[g.name, g.n_layers] for g in eng.model.groups],
+        "reduced": f"depth {full.n_layers} -> {depth} (1 dense + "
+                   f"{depth - 1} MoE): host memory for the pinned EPS",
+        "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "experts": [cfg.n_experts, cfg.experts_per_token,
+                    cfg.n_shared_experts],
+        "kv_lora_rank": cfg.kv_lora_rank, "vocab": cfg.vocab_size,
+        "layer_row_bytes": {"dense": rows[0], "moe": rows[1]},
+        "eps_pinned_bytes": eps_bytes, "init_s": init_s,
+        "batch": B, "prompt": P, "steps": GEN, "tokens": toks.tolist(),
+        "decode_init_s": t_init, "decode_s": t_dec,
+        "tok_per_s": B * GEN / t_dec,
+        "relay_fetches_per_step": fetches_per_step,
+        "relay_bytes_per_step": step_bytes,
+        "relay_GBps": GEN * step_bytes / t_dec / 1e9,
+        "ms_per_moe_row_fetch": moe_ms, "ms_per_dense_row_fetch": dense_ms,
+        "moe_row_fetch_GBps": rows[1] / moe_ms / 1e6,
+        "decode_peak_allocated_bytes": decode_peak,
+        "prefill_16_s": t_pf, "prefill_2048_s": t_pf2,
+        "prefill_tok_per_s_2048": 2 * 2048 / t_pf2,
+        "rel_l2_prefill_vs_decode_init": {"bf16_full": rel,
+                                          "f32_depth2": gap2},
+        "argmax_agree": agree,
+        "prefill_2048_peak_allocated_by_depth": peak_by_depth,
+        "peak_ratio": peak_by_depth[str(depth)] / peak_by_depth[str(d4)],
+        "continuous": {
+            "serve_config": MOE_CROWD, "requests": n_req,
+            "prompt_lens": lens.tolist(), "max_new": news.tolist(),
+            "ticks": n, "seconds": secs,
+            "tokens": sum(len(r.generated) for r in reqs),
+            "tok_per_s": sum(len(r.generated) for r in reqs) / secs,
+            "tick_s_median": float(np.median(ticks)),
+            "relay_fetches_per_tick": crowd_fetches / n,
+            "scheduler_stats": stats,
+            "peak_allocated_bytes": crowd_peak,
+            "solo": {"request": pick, "ticks": len(solo_ticks),
+                     "seconds": solo_s,
+                     "tok_per_s": len(solo.generated) / solo_s,
+                     "tokens": solo.generated}},
+        "launches": launches}
+    emit(line)
+    assert toks.shape == (B, GEN + 1) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all())
+    assert pl2.shape == (2, cfg.vocab_size) and \
+        bool(torch.isfinite(pl2).all()) and bool(torch.isfinite(pl4).all())
+    # one fetch a layer, and the prefetch ring's clamped re-fetch at the
+    # end of each group's pass (41 for granite's 40 layers)
+    assert fetches_per_step == depth + 2, fetches_per_step
+    # the constant-memory claim across the group boundary
+    assert abs(line["peak_ratio"] - 1) <= 0.05, peak_by_depth
+    # f32 at depth 2: the dense phases' 1e-4; bf16 at the depth served:
+    # granite's 0.35 at 40 layers, the same top-1 token on all but one row
+    assert gap2 <= 1e-4 and rel <= 0.35 and agree >= B - 1, \
+        line["rel_l2_prefill_vs_decode_init"]
+    for r, m in zip(reqs, news):
+        assert r.status == "done" and len(r.generated) == m and all(
+            0 <= t < cfg.vocab_size for t in r.generated), (r.rid, r.status)
+    assert stats["free_pages"] == MOE_CROWD["n_pages"] and \
+        stats["free_slots"] == MOE_CROWD["max_batch"] and \
+        stats["reserved_pages"] == 0 and stats["active"] == 0 and \
+        stats["pending"] == 0, stats
+    assert solo.generated == reqs[pick].generated, \
+        ("crowded and solo tokens differ", pick)
+    del eng, e4, e2, params, sub4, sub2, dense_eps, moe_eps, caches, slot, \
+        srv, pl, pl2, pl4, last, logits, r2, g2
+    free_host(torch)
+    return line, launches, routes
+
+
+def train_moe_phase(torch, np, engines, ExecutionConfig, knobs, get_config,
+                    LayeredModel, tree_leaves, is_spec, SyntheticLM,
+                    DataConfig, adam, make_schedule, counters, dev):
+    """deepseek-v2-lite-16b at full width and depth 3 (the dense layer 0 +
+    2 MoE layers) under l2l-p with the train phase's knobs, B=8 x S=512,
+    UB=2, 3 steps, every counter set to 0 just before and read just
+    after.  Then, not counted: Engine.grads in f32 at depth 2 under l2l-p
+    against the baseline engine on the same batch at fan-in scales
+    (tests/test_equivalence.py's bound), and one l2l-p step at depth 2 run
+    twice from the same state: bitwise (no float atomics in the MoE's
+    dispatch, combine and router).  -> (line, launches, routes)."""
+    from repro_torch.testing import fan_in_params
+    B, S, UB, STEPS = 8, 512, 2, 3
+    full = get_config(MOE_ARCH, "full")
+    rows = moe_rows(LayeredModel, tree_leaves, is_spec, full)
+    # w, m and v, twice at the step's peak (the step is functional)
+    depth = moe_depth(rows, MOE_TRAIN_DEPTH, 6, 16 * 2 ** 30)
+    assert depth >= 2, "the host cannot pin one MoE layer's training state"
+    cfg = full.replace(n_layers=depth, use_pallas=True)
+    opt = adam(schedule=make_schedule(1e-4, warmup=10))
+    eng = engines.create("l2l-p", cfg, ExecutionConfig(n_microbatches=UB,
+                                                       **knobs),
+                         optimizer=opt)
+    t0 = time.perf_counter()
+    state = eng.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                   seed=0)).batch(0).items()}
+    eps_bytes = 3 * (rows[0] + (depth - 1) * rows[1])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    fetch0, wb0 = counters["relay_copy"].bytes, \
+        counters["relay_copy_writeback"].bytes
+    steps = []
+    for i in range(STEPS):
+        t0 = time.perf_counter()
+        state, metrics = eng.train_step(state, batch)
+        issued = time.perf_counter() - t0
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps.append({"step": i, "s": dt, "host_issue_s": issued,
+                      "tok_per_s": B * S / dt, "loss": loss,
+                      "aux": float(metrics["aux"]),
+                      "grad_norm": float(metrics["grad_norm"])})
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    fetched = counters["relay_copy"].bytes - fetch0
+    written = counters["relay_copy_writeback"].bytes - wb0
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.mean([s["s"] for s in steps[1:]]))
+    out = {"phase": "train-moe", "arch": full.name, "depth": depth,
+           "full_depth": full.n_layers,
+           "reduced": f"depth {full.n_layers} -> {depth} (1 dense + "
+                      f"{depth - 1} MoE): w, m and v pinned, twice at the "
+                      "step's peak",
+           "d_model": cfg.d_model, "batch": B, "seq": S,
+           "microbatches": UB, "knobs": knobs, "init_s": init_s,
+           "eps_pinned_bytes": eps_bytes, "steps": steps,
+           "steady_s_per_step": steady,
+           "relay_in_bytes_per_step": fetched / STEPS,
+           "relay_out_bytes_per_step": written / STEPS,
+           "relay_in_GBps": fetched / STEPS / steady / 1e9,
+           "relay_out_GBps": written / STEPS / steady / 1e9,
+           "peak_allocated_bytes": peak,
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "launches_per_step": {n: v / STEPS for n, v in launches.items()}}
+    assert all(np.isfinite(s["loss"]) and s["aux"] > 0 for s in steps), steps
+    del eng, state, metrics
+    free_host(torch)
+
+    # Engine.grads in f32 at depth 2: l2l-p (the train knobs) against the
+    # baseline engine, parameters at fan-in scales
+    g2 = cfg.replace(n_layers=2, dtype="float32")
+    gen = torch.Generator(dev).manual_seed(1)
+    params = fan_in_params(LayeredModel(g2).param_specs(),
+                           lambda shape: torch.randn(shape, generator=gen,
+                                                     device=dev))
+    lb, gb = engines.create("baseline", g2, ExecutionConfig(
+        n_microbatches=UB)).grads(params, batch)
+    ll, gl = engines.create("l2l-p", g2, ExecutionConfig(
+        n_microbatches=UB, **knobs)).grads(params, batch)
+    torch.cuda.synchronize()
+    # the l2l-p gradients of the layers rest in pinned rows
+    lb_ = tree_leaves(gb)
+    la = [a.to(b.device) for a, b in zip(tree_leaves(gl), lb_)]
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(la, lb_))
+    rel_l2 = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                 for a, b in zip(la, lb_))
+    rel_max = max_abs / max(float(b.abs().max()) for b in lb_)
+    router = float(gl["groups"][1]["ffn"]["router"].abs().mean())
+    out["grads_check"] = {
+        "dtype": "float32", "depth": 2,
+        "params": "fan-in scales (fan_in_params)",
+        "loss_l2l_p": float(ll), "loss_baseline": float(lb),
+        "max_abs": max_abs, "max_rel_l2_per_leaf": rel_l2,
+        "rel_max": rel_max, "bound_rel_max": 1e-5,
+        "bitwise": all(torch.equal(a, b) for a, b in zip(la, lb_)),
+        "router_grad_abs_mean": router}
+    assert rel_max <= 1e-5 and router > 0 and \
+        abs(float(ll) - float(lb)) <= 1e-5 * abs(float(lb)), \
+        out["grads_check"]
+    del params, gb, gl, la, lb_
+    free_host(torch)
+
+    # one l2l-p step at depth 2, twice from the same state: bitwise
+    e2 = engines.create("l2l-p", cfg.replace(n_layers=2), ExecutionConfig(
+        n_microbatches=UB, **knobs), optimizer=opt)
+    s0 = e2.init(torch.Generator(dev).manual_seed(2))
+    a, ma = e2.train_step(s0, batch)
+    b, mb = e2.train_step(s0, batch)
+    torch.cuda.synchronize()
+    ta = tree_leaves((a.params, a.opt_state))
+    tb = tree_leaves((b.params, b.opt_state))
+    out["repeat_check"] = {
+        "depth": 2, "losses": [float(ma["loss"]), float(mb["loss"])],
+        "tensors": len(ta),
+        "bitwise": float(ma["loss"]) == float(mb["loss"]) and all(
+            torch.equal(x, y) for x, y in zip(ta, tb))}
+    emit(out)
+    assert out["repeat_check"]["bitwise"], out["repeat_check"]
+    del e2, s0, a, b, ta, tb
+    free_host(torch)
+    return out, launches, routes
+
+
 def state_tensors(torch, state):
     """Every tensor of a train state on the host: the pinned rows as they
     are (a step never writes its inputs), the device's as copies."""
@@ -1796,17 +2181,22 @@ def main(argv=None):
     # rows of a serve-continuous tick; then qwen1.5-110b's
     # d 8192 as serve-dense gives it: the decode rows and the 4 x 16 prompt
     # rows in bf16, and the prompt rows in f32 (32 KB rows, the kernel's
-    # widest), the depth-1 check's dtype.  bf16 within one bf16 ulp of the
+    # widest), the depth-1 check's dtype; then deepseek-v2-lite's at the
+    # serve-moe prefill's 2 x 2048 rows: MLA's kv_norm (width 512) and the
+    # block norms (2048).  bf16 within one bf16 ulp of the
     # plain version; f32 within 1e-5 of its largest value (the sums run in
     # another order)
     qwen = get_config("qwen1.5-110b", "full")
+    moe_cfg = get_config(MOE_ARCH, "full")
     for R, d, dt in ((4, cfg.d_model, torch.bfloat16),
                      (4 * 2048, cfg.d_model, torch.bfloat16),
                      (CROWD["max_batch"] * CROWD["prefill_chunk"],
                       cfg.d_model, torch.bfloat16),
                      (4, qwen.d_model, torch.bfloat16),
                      (4 * 16, qwen.d_model, torch.bfloat16),
-                     (4 * 16, qwen.d_model, torch.float32)):
+                     (4 * 16, qwen.d_model, torch.float32),
+                     (2 * 2048, moe_cfg.kv_lora_rank, torch.bfloat16),
+                     (2 * 2048, moe_cfg.d_model, torch.bfloat16)):
         scale = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
         wb = scale.to(dt)
         x = torch.randn(R, d, generator=g, device=dev).to(dt)
@@ -2302,6 +2692,24 @@ def main(argv=None):
     report["dynamic_depth"]["phase_seconds"] = time.perf_counter() - t0
     emit(report["dynamic_depth"])
 
+    # ------------------------------------------------------------ serve-moe
+    t0 = time.perf_counter()
+    report["serve_moe"], smoe_launches, smoe_routes = serve_moe_phase(
+        torch, np, engines, exec_cfg, get_config, LayeredModel, tree_leaves,
+        is_spec, packing, rc, ServeConfig, sample_batch, counters, dev)
+    report["serve_moe"]["phase_seconds"] = time.perf_counter() - t0
+
+    # ------------------------------------------------------------ train-moe
+    t0 = time.perf_counter()
+    report["train_moe"], tmoe_launches, tmoe_routes = train_moe_phase(
+        torch, np, engines, ExecutionConfig, slice_knobs, get_config,
+        LayeredModel, tree_leaves, is_spec, SyntheticLM, DataConfig, adam,
+        make_schedule, counters, dev)
+    report["train_moe"]["phase_seconds"] = time.perf_counter() - t0
+    emit({"phase": "moe-seconds",
+          "serve_moe": report["serve_moe"]["phase_seconds"],
+          "train_moe": report["train_moe"]["phase_seconds"]})
+
     # ---------------------------------------------------------------- train
     report["train"], step1, train_keep = train_phase(
         torch, engines, ExecutionConfig, bert, slice_knobs, SyntheticLM,
@@ -2359,14 +2767,18 @@ def main(argv=None):
                 "serve-continuous": cont_launches,
                 "train": train_launches, "train-rmsnorm": rms_launches,
                 "dynamic-depth": dyn_launches,
-                "host-optimizer": host_launches}
+                "host-optimizer": host_launches,
+                "serve-moe": smoe_launches, "train-moe": tmoe_launches}
     routes = {"serve": serve_routes, "serve-dense": dense_routes,
               "serve-continuous": cont_routes,
               "train": train_routes, "train-rmsnorm": rms_routes,
-              "dynamic-depth": dyn_routes, "host-optimizer": host_routes}
+              "dynamic-depth": dyn_routes, "host-optimizer": host_routes,
+              "serve-moe": smoe_routes, "train-moe": tmoe_routes}
     emit({"launches": launches, "routes": routes})
+    assert len(launches) == 9, sorted(launches)
     for path in ("serve-dense", "serve-continuous", "train",
-                 "train-rmsnorm", "dynamic-depth", "host-optimizer"):
+                 "train-rmsnorm", "dynamic-depth", "host-optimizer",
+                 "serve-moe", "train-moe"):
         got, by = launches[path], routes[path]
         # every bf16 K2, K3a and K3b launch of the path took the wgmma route
         for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -2393,10 +2805,20 @@ def main(argv=None):
                     "train": train_kernels,
                     "train-rmsnorm": train_kernels + ("rmsnorm",),
                     "dynamic-depth": train_kernels + ("rmsnorm",),
-                    "host-optimizer": train_kernels[:-1]}
+                    "host-optimizer": train_kernels[:-1],
+                    "serve-moe": ("relay_copy", "rmsnorm"),
+                    "train-moe": ("relay_copy", "relay_copy_writeback",
+                                  "rmsnorm", "fused_adam")}
     for path, names in path_kernels.items():
         assert all(launches[path].get(n, 0) > 0 for n in names), \
             (path, launches[path])
+    # MLA attention is plain arithmetic in both packages (the reference's
+    # mla_attention calls no kernel, use_pallas or not): no K2 or K3 on
+    # the MoE paths
+    for path in ("serve-moe", "train-moe"):
+        assert all(launches[path][n] == 0 for n in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")), (path, launches[path])
     # the host optimizer's path runs no K1: the update is on the host
     assert launches["host-optimizer"]["fused_adam"] == 0, launches
     total = {n: sum(launches[p].get(n, 0) for p in launches)

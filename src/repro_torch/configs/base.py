@@ -200,5 +200,6 @@ def list_archs():
 def _load_all():
     # import registers (the port carries the architectures it runs so far)
     from repro_torch.configs import (bert_large, chatglm3_6b,  # noqa: F401
-                                     command_r_35b, granite_3_8b,
+                                     command_r_35b, deepseek_v2_lite_16b,
+                                     granite_3_8b, grok_1_314b,
                                      qwen1_5_110b)

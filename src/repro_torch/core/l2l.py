@@ -59,8 +59,18 @@ layer's rows on the CPU while the device runs the next layer's backward
 (Algorithm 4); under Algorithm 3 the trailing update is a host loop over
 the gradient rows.  The step joins every update before it returns.
 
-Not ported (each asserts): ``tiers=3`` and multi-group transitions
-(dense models have one group).
+Layer groups (deepseek's dense layer 0, then its MoE layers): the
+forward runs group by group, each group's input saved for the vjp of the
+``transition`` into it; the backward walks the groups in reverse, each
+with its own placements, optimizer slots, stash segments and sinks, and
+the transition's vjp carries dx back (the static params take its share:
+none for the identity).  A layer's vjp differentiates its ``(y, aux)``
+with the cotangent ``(dx, S_loss / UB)``, so the MoE router's
+load-balance loss reaches its gradient.
+
+Not ported (each asserts): ``tiers=3``, cross-attention memory
+(``has_mem``) and ``dynamic_depth`` over more than one group (as the
+reference).
 """
 from __future__ import annotations
 
@@ -126,17 +136,29 @@ def _carry_rows(dst, src, n: int):
     return dst
 
 
-def _vjp(fn, inputs: list, cotangent):
+def _vjp(fn, inputs: list, cotangent, zeros: bool = True):
     """``torch.autograd.grad`` of ``fn(*leaves)`` at detached leaves of
-    ``inputs`` -> (output, grads); an input the output does not depend on
-    gets zeros (``jax.vjp``'s answer)."""
+    ``inputs`` -> (output, grads).  ``fn`` returns one tensor, or a tuple
+    of outputs with a tuple of cotangents (an output that is not a tensor
+    needing grad, as a dense block's aux 0.0, takes none).  An input the
+    outputs do not depend on gets zeros (``jax.vjp``'s answer), or None
+    with ``zeros=False``."""
     leaves = [a.detach().requires_grad_() for a in inputs]
     with torch.enable_grad():
         out = fn(leaves)
-        grads = torch.autograd.grad(out, leaves, grad_outputs=cotangent,
+        outs, cots = ((out, cotangent) if isinstance(out, tuple)
+                      else ((out,), (cotangent,)))
+        pairs = [(o, c) for o, c in zip(outs, cots)
+                 if torch.is_tensor(o) and o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in pairs], leaves,
+                                    grad_outputs=[c for _, c in pairs],
                                     allow_unused=True)
-    return out.detach(), [torch.zeros_like(a) if g is None else g
-                          for a, g in zip(leaves, grads)]
+    if zeros:
+        grads = [torch.zeros_like(a) if g is None else g
+                 for a, g in zip(leaves, grads)]
+    detach = lambda o: o.detach() if torch.is_tensor(o) else o
+    out = tuple(map(detach, out)) if isinstance(out, tuple) else detach(out)
+    return out, list(grads)
 
 
 def _finite(tree) -> torch.Tensor:
@@ -192,12 +214,13 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
     given).  ``grad_ring``: gradient rows in flight to the host optimizer
     (Algorithm 4 with ``host_optimizer``)."""
     assert exec_cfg.tiers == 2, "tiers=3 (the disk tier) is not ported yet"
-    assert len(model.groups) == 1 and not model.groups[0].has_mem, \
-        "multi-group transitions are not ported yet (dense models have " \
-        "one layer group)"
+    groups = model.groups
+    assert not any(g.has_mem for g in groups), \
+        "cross-attention memory (the encoder-decoder family) is not " \
+        "ported yet"
     device = torch.device(device)
     if placements is None:
-        placements = make_placements(exec_cfg, len(model.groups), device)
+        placements = make_placements(exec_cfg, len(groups), device)
     if device.type == "cuda" and copy_stream is None:
         copy_stream = torch.cuda.Stream(device)
     if device.type == "cuda" and writeback_stream is None:
@@ -210,13 +233,13 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
     DYN = exec_cfg.dynamic_depth
     CLIP = exec_cfg.clip_mode == "per_layer"
     amp = exec_cfg.loss_scale_init > 0
-    group = model.groups[0]
-    N = group.n_layers
+    NG = len(groups)
     if DYN:
-        assert N % SE == 0, \
+        assert NG == 1, "dynamic_depth supports single-group models"
+        assert groups[0].n_layers % SE == 0, \
             "dynamic_depth needs stash_every to divide the capacity depth"
     assert grad_ring >= 1, "the host optimizer needs a gradient row"
-    wp, op, sp = placements.weights[0], placements.opts[0], placements.stash
+    sp = placements.stash
     run_opt = optimizer.update
     packed_update = _make_packed_update(optimizer, run_opt)
 
@@ -234,9 +257,12 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         out.tree = tree
         return out
 
-    def param_sinks(W, O, n_act):
-        """The new weights' and slots' sinks; rows past the run depth are
-        the input rows (written here, where no kernel reads them)."""
+    def param_sinks(gi, W, O, n_act):
+        """Group gi's new weights' and slots' sinks; rows past the run
+        depth are the input rows (written here, where no kernel reads
+        them)."""
+        N = groups[gi].n_layers
+        wp, op = placements.weights[gi], placements.opts[gi]
         outs = (sink(wp, N), sink(op, N))
         if n_act < N:
             outs[0].tree = _carry_rows(_resting(wp, W, device), W, n_act)
@@ -244,17 +270,29 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         return outs
 
     def step(params, opt_state, batch, n_active=None):
-        n_act = (depth_window(DYN, n_active, N) or (0, N))[1]
+        win = depth_window(DYN, n_active, groups[0].n_layers)
+        n_acts = ((win[1],) if win is not None
+                  else tuple(g.n_layers for g in groups))
         hosts = []
         try:
-            return run(params, opt_state, batch, n_act, hosts)
+            return run(params, opt_state, batch, n_acts, hosts)
         finally:
             for h in hosts:
                 h.close()
 
-    def run(params, opt_state, batch, n_act, hosts):
+    def apply_ub(group, ctx, w, x_c):
+        ys = []
+        aux_l = 0.0
+        for u in range(UB):
+            y, a = group.apply(w, x_c[u], None, ctx)
+            ys.append(y)
+            aux_l = aux_l + a
+        return torch.stack(ys), aux_l
+
+    def run(params, opt_state, batch, n_acts, hosts):
         static = {"embed": params["embed"], "head": params["head"]}
-        W, O = params["groups"][0], opt_state["groups"][0]
+        Ws, Os = params["groups"], opt_state["groups"]
+        wps, ops = placements.weights, placements.opts
         opt_step = opt_state["step"]
         batch_ub = _reshape_ub(batch, UB)
         ub = [tree_map(lambda a, _u=u: a[_u], batch_ub) for u in range(UB)]
@@ -262,14 +300,13 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         f32 = dict(dtype=torch.float32, device=W_total.device)
         S_loss = (opt_state["loss_scale"]["scale"] if amp
                   else torch.ones((), **f32))
-        ctx = model.train_ctx(ub[0], group)
-        aux = []
-        win = (0, n_act)
-        bounds = segment_bounds(N, SE)
+        ctxs = [model.train_ctx(ub[0], g) for g in groups]
+        bounds = [segment_bounds(g.n_layers, SE) for g in groups]
 
-        def seg_hi(s0, s1):
-            """Active rows of segment [s0, s1): the window (0, hi)."""
-            return min(max(n_act - s0, 0), s1 - s0)
+        def seg_hi(gi, s0, s1):
+            """Active rows of group gi's segment [s0, s1): the window
+            (0, hi)."""
+            return min(max(n_acts[gi] - s0, 0), s1 - s0)
 
         # ------------------------------------------------------------
         # OUTPUT ROWS the host writes (rows the run depth leaves idle,
@@ -278,71 +315,85 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         # still landing in the input rows they copy
         # ------------------------------------------------------------
         if HOST:
-            W_host = op.host(W)       # a pinned copy when W is on the card
-        if device.type == "cuda" and (HOST or n_act < N):
+            # a pinned copy when the weights rest on the card
+            W_hosts = [ops[gi].host(Ws[gi]) for gi in range(NG)]
+        if device.type == "cuda" and (HOST or any(
+                n < g.n_layers for n, g in zip(n_acts, groups))):
             torch.cuda.synchronize(device)
-        host = None
-        grads_out = None
-        if not EAGER:                 # Alg 3's gradient rows (zeros idle)
-            gplace = op if HOST else wp
-            grads_out = sink(gplace, N, _carry_rows(_resting(
-                gplace, W, device, torch.float32), None, n_act)
-                if n_act < N else None)
-        if HOST:
-            new_w = _carry_rows(_resting(op, W_host, device), W_host, n_act)
-            new_o = _carry_rows(_resting(op, O, device), O, n_act)
-            ring = None
-            if EAGER:
-                ring = sink(op, grad_ring, (
-                    _resting(op, W_host, device, torch.float32,
-                             rows=grad_ring),
-                    _resting(op, torch.empty(grad_ring, dtype=torch.int32),
-                             device)))
-            host = HostOptimizer(run_opt, W_host, O, new_w, new_o, opt_step,
-                                 packed=PK, amp=amp, ring=ring)
-            hosts.append(host)
-            outs = (host,) if EAGER else (grads_out,)
-        elif EAGER:
-            outs = param_sinks(W, O, n_act)
-        else:
-            outs, upd = (grads_out,), param_sinks(W, O, n_act)
-
-        def apply_ub(w, x_c):
-            ys = []
-            aux_l = 0.0
-            for u in range(UB):
-                y, a = group.apply(w, x_c[u], None, ctx)
-                ys.append(y)
-                aux_l = aux_l + a
-            return torch.stack(ys), aux_l
+        grads_outs, outs, upds, host_opts = ([None] * NG for _ in range(4))
+        for gi, group in enumerate(groups):
+            N, n_act, W, O = group.n_layers, n_acts[gi], Ws[gi], Os[gi]
+            wp, op = wps[gi], ops[gi]
+            if not EAGER:             # Alg 3's gradient rows (zeros idle)
+                gplace = op if HOST else wp
+                grads_outs[gi] = sink(gplace, N, _carry_rows(_resting(
+                    gplace, W, device, torch.float32), None, n_act)
+                    if n_act < N else None)
+            if HOST:
+                W_host = W_hosts[gi]
+                new_w = _carry_rows(_resting(op, W_host, device), W_host,
+                                    n_act)
+                new_o = _carry_rows(_resting(op, O, device), O, n_act)
+                ring = None
+                if EAGER:
+                    ring = sink(op, grad_ring, (
+                        _resting(op, W_host, device, torch.float32,
+                                 rows=grad_ring),
+                        _resting(op, torch.empty(grad_ring,
+                                                 dtype=torch.int32), device)))
+                host_opts[gi] = HostOptimizer(run_opt, W_host, O, new_w,
+                                              new_o, opt_step, packed=PK,
+                                              amp=amp, ring=ring)
+                hosts.append(host_opts[gi])
+                outs[gi] = (host_opts[gi],) if EAGER else (grads_outs[gi],)
+            elif EAGER:
+                outs[gi] = param_sinks(gi, W, O, n_act)
+            else:
+                outs[gi], upds[gi] = ((grads_outs[gi],),
+                                      param_sinks(gi, W, O, n_act))
 
         # ------------------------------------------------------------
-        # FORWARD: layer-major relay, stash of each layer's input
+        # FORWARD: layer-major relay through the groups, stash of each
+        # layer's input; a group's input is saved for its transition's
+        # vjp
         # ------------------------------------------------------------
         x_ub = torch.stack([model.prepare(static, b)[0] for b in ub])
+        group_inputs = [None] * NG
+        stashes = [None] * NG     # the stash sink (K = 1), the entries (K > 1)
+        aux_total = torch.zeros((), **f32)
+        for gi, group in enumerate(groups):
+            if gi > 0:
+                group_inputs[gi] = x_ub
+                x_ub = torch.stack([model.transition_x(gi, static, x_ub[u],
+                                                       ub[u])
+                                    for u in range(UB)])
+            W, N, aux = Ws[gi], group.n_layers, []
 
-        def fwd_body(x_c, slots, _x, _stash=True):
-            (w,) = slots
-            y_ub, aux_l = apply_ub(packing.unpack(w) if PK else w, x_c)
-            aux.append(aux_l)
-            return y_ub, ((x_c,) if _stash else None)
+            def fwd_body(x_c, slots, _x, _stash=True, _g=group,
+                         _ctx=ctxs[gi], _aux=aux):
+                (w,) = slots
+                y_ub, aux_l = apply_ub(_g, _ctx,
+                                       packing.unpack(w) if PK else w, x_c)
+                _aux.append(aux_l)
+                return y_ub, ((x_c,) if _stash else None)
 
-        if SE == 1:
-            stash = sink(sp, N)
-            x_ub, _ = relay(fwd_body, x_ub, (Stream(wp, W),),
-                            sinks=(stash,), active=win)
-        else:
-            # only each K-segment's entry boundary is checkpointed
-            entries = sink(sp, len(bounds))
-            for si, (s0, s1) in enumerate(bounds):
-                hi = seg_hi(s0, s1)
-                if not hi:
-                    continue
-                entries.write(si, x_ub)
-                x_ub, _ = relay(
-                    lambda x_c, sl, x, _b=fwd_body: _b(x_c, sl, x, False),
-                    x_ub, (Stream(wp, _rows(W, s0, s1)),), active=(0, hi))
-        aux_total = torch.as_tensor(sum(aux) / UB, **f32)
+            if SE == 1:
+                stashes[gi] = sink(sp, N)
+                x_ub, _ = relay(fwd_body, x_ub, (Stream(wps[gi], W),),
+                                sinks=(stashes[gi],), active=(0, n_acts[gi]))
+            else:
+                # only each K-segment's entry boundary is checkpointed
+                stashes[gi] = sink(sp, len(bounds[gi]))
+                for si, (s0, s1) in enumerate(bounds[gi]):
+                    hi = seg_hi(gi, s0, s1)
+                    if not hi:
+                        continue
+                    stashes[gi].write(si, x_ub)
+                    x_ub, _ = relay(
+                        lambda x_c, sl, x, _b=fwd_body: _b(x_c, sl, x, False),
+                        x_ub, (Stream(wps[gi], _rows(W, s0, s1)),),
+                        active=(0, hi))
+            aux_total = aux_total + torch.as_tensor(sum(aux), **f32) / UB
 
         # ------------------------------------------------------------
         # HEAD: loss + dL/dx per microbatch (and d_static from the head)
@@ -364,9 +415,14 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         loss = loss_sum / W_total + aux_total
 
         # ------------------------------------------------------------
-        # BACKWARD: reverse relay; recompute-vjp per layer; eager opt
+        # BACKWARD: reverse relay group by group; recompute-vjp per
+        # layer; eager opt; each transition's vjp carries dx back
         # ------------------------------------------------------------
-        def bwd_body(core, slots, stash_l):
+        # the cotangent of a layer's (y, aux): (dx, S_loss / UB), as the
+        # loss adds each layer's aux summed over microbatches over UB
+        d_aux = S_loss / UB
+
+        def bwd_body(core, slots, stash_l, _g, _ctx):
             """Recompute-vjp microbatch loop (+ eager update) of one
             layer.  With pack_params the vjp differentiates the UNPACKED
             views and every gradient-side reduction stays on the tree."""
@@ -380,9 +436,9 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             dxin = []
             for u in range(UB):
                 def layer(ls):
-                    return group.apply(tree_unflatten_like(w_tree, ls[:-1]),
-                                       ls[-1], None, ctx)[0]
-                _, g = _vjp(layer, w_leaves + [stash_l[u]], dx_c[u])
+                    return _g.apply(tree_unflatten_like(w_tree, ls[:-1]),
+                                    ls[-1], None, _ctx)
+                _, g = _vjp(layer, w_leaves + [stash_l[u]], (dx_c[u], d_aux))
                 dw = [a + b.float() for a, b in zip(dw, g[:-1])]
                 dxin.append(g[-1])
             dw = tree_unflatten_like(w_tree, [g / S_loss for g in dw])
@@ -418,36 +474,61 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         with_opt = EAGER and not HOST
         core = (dx_ub, torch.zeros((), **f32),
                 torch.zeros((), dtype=torch.int32, device=W_total.device))
-        if SE == 1:
-            streams = [Stream(wp, W)] + ([Stream(op, O)] if with_opt else [])
-            core, _ = relay(bwd_body, core, streams, xs=stash.tree,
-                            reverse=True, sinks=outs, active=win)
-        else:
-            def rec_body(x_c, slots, _x):
-                """One layer of the boundary recompute: its OUTPUT
-                boundary goes to the segment's stash rows."""
-                (w,) = slots
-                y_ub, _ = apply_ub(packing.unpack(w) if PK else w, x_c)
-                return y_ub, (y_ub,)
+        for gi in reversed(range(NG)):
+            group, W, O = groups[gi], Ws[gi], Os[gi]
+            wp, op = wps[gi], ops[gi]
+            body = (lambda c, sl, x, _g=group, _ctx=ctxs[gi]:
+                    bwd_body(c, sl, x, _g, _ctx))
+            if SE == 1:
+                streams = [Stream(wp, W)] + \
+                    ([Stream(op, O)] if with_opt else [])
+                core, _ = relay(body, core, streams, xs=stashes[gi].tree,
+                                reverse=True, sinks=outs[gi],
+                                active=(0, n_acts[gi]))
+            else:
+                def rec_body(x_c, slots, _x, _g=group, _ctx=ctxs[gi]):
+                    """One layer of the boundary recompute: its OUTPUT
+                    boundary goes to the segment's stash rows."""
+                    (w,) = slots
+                    y_ub, _ = apply_ub(_g, _ctx,
+                                       packing.unpack(w) if PK else w, x_c)
+                    return y_ub, (y_ub,)
 
-            for si in reversed(range(len(bounds))):
-                s0, s1 = bounds[si]
-                hi = seg_hi(s0, s1)
-                if not hi:
-                    continue
-                entry = _row_to_device(entries.tree, si, device, copy_stream,
-                                       writeback_stream)
-                seg = sink(sp, s1 - s0)
-                seg.write(0, entry)
-                if hi > 1:
-                    relay(rec_body, entry, (Stream(wp, _rows(W, s0, s1 - 1)),),
-                          sinks=(seg,), sink_row0=1, active=(0, hi - 1))
-                streams = [Stream(wp, _rows(W, s0, s1))]
-                if with_opt:
-                    streams.append(Stream(op, _rows(O, s0, s1)))
-                core, _ = relay(bwd_body, core, streams, xs=seg.tree,
-                                reverse=True, sinks=outs, sink_row0=s0,
-                                active=(0, hi))
+                for si in reversed(range(len(bounds[gi]))):
+                    s0, s1 = bounds[gi][si]
+                    hi = seg_hi(gi, s0, s1)
+                    if not hi:
+                        continue
+                    entry = _row_to_device(stashes[gi].tree, si, device,
+                                           copy_stream, writeback_stream)
+                    seg = sink(sp, s1 - s0)
+                    seg.write(0, entry)
+                    if hi > 1:
+                        relay(rec_body, entry,
+                              (Stream(wp, _rows(W, s0, s1 - 1)),),
+                              sinks=(seg,), sink_row0=1, active=(0, hi - 1))
+                    streams = [Stream(wp, _rows(W, s0, s1))]
+                    if with_opt:
+                        streams.append(Stream(op, _rows(O, s0, s1)))
+                    core, _ = relay(body, core, streams, xs=seg.tree,
+                                    reverse=True, sinks=outs[gi],
+                                    sink_row0=s0, active=(0, hi))
+            if gi > 0:
+                # the transition's vjp back to group gi-1's output; the
+                # static params take their share (none for the identity)
+                dx_prev = []
+                for u in range(UB):
+                    def trans(ls, _u=u):
+                        return model.transition_x(
+                            gi, tree_unflatten_like(static, ls[:-1]),
+                            ls[-1], ub[_u])
+                    _, g = _vjp(trans, s_leaves + [group_inputs[gi][u]],
+                                core[0][u], zeros=False)
+                    d_static = tree_unflatten_like(static, [
+                        a if b is None else a + b.float() for a, b in
+                        zip(tree_leaves(d_static), g[:-1])])
+                    dx_prev.append(g[-1])
+                core = (torch.stack(dx_prev),) + core[1:]
         dx_ub, gnorm_sq, nonfinite = core
 
         # ---- prepare (embedding) vjp ---------------------------------
@@ -475,6 +556,7 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             new_static = _where(finite_s, new_static, static)
             new_static_opt = _where(finite_s, new_static_opt, static_opt)
 
+        new_ws, new_os = [None] * NG, [None] * NG
         if HOST:
             if not EAGER:
                 # Alg 3: a host loop over the shipped gradient rows, once
@@ -483,34 +565,42 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                     landed = torch.cuda.Event()
                     landed.record(writeback_stream)
                     landed.synchronize()
-                host.update_rows(range(n_act), grads_out.tree)
-            host.join()
-            # back to the card when the weights rest there
-            new_w, new_o = wp.host(host.new_w), host.new_o
+                for gi in range(NG):
+                    host_opts[gi].update_rows(range(n_acts[gi]),
+                                              grads_outs[gi].tree)
+            for gi, host in enumerate(host_opts):
+                host.join()
+                # back to the card when the weights rest there
+                new_ws[gi], new_os[gi] = wps[gi].host(host.new_w), host.new_o
         elif EAGER:
-            new_w, new_o = outs[0].tree, outs[1].tree
+            for gi in range(NG):
+                new_ws[gi], new_os[gi] = outs[gi][0].tree, outs[gi][1].tree
         else:
-            # Alg 3: a trailing relay over layers — weights, the shipped
-            # gradients and the optimizer slots stream in together
+            # Alg 3: a trailing relay over each group's layers — weights,
+            # the shipped gradients and the optimizer slots stream in
+            # together
             def upd_body(_, slots, _x):
                 w, g, o = slots
                 return None, (packed_update if PK else run_opt)(
                     g, o, w, opt_step)
 
-            _, (new_w, new_o) = relay(
-                upd_body, None, (Stream(wp, W), Stream(wp, grads_out.tree),
-                                 Stream(op, O)),
-                sinks=upd, active=win)
+            for gi in range(NG):
+                _, (new_ws[gi], new_os[gi]) = relay(
+                    upd_body, None, (Stream(wps[gi], Ws[gi]),
+                                     Stream(wps[gi], grads_outs[gi].tree),
+                                     Stream(ops[gi], Os[gi])),
+                    sinks=upds[gi], active=(0, n_acts[gi]))
 
         new_params = {"embed": new_static["embed"],
-                      "head": new_static["head"], "groups": (new_w,)}
+                      "head": new_static["head"], "groups": tuple(new_ws)}
         new_opt = {"step": opt_step + 1, "embed": new_static_opt["embed"],
-                   "head": new_static_opt["head"], "groups": (new_o,)}
+                   "head": new_static_opt["head"], "groups": tuple(new_os)}
         metrics = {"loss": loss, "aux": aux_total,
                    "grad_norm": torch.sqrt(gnorm_sq), "weight_sum": W_total}
         if HOST:
-            metrics["host_update_ms"] = host.update_ms
-            metrics["host_wait_s"] = host.wait_s
+            metrics["host_update_ms"] = [ms for h in hosts
+                                         for ms in h.update_ms]
+            metrics["host_wait_s"] = sum(h.wait_s for h in hosts)
         if exec_cfg.skip_nonfinite:
             # anomaly sentinel: ANY non-finite layer/static gradient
             # rejects the whole step — the prior params, optimizer slots
@@ -668,8 +758,12 @@ def make_prefill_fn(model, exec_cfg: ExecutionConfig,
                       for u in range(UB)]
         x_ub = torch.stack([model.prepare(static, b)[0] for b in ub_batches])
         for gi, group in enumerate(model.groups):
-            assert gi == 0 and not group.has_mem, \
-                "group transitions come with the encoder-decoder family"
+            assert not group.has_mem, \
+                "cross-attention memory comes with the encoder-decoder family"
+            if gi > 0:
+                x_ub = torch.stack([model.transition_x(gi, static, x_ub[u],
+                                                       ub_batches[u])
+                                    for u in range(UB)])
             ctx = model.train_ctx(ub_batches[0], group)
 
             def fwd_body(x_c, slots, _x, _g=group, _ctx=ctx):

@@ -1,8 +1,11 @@
-"""GQA / MHA attention: projections, chunked online-softmax ``attend``,
-the full-sequence path through the flash kernel (K2), and decode against
-a ring-buffer KV cache, plain or with the KV heads kept grouped
-(``attend_grouped_decode``) (the port of ``repro/models/attention.py``,
-GQA parts).  MLA and cross-attention come with their families.
+"""Attention (the port of ``repro/models/attention.py``): GQA / MHA
+projections, chunked online-softmax ``attend``, the full-sequence path
+through the flash kernel (K2), decode against a ring-buffer KV cache,
+plain or with the KV heads kept grouped (``attend_grouped_decode``), and
+MLA (DeepSeek-V2): the full-sequence ``mla_attention`` (plain ``attend``,
+as the reference's, even with ``use_pallas``) and the absorbed decode
+against the compressed cache (``decode_mla_attention``).
+Cross-attention comes with the audio family.
 """
 from __future__ import annotations
 
@@ -10,7 +13,8 @@ import math
 
 import torch
 
-from repro_torch.models.common import ParamSpec, apply_rope
+from repro_torch.models.common import (ParamSpec, apply_norm, apply_rope,
+                                       rmsnorm_spec)
 
 NEG_INF = -1.0e30
 
@@ -33,6 +37,21 @@ def gqa_spec(cfg) -> dict:
     if cfg.o_bias:
         spec["bo"] = ParamSpec((d,), ("d_model",), "zeros")
     return spec
+
+
+def mla_spec(cfg) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    return {
+        "wq": ParamSpec((d, H, nd + rd), ("d_model", "heads", "head_dim")),
+        "w_dkv": ParamSpec((d, r), ("d_model", "lora")),
+        "w_kr": ParamSpec((d, rd), ("d_model", "head_dim")),
+        "kv_norm": rmsnorm_spec(r)["scale"]._replace(axes=("lora",)),
+        "w_uk": ParamSpec((r, H, nd), ("lora", "heads", "head_dim")),
+        "w_uv": ParamSpec((r, H, vd), ("lora", "heads", "head_dim")),
+        "wo": ParamSpec((H, vd, d), ("heads", "head_dim", "d_model")),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -183,13 +202,54 @@ def self_attention(w, x, cfg, positions, *, causal: bool = True,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): full sequence
+# ---------------------------------------------------------------------------
+def _mla_latent(w, x, cfg, positions):
+    """The compressed KV of x: the normed latent c (B,S,r) — RMSNorm at
+    width r, K5 on the card — and the shared rope key kr (B,S,1,rd)."""
+    dt = x.dtype
+    c = x @ w["w_dkv"].to(dt)
+    c = apply_norm({"scale": w["kv_norm"]}, c, cfg.norm_eps)
+    kr = (x @ w["w_kr"].to(dt))[:, :, None, :]
+    return c, apply_rope(kr, positions, cfg.rope_theta)
+
+
+def mla_attention(w, x, cfg, positions, *, causal: bool = True,
+                  window: int = 0):
+    B, S, _ = x.shape
+    H, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = _proj(x, w["wq"])                                    # (B,S,H,nd+rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c, k_rope = _mla_latent(w, x, cfg, positions)
+    k_nope = _proj(c, w["w_uk"])
+    v = _proj(c, w["w_uv"])
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+    # v padded up to the qk width for the shared attend, then sliced back
+    # (prefill then equals the absorbed decode, as in the reference)
+    vp = torch.nn.functional.pad(v, (0, qq.shape[-1] - v.shape[-1]))
+    o = attend(qq, k, vp, positions, positions, causal=causal, window=window,
+               chunk=cfg.attn_chunk)[..., :cfg.v_head_dim]
+    return out_project(w, o)
+
+
+# ---------------------------------------------------------------------------
 # KV caches and decode
 # ---------------------------------------------------------------------------
 def kv_cache_spec(cfg, batch: int, seq: int) -> dict:
     """Per-layer cache spec (the model prepends the layer stack dim).
     ``seq`` is the live cache length: the full context, or the ring
-    window for long-context decode."""
-    assert not cfg.use_mla, "MLA caches come with the MLA family"
+    window for long-context decode.  MLA caches the compressed latent
+    ``c`` and the rope key ``kr``."""
+    if cfg.use_mla:
+        r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+        return {
+            "c": ParamSpec((batch, seq, r), ("batch", "seq", "lora"), "zeros"),
+            "kr": ParamSpec((batch, seq, rd), ("batch", "seq", "head_dim"),
+                            "zeros"),
+            "pos": ParamSpec((batch, seq), ("batch", "seq"), "zeros"),
+        }
     KV, Dh = cfg.n_kv_heads, cfg.d_head
     return {
         "k": ParamSpec((batch, seq, KV, Dh), ("batch", "seq", "kv", "head_dim"),
@@ -280,4 +340,51 @@ def decode_self_attention(w, x, cache, cfg, cur_pos, *, window: int = 0,
         o = attend(q, expand_kv(cache["k"].to(dt), cfg.n_q_per_kv),
                    expand_kv(cache["v"].to(dt), cfg.n_q_per_kv), pos,
                    cache["pos"], causal=True, window=window, chunk=0)
+    return out_project(w, o), cache
+
+
+def decode_mla_attention(w, x, cache, cfg, cur_pos, *, window: int = 0):
+    """Absorbed-matmul MLA decode: scores against the COMPRESSED cache
+    (``c``, ``kr``, ``pos``), updated in place as in
+    ``decode_self_attention``.  q_nope is absorbed through w_uk into the
+    latent space, so a step costs O(S·(r + rd)·H), not O(S·H·(nd + rd)).
+    ``cur_pos``: a scalar (T = 1) or per-row (B,)/(B,T) positions,
+    negative = padding (no write, masked)."""
+    dt = x.dtype
+    B = x.shape[0]
+    nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
+    scalar = _is_scalar(cur_pos) and x.shape[1] == 1
+    if scalar:
+        pos = torch.full((B, 1), int(cur_pos), dtype=torch.int32,
+                         device=x.device)
+        rope_pos = pos
+    else:
+        pos = decode_positions(x, cur_pos)
+        rope_pos = pos.clamp_min(0)
+    q = _proj(x, w["wq"])
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, rope_pos, cfg.rope_theta)
+    c_new, kr_new = _mla_latent(w, x, cfg, rope_pos)
+    kr_new = kr_new[:, :, 0, :]
+    if scalar:
+        slot = int(cur_pos) % cache["pos"].shape[1]
+        cache["c"][:, slot:slot + 1].copy_(c_new)
+        cache["kr"][:, slot:slot + 1].copy_(kr_new)
+        cache["pos"][:, slot] = int(cur_pos)
+    else:
+        ring_scatter(cache["c"], c_new, pos)
+        ring_scatter(cache["kr"], kr_new, pos)
+        ring_scatter(cache["pos"], pos, pos)
+    c, kr = cache["c"].to(dt), cache["kr"].to(dt)
+    # absorb: q_abs = q_nope @ w_uk -> (B,T,H,r)
+    q_abs = torch.einsum("bshe,rhe->bshr", q_nope, w["w_uk"].to(dt))
+    scale = 1.0 / math.sqrt(nd + rd)
+    s = (torch.einsum("bshr,btr->bhst", q_abs, c)
+         + torch.einsum("bshe,bte->bhst", q_rope, kr)).float()
+    s = s * scale
+    allow = _mask(pos, cache["pos"], True, window)
+    s = torch.where(allow, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    ctx_c = torch.einsum("bhst,btr->bshr", p.to(dt), c)
+    o = torch.einsum("bshr,rhe->bshe", ctx_c, w["w_uv"].to(dt))
     return out_project(w, o), cache

@@ -1,9 +1,12 @@
 """LayeredModel: the layer-granular model API the L2L engine executes (the
-port of ``repro/models/model.py``, dense family).
+port of ``repro/models/model.py``: the dense and MoE families).
 
 A model is ``prepare`` (embeddings) -> homogeneous layer groups, each run
-over a stacked ``(N, ...)`` parameter tree -> the head.  Parameters are
-nested dicts: ``{"embed": {...}, "head": {...}, "groups": (group, ...)}``.
+over a stacked ``(N, ...)`` parameter tree, joined by a ``transition``
+(the identity for a homogeneous stream: deepseek's dense -> MoE) -> the
+head.  Parameters are nested dicts: ``{"embed": {...}, "head": {...},
+"groups": (group, ...)}``.  Cross-attention memory (``has_mem``, the
+encoder-decoder family) is not ported yet.
 """
 from __future__ import annotations
 
@@ -41,15 +44,36 @@ def stack_layers(layers):
 class LayeredModel:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port runs the dense family so far")
-        ap = lambda w, x, mem, ctx: blocks.dense_apply(w, x, mem, ctx, cfg)
-        de = lambda w, x, c, mem, ctx: blocks.dense_decode(w, x, c, mem, ctx,
-                                                           cfg)
-        cs = lambda b, live: blocks.dense_cache_spec(cfg, b, live)
-        self.groups: Tuple[Group, ...] = (
-            Group("layers", cfg.n_layers, blocks.dense_spec(cfg), ap, de, cs),)
+        self.groups: Tuple[Group, ...] = self._build_groups(cfg)
+
+    @staticmethod
+    def _build_groups(cfg) -> Tuple[Group, ...]:
+        def G(name, n, spec, apply_fn, decode_fn, cache_fn):
+            ap = lambda w, x, mem, ctx: apply_fn(w, x, mem, ctx, cfg)
+            de = lambda w, x, c, mem, ctx: decode_fn(w, x, c, mem, ctx, cfg)
+            cs = lambda b, live: cache_fn(cfg, b, live)
+            return Group(name, n, spec, ap, de, cs)
+
+        if cfg.family == "dense":
+            return (G("layers", cfg.n_layers, blocks.dense_spec(cfg),
+                      blocks.dense_apply, blocks.dense_decode,
+                      blocks.dense_cache_spec),)
+        if cfg.family == "moe":
+            gs = []
+            if cfg.first_dense_layers:
+                # deepseek-v2: layer 0 keeps MLA attention but a dense FFN
+                gs.append(G("dense_layers", cfg.first_dense_layers,
+                            blocks.moe_block_spec(cfg, dense_ffn=True),
+                            blocks.moe_block_apply, blocks.moe_block_decode,
+                            blocks.dense_cache_spec))
+            gs.append(G("moe_layers", cfg.n_layers - cfg.first_dense_layers,
+                        blocks.moe_block_spec(cfg),
+                        blocks.moe_block_apply, blocks.moe_block_decode,
+                        blocks.dense_cache_spec))
+            return tuple(gs)
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the port runs the dense and MoE "
+            "families so far")
 
     # ------------------------------------------------------------------
     # parameters
@@ -110,6 +134,22 @@ class LayeredModel:
         return embed_tokens(static["embed"], batch["tokens"], self.cfg,
                             self.dtype()), None
 
+    def transition_x(self, g: int, static, x_prev, batch):
+        """Input activations of group g from group g-1's output: the
+        identity for every family ported so far (the audio family builds
+        its decoder input from the target tokens)."""
+        return x_prev
+
+    def transition_mem(self, g: int, static, x_prev, batch):
+        """Cross-attention memory of group g (None unless ``has_mem``)."""
+        assert not self.groups[g].has_mem, \
+            "cross-attention memory comes with the encoder-decoder family"
+        return None
+
+    def transition(self, g: int, static, x_prev, batch):
+        return (self.transition_x(g, static, x_prev, batch),
+                self.transition_mem(g, static, x_prev, batch))
+
     def train_ctx(self, batch, group: Group) -> Ctx:
         B, S = batch["tokens"].shape
         pos = torch.arange(S, dtype=torch.int32,
@@ -140,20 +180,21 @@ class LayeredModel:
         -> (loss, (loss_sum, weight_sum, aux)).  ``remat`` recomputes each
         layer in the backward (``torch.utils.checkpoint``)."""
         static = {"embed": params["embed"], "head": params["head"]}
-        x, _ = self.prepare(static, batch)
+        x, mem = self.prepare(static, batch)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, group in enumerate(self.groups):
+            if gi > 0:
+                x, mem = self.transition(gi, static, x, batch)
             ctx = self.train_ctx(batch, group)
             stacked = params["groups"][gi]
             for li in range(group.n_layers):
                 w = tree_map(lambda a, _l=li: a[_l], stacked)
                 if remat:
                     x, aux = torch.utils.checkpoint.checkpoint(
-                        lambda ww, h, _g=group, _c=ctx: _g.apply(ww, h, None,
-                                                                 _c),
-                        w, x, use_reentrant=False)
+                        lambda ww, h, _g=group, _c=ctx, _m=mem:
+                        _g.apply(ww, h, _m, _c), w, x, use_reentrant=False)
                 else:
-                    x, aux = group.apply(w, x, None, ctx)
+                    x, aux = group.apply(w, x, mem, ctx)
                 aux_total = aux_total + aux
         loss_sum, wsum = self.head_loss(static, x, batch)
         loss = loss_sum / wsum.clamp_min(1.0) + aux_total

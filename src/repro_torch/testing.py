@@ -9,21 +9,24 @@ def fan_in_params(tree, randn):
     """Parameters at the usual scales, shaped like ``tree`` (ParamSpecs,
     tensors or arrays; the stacked layer groups inside tuples): weights
     N(0, 1/fan_in), biases and the embedding N(0, 0.02^2), norm scales
-    1 + N(0, 0.01).  ``randn(shape)`` draws a standard normal tensor or
+    1 + N(0, 0.01) (MLA's ``kv_norm`` too).  An expert's matrices (under
+    ``experts``, ``(E, fan_in, fan_out)`` per layer) take the fan-in after
+    the expert axis.  ``randn(shape)`` draws a standard normal tensor or
     array; the leaves are drawn in flatten order (dict keys sorted).
 
     The model's own init gives every stacked matrix std 1/sqrt(n_layers),
     where the backward amplifies rounding; at these scales two versions of
     a kernel are compared, not that amplification."""
-    def draw(node, name="", stacked=False):
+    def draw(node, name="", stacked=False, expert=False):
         if isinstance(node, dict):
-            return {k: draw(node[k], k, stacked) for k in sorted(node)}
+            return {k: draw(node[k], k, stacked, expert or k == "experts")
+                    for k in sorted(node)}
         if isinstance(node, tuple) and not hasattr(node, "shape"):
             return tuple(draw(v, name, True) for v in node)   # the groups
         shape = tuple(node.shape)
-        fan = shape[1:] if stacked else shape
+        fan = shape[int(stacked) + int(expert):]
         x = randn(shape)
-        if name == "scale":
+        if name in ("scale", "kv_norm"):
             return 1.0 + 0.1 * x
         if name.startswith("b") or name == "tok":
             return 0.02 * x

@@ -6,7 +6,7 @@ On the CPU: snapshots interchange with the JAX package both ways — its
 engine writes and the port's restores, the port's writes and
 ``repro.checkpoint.io.verify`` and the JAX engine's ``restore`` read —
 packed and unpacked, with f32 and bf16 masters and a loss scale, byte for
-byte; corruption (``repro.testing.faults.corrupt_snapshot``) falls back to
+byte, and a two-group packed deepseek-v2-lite state (MLA, experts); corruption (``repro.testing.faults.corrupt_snapshot``) falls back to
 the previous good snapshot; a fingerprint mismatch is refused; ``prune``
 sweeps staging debris; one SIGTERM kill of ``python -m
 repro_torch.launch.train --device cpu`` resumes to the final snapshot of
@@ -38,8 +38,8 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(
 ARCH = "bert-large"
 
 
-def _cfg(param_dtype="float32"):
-    return get_config(ARCH, "smoke").replace(param_dtype=param_dtype)
+def _cfg(param_dtype="float32", arch=ARCH):
+    return get_config(arch, "smoke").replace(param_dtype=param_dtype)
 
 
 def _exec(pack):
@@ -89,15 +89,15 @@ def jax_side():
     from repro.models.model import LayeredModel as JModel
     engs = {}
 
-    def get(pack, pdt):
-        if (pack, pdt) not in engs:
-            cfg = jget_config(ARCH, "smoke").replace(param_dtype=pdt)
+    def get(pack, pdt, arch=ARCH):
+        if (pack, pdt, arch) not in engs:
+            cfg = jget_config(arch, "smoke").replace(param_dtype=pdt)
             eng = jengines.create("l2l-p", cfg, JExec(**_exec(pack)),
                                   donate=False)
             params = JModel(cfg).init_params(
                 jax.random.PRNGKey(1), dtype=jax.numpy.dtype(pdt))
-            engs[pack, pdt] = (eng, jax.tree.map(np.asarray, params))
-        return engs[pack, pdt]
+            engs[pack, pdt, arch] = (eng, jax.tree.map(np.asarray, params))
+        return engs[pack, pdt, arch]
     return get
 
 
@@ -132,10 +132,23 @@ def test_snapshots_interchange_with_the_reference(tmp_path, jax_side, pack,
     """JAX writes, the port restores; the port writes, the reference
     verifies and restores: every array byte for byte, the step and the
     loss scale included."""
+    _interchange(tmp_path, jax_side, pack, pdt, ARCH)
+
+
+def test_two_group_snapshots_interchange_with_the_reference(tmp_path,
+                                                            jax_side):
+    """The same both ways for deepseek-v2-lite smoke, packed: two layer
+    groups (the dense layer 0, the MoE layers with 4-D expert leaves)."""
+    _interchange(tmp_path, jax_side, True, "float32",
+                 "deepseek-v2-lite-16b")
+
+
+def _interchange(tmp_path, jax_side, pack, pdt, arch):
     from repro.checkpoint import io as jckpt
-    jeng, params = jax_side(pack, pdt)
-    eng = engines.create("l2l-p", _cfg(pdt), ExecutionConfig(**_exec(pack)),
-                         device="cpu")
+    jeng, params = jax_side(pack, pdt, arch)
+    assert len(params["groups"]) == (2 if arch != ARCH else 1)
+    eng = engines.create("l2l-p", _cfg(pdt, arch),
+                         ExecutionConfig(**_exec(pack)), device="cpu")
     assert eng.state_fingerprint() == jeng.state_fingerprint()
 
     # JAX -> port

@@ -1,8 +1,9 @@
 """The port's analytic memory/time model (``repro_torch/core/memory_model.py``)
 against the reference's (``repro/core/memory_model.py``): the same
 integers and floats for the same model and knobs, at full width
-(arithmetic only, no weights) for granite-3-8b, bert-large and
-chatglm3-6b; and the Engine facades' ``memory_estimate`` /
+(arithmetic only, no weights) for granite-3-8b, bert-large,
+chatglm3-6b and deepseek-v2-lite-16b (two layer groups: a dense layer 0,
+26 MoE layers of 2.339 GB in f32); and the Engine facades' ``memory_estimate`` /
 ``serve_memory_estimate`` with each engine's ``memory_mode``."""
 import dataclasses
 import itertools
@@ -24,7 +25,7 @@ from repro_torch.core.schedule import ExecutionConfig  # noqa: E402
 from repro_torch.models.model import LayeredModel  # noqa: E402
 from repro_torch.serve import ServeConfig  # noqa: E402
 
-ARCHS = ["granite-3-8b", "bert-large", "chatglm3-6b"]
+ARCHS = ["granite-3-8b", "bert-large", "chatglm3-6b", "deepseek-v2-lite-16b"]
 
 
 def _models(arch):
@@ -113,3 +114,29 @@ def test_engine_estimates_match_reference(name):
                     prefill_chunk=4)
         _same(eng.serve_memory_estimate(ServeConfig(**scfg)),
               jeng.serve_memory_estimate(JServeConfig(**scfg)))
+
+
+def test_deepseek_v2_lite_integers():
+    """deepseek-v2-lite's figures at full width: the f32 bytes of its two
+    groups' layers (0.324 GB dense, 2.339 GB per MoE layer) and of the
+    embedding, and the l2l-p estimate's device and EPS split, equal to the
+    reference's."""
+    import math
+    import jax
+    from repro_torch.models.common import param_bytes
+    model, jmodel = _models("deepseek-v2-lite-16b")
+    is_jspec = lambda x: type(x).__name__ == "ParamSpec"
+
+    def jbytes(tree):
+        return sum(4 * math.prod(s.shape)
+                   for s in jax.tree.leaves(tree, is_leaf=is_jspec))
+
+    dense, moe = (param_bytes(g.spec) for g in model.groups)
+    assert (dense, moe) == tuple(jbytes(g.spec) for g in jmodel.groups)
+    assert (round(dense / 1e9, 3), round(moe / 1e9, 3)) == (0.324, 2.339)
+    assert param_bytes(model.param_specs()["embed"]) == 838_860_800
+    kw = dict(batch=8, seq=512, n_microbatches=2, offload_stash=True,
+              pack_params=True, prefetch_depth=1, transport="pallas")
+    got = mm.estimate(model, mode="l2l_p", **kw)
+    _same(got, jmm.estimate(jmodel, mode="l2l_p", **kw))
+    assert got.total_device < got.total_host

@@ -1,7 +1,8 @@
 """Continuous-batching serve in the port (``repro_torch.serve``) on the CPU:
 the port's ServeEngine against the JAX package's ServeEngine (greedy
 tokens equal, request by request) in the reference's four dense parity
-cases under the port's slice knobs; crowded equals solo, bit for bit,
+cases and its ``mla-moe`` case (deepseek-v2-lite: MLA's compressed paged
+cache, MoE, two decode groups in each tick) under the port's slice knobs; crowded equals solo, bit for bit,
 inside the port; slot and page recycling; the ServeEngine's validation;
 grouped decode attention on and off; and the CLI's ``--mode continuous``.
 
@@ -25,16 +26,18 @@ from repro_torch.serve import ServeConfig  # noqa: E402
 # the port's serving slice knobs, added to every case on the port's side
 PORT_KNOBS = dict(weight_stream=True, pack_params=True, transport="pallas")
 
-# the reference's dense PARITY_CASES (tests/test_serve.py): exec knobs,
-# max_seq, prefill_chunk
+# the reference's PARITY_CASES (tests/test_serve.py) the port runs: arch,
+# exec knobs, max_seq, prefill_chunk
 CASES = [
-    ({}, 32, 1),
-    (dict(weight_stream=True, layers_per_relay=2, prefetch_depth=1,
-          pack_params=True), 32, 1),
-    (dict(decode_window=16), 16, 1),         # max_seq IS the window
-    ({}, 32, 4),                             # chunked prefill
+    ("granite-3-8b", {}, 32, 1),
+    ("granite-3-8b", dict(weight_stream=True, layers_per_relay=2,
+                          prefetch_depth=1, pack_params=True), 32, 1),
+    ("granite-3-8b", dict(decode_window=16), 16, 1),  # max_seq IS the window
+    ("granite-3-8b", {}, 32, 4),                      # chunked prefill
+    ("deepseek-v2-lite-16b", {}, 32, 1),              # MLA + MoE
 ]
-CASE_IDS = ["dense", "dense-G2pf1pack", "window", "chunked-prefill"]
+CASE_IDS = ["dense", "dense-G2pf1pack", "window", "chunked-prefill",
+            "mla-moe"]
 
 # 4 requests for 3 slots: the last one joins when the first leaves; in the
 # window case the 11-token prompt decodes past the 16-position ring
@@ -63,15 +66,15 @@ def _serve(eng, params, scfg, prompts, news):
     return srv, [r.generated for r in reqs]
 
 
-@pytest.mark.parametrize("exec_kw,max_seq,chunk", CASES, ids=CASE_IDS)
-def test_greedy_tokens_match_jax_serve_engine(exec_kw, max_seq, chunk):
+@pytest.mark.parametrize("arch,exec_kw,max_seq,chunk", CASES, ids=CASE_IDS)
+def test_greedy_tokens_match_jax_serve_engine(arch, exec_kw, max_seq, chunk):
     import jax
     from repro import engine as jengines
     from repro.configs.base import get_config as jget_config
     from repro.core.schedule import ExecutionConfig as JExec
     from repro.serve.engine import ServeConfig as JServeConfig
 
-    jcfg = jget_config("granite-3-8b", "smoke").replace(dtype="float32")
+    jcfg = jget_config(arch, "smoke").replace(dtype="float32")
     jeng = jengines.create("l2l", jcfg, JExec(**exec_kw), donate=False)
     params = jeng.model.init_params(jax.random.PRNGKey(0))
     prompts = _prompts(jcfg.vocab_size)
@@ -80,7 +83,7 @@ def test_greedy_tokens_match_jax_serve_engine(exec_kw, max_seq, chunk):
     jreqs = [jsrv.submit(p, n) for p, n in zip(prompts, NEWS)]
     jsrv.run()
 
-    cfg = get_config("granite-3-8b", "smoke").replace(dtype="float32")
+    cfg = get_config(arch, "smoke").replace(dtype="float32")
     srv, got = _serve(_port(cfg, **{**PORT_KNOBS, **exec_kw}),
                       bridge.params_from_numpy(
                           jax.tree.map(np.asarray, params)),
