@@ -31,7 +31,12 @@ Phases, one JSON line each:
               the relay's route, the kernel it replaced (``previous_ms``)
               and ``copy_`` in turns on the same buffers, with the host
               allocation and the grid, and K4 is checked bit for bit on
-              every host allocation kind (``k4_checks``); then
+              every host allocation kind (``k4_checks``); hymba-1.5b's
+              attention: K2 at its window prefill (1, 4096, 25, 64), 5 kv
+              heads, window 2048, against SDPA with the window as a
+              boolean mask over the kv heads repeated, K3a / K3b at its
+              training microbatch (4, 512, 25, 64), and K5 at its width
+              1600; then
    k4-sweep — K4's designs, one lever at a time, on one granite row
               pinned host -> HBM and one bert-large row back, on each
               host allocation kind, with ``copy_``; a fetch and
@@ -123,6 +128,26 @@ Phases, one JSON line each:
               before and read just after; then Engine.grads in f32 at depth
               2 against the baseline engine at fan-in scales, and one step
               at depth 2 run twice from the same state, bitwise;
+   serve-recurrent — hymba-1.5b (32 layers: attention heads, GQA 25
+              over 5 with a 2048-token window, beside Mamba heads off one
+              norm) and rwkv6-1.6b (24 layers: WKV6, layernorm, no
+              attention) at full width and depth through the serve
+              phase's engine settings, the counters set to 0 just before
+              each model and read just after: decode_init on 4 prompts of
+              16 tokens, 8 greedy steps, Engine.prefill on them and at
+              B=2 x S=2048, for hymba also at B=1 x S=4096 (its window
+              masks; K2 once a layer), then 12 greedy requests into 8
+              slots (one token a tick); not counted: the request that
+              waited longest alone (bit for bit the crowd's), prefill
+              against decode_init in f32 at depth 2 and in bf16 at depths
+              1, 4 (also at fan-in scales) and full, one layer's scan
+              timed;
+   train-recurrent — each at full width and depth under l2l-p with the
+              train phase's knobs, 3 steps at B=8, S=512, UB=2, the
+              counters set to 0 just before and read just after; then
+              Engine.grads in f32 at depth 2 against the baseline engine,
+              the relay knobs (pack, prefetch, G) at depth 3 against the
+              plain schedule, and one step at depth 2 run twice: bitwise;
 9. train    — bert-large at full width and all 24 layers, l2l-p with
               weight_stream, pack_params, prefetch 1, transport "pallas",
               use_pallas, offload_stash, Adam: the peak HBM of two steps
@@ -144,16 +169,24 @@ Phases, one JSON line each:
               one profiled step of the train phase and one of this
               phase (the device's idle share), after every timed phase;
    library  — SDPA backward's device time and K3a's and K3b's, under
-              torch.profiler, into the kernel rows;
+              torch.profiler, into the kernel rows (hymba's too);
+   scan-profile — one layer's sequence scan of each recurrent family at
+              the 2 x 2048 prefill's shape under torch.profiler: device
+              time, device operations, wall time;
+   recurrent-profile — one train-recurrent step of each family at
+              depth 4 under torch.profiler: the device's idle share and
+              its time by kernel;
    memory-model — ``Engine.memory_estimate`` for the train phase's
               bert-large at depths 24 and 12 beside its peaks, and the
               serve estimate beside serve-continuous's peak (printed, not
               tied: the model counts the reference's buffers);
-10. launches — every kernel's count over the nine main paths (serve,
-              serve-dense, serve-continuous, train, train-rmsnorm,
-              dynamic-depth, host-optimizer, serve-moe, train-moe; each of
+10. launches — every kernel's count over the thirteen main paths
+              (serve, serve-dense, serve-continuous, train, train-rmsnorm,
+              dynamic-depth, host-optimizer, serve-moe, train-moe,
+              serve-hymba, train-hymba, serve-rwkv6, train-rwkv6; each of
               a path's kernels > 0, K1 0 on host-optimizer, K2 and K3 0 on
-              the two MoE paths), and the counts by route: every
+              the two MoE paths, K2, K3 and K5 0 on the two rwkv6 paths),
+              and the counts by route: every
               bf16 K2, K3a and K3b
               launch on the wgmma route, none on the CUDA-core one, every
               K5 launch on the CUDA route, none on the Triton one, and every
@@ -1516,8 +1549,9 @@ MOE_CROWD = dict(max_batch=8, page_size=16, max_seq=160, n_pages=64,
                  prefill_chunk=16)
 
 
-def moe_rows(LayeredModel, tree_leaves, is_spec, full):
-    """f32 bytes of one layer of each group: (dense layer 0, MoE layer)."""
+def group_rows(LayeredModel, tree_leaves, is_spec, full):
+    """f32 bytes of one layer of each layer group (deepseek: the dense
+    layer 0, a MoE layer)."""
     return tuple(4 * sum(math.prod(sp.shape) for sp in
                          tree_leaves(g.spec, is_leaf=is_spec))
                  for g in LayeredModel(full).groups)
@@ -1559,7 +1593,7 @@ def serve_moe_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
     routes)."""
     B, P, GEN = 4, 16, 4
     full = get_config(MOE_ARCH, "full")
-    rows = moe_rows(LayeredModel, tree_leaves, is_spec, full)
+    rows = group_rows(LayeredModel, tree_leaves, is_spec, full)
     depth = moe_depth(rows, MOE_SERVE_DEPTH, 1, 24 * 2 ** 30)
     cfg = full.replace(n_layers=depth, use_pallas=True)
     eng = engines.create("l2l", cfg, exec_cfg)
@@ -1755,7 +1789,7 @@ def train_moe_phase(torch, np, engines, ExecutionConfig, knobs, get_config,
     from repro_torch.testing import fan_in_params
     B, S, UB, STEPS = 8, 512, 2, 3
     full = get_config(MOE_ARCH, "full")
-    rows = moe_rows(LayeredModel, tree_leaves, is_spec, full)
+    rows = group_rows(LayeredModel, tree_leaves, is_spec, full)
     # w, m and v, twice at the step's peak (the step is functional)
     depth = moe_depth(rows, MOE_TRAIN_DEPTH, 6, 16 * 2 ** 30)
     assert depth >= 2, "the host cannot pin one MoE layer's training state"
@@ -1848,6 +1882,527 @@ def train_moe_phase(torch, np, engines, ExecutionConfig, knobs, get_config,
         abs(float(ll) - float(lb)) <= 1e-5 * abs(float(lb)), \
         out["grads_check"]
     del params, gb, gl, la, lb_
+    free_host(torch)
+
+    # one l2l-p step at depth 2, twice from the same state: bitwise
+    e2 = engines.create("l2l-p", cfg.replace(n_layers=2), ExecutionConfig(
+        n_microbatches=UB, **knobs), optimizer=opt)
+    s0 = e2.init(torch.Generator(dev).manual_seed(2))
+    a, ma = e2.train_step(s0, batch)
+    b, mb = e2.train_step(s0, batch)
+    torch.cuda.synchronize()
+    ta = tree_leaves((a.params, a.opt_state))
+    tb = tree_leaves((b.params, b.opt_state))
+    out["repeat_check"] = {
+        "depth": 2, "losses": [float(ma["loss"]), float(mb["loss"])],
+        "tensors": len(ta),
+        "bitwise": float(ma["loss"]) == float(mb["loss"]) and all(
+            torch.equal(x, y) for x, y in zip(ta, tb))}
+    emit(out)
+    assert out["repeat_check"]["bitwise"], out["repeat_check"]
+    del e2, s0, a, b, ta, tb
+    free_host(torch)
+    return out, launches, routes
+
+
+# the recurrent families at full width, host allowing at full depth:
+# hymba-1.5b (attention heads beside Mamba heads off one norm, GQA 25 over
+# 5, a 2048-token window) and rwkv6-1.6b (WKV6, layernorm, no attention)
+RECURRENT_ARCHS = ("hymba-1.5b", "rwkv6-1.6b")
+# serve-recurrent's crowd: a recurrent family feeds one token a tick (the
+# ServeEngine forces prefill_chunk to 1), so the prompts stay short
+REC_CROWD = dict(max_batch=8, page_size=16, max_seq=48, n_pages=24,
+                 prefill_chunk=16)
+
+
+def window_pairs(B, H, S, window) -> int:
+    """(query, key) pairs a causal attention with ``window`` computes."""
+    w = window or S
+    return B * H * sum(min(i + 1, w) for i in range(S))
+
+
+def scan_fn(torch, ssm, cfg, B, S, dev):
+    """One layer's sequence scan at (B, S) on random inputs of the path's
+    dtypes: hymba's ``selective_scan`` over (B, S, d, N) f32 a and b, or
+    rwkv6's WKV step scan over (B, H, S, hd) f32 (S sequential steps).
+    -> (fn, description)."""
+    g = torch.Generator(dev).manual_seed(21)
+    if cfg.family == "hybrid":
+        shape = (B, S, cfg.d_model, cfg.ssm_state)
+        a = torch.rand(shape, generator=g, device=dev)
+        b = torch.randn(shape, generator=g, device=dev)
+        return (lambda: ssm.selective_scan(a, b)), {
+            "scan": "selective_scan (doubling, ceil(log2 S) passes)",
+            "shape": list(shape)}
+    H, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    r, k, v = (torch.randn(B, H, S, hd, generator=g, device=dev)
+               for _ in range(3))
+    w = torch.rand(B, H, S, hd, generator=g, device=dev)
+    u = torch.randn(H, hd, generator=g, device=dev)
+    s0 = torch.zeros(B, H, hd, hd, device=dev)
+    return (lambda: ssm._wkv_step_scan(r, k, v, w, u, s0)), {
+        "scan": "_wkv_step_scan (S sequential steps)",
+        "shape": [B, H, S, hd]}
+
+
+def hymba_attention_rows(torch, F, dev, g, fa, kops, ref, cfg):
+    """K2 at hymba's window prefill, q (1, 4096, 25, 64) over 5 kv heads,
+    bf16, causal, window 2048 (the window masks from query 2048 on), and
+    K3a / K3b at its training microbatch (4, 512, 25, 64), window 2048,
+    against their plain versions, graph-timed.  K2's library time is SDPA
+    with the window as an explicit boolean mask over the kv heads
+    repeated; K3's comes from ``backward_device_ms`` (SDPA's backward over
+    the kv heads repeated, after the timed phases)."""
+    rows = []
+    H, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.sliding_window
+    B, S = 1, 4096
+    q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o = kops.flash_attention(q, k, v, causal=True, window=W)
+    lse = fa.flash_attention_fwd_bhsd(qt, kt, vt, causal=True, window=W)[1]
+    po, plse = fa.flash_attention_fwd_bhsd_plain(qt, kt, vt, causal=True,
+                                                 window=W)
+    emu, _ = ref.ref_attention(qt, kt, vt, causal=True, window=W,
+                               tensor_cores=True)
+    i = torch.arange(S, device=dev)
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < W)
+    ke, ve = (t.repeat_interleave(H // Hkv, dim=1) for t in (kt, vt))
+    lib_o = F.scaled_dot_product_attention(qt, ke, ve, attn_mask=mask)
+    torch.cuda.synchronize()
+    err = float((o.float() - po.transpose(1, 2).float()).abs().max())
+    lerr = float((lse - plse).abs().max())
+    assert err <= 2e-2 and lerr <= 2e-2, ("K2 window", err, lerr)
+    pairs = window_pairs(B, H, S, W)
+    ops = 4 * D * pairs
+    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4
+    rows.append({
+        "name": "flash_attention_fwd", "route": "cuda",
+        "kernel_route": "wgmma", "cell": "hymba window prefill",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:46",
+        "shape": [B, S, H, D], "layout": "BSHD", "kv_heads": Hkv,
+        "window": W, "dtype": "bfloat16", "pairs": pairs,
+        "pairs_without_window": window_pairs(B, H, S, 0),
+        "max_abs_err": err, "lse_max_abs_err": lerr,
+        "emulation_err": float((o.float() - emu.transpose(1, 2).float())
+                               .abs().max()),
+        "ms": graph_ms(torch, lambda: fa.flash_attention_fwd_bhsd(
+            qt, kt, vt, causal=True, window=W), 10),
+        "plain_ms": time_ms(torch, lambda: fa.flash_attention_fwd_bhsd_plain(
+            qt, kt, vt, causal=True, window=W), 3),
+        "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, ke, ve, attn_mask=mask), 10),
+        "library_covers": "SDPA, the window as a boolean mask, kv heads "
+                          "repeated",
+        "library_err": float((lib_o.float() - po.float()).abs().max()),
+        "timing": "ms, library_ms: a CUDA graph of the calls; plain_ms: "
+                  "back-to-back eager calls",
+        "bound_ms": max(ops / H100_BF16_OPS, nbytes / H100_HBM_BPS) * 1e3,
+        "bound_by": ("operations" if ops / H100_BF16_OPS
+                     > nbytes / H100_HBM_BPS else "bytes")})
+    del q, k, v, qt, kt, vt, o, lse, po, plse, emu, ke, ve, lib_o, mask
+
+    B, S = 4, 512
+    q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16() \
+        .requires_grad_()
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
+            .requires_grad_() for _ in range(2))
+    o = kops.flash_attention(q, k, v, causal=True, window=W)
+    do = torch.randn(o.shape, generator=g, device=dev).bfloat16()
+    got = torch.autograd.grad(o, (q, k, v), do)
+    qt, kt, vt, ot, dot = (t.detach().transpose(1, 2)
+                           for t in (q, k, v, o, do))
+    _, lse = fa.flash_attention_fwd_bhsd(qt, kt, vt, causal=True, window=W)
+    plain = fa.flash_attention_bwd_bhsd_plain(qt, kt, vt, ot, lse, dot,
+                                              causal=True, window=W)
+    emu = ref.ref_attention_bwd(qt, kt, vt, ot, lse, dot, causal=True,
+                                window=W, tensor_cores=True)
+    torch.cuda.synchronize()
+    errs = [float((x.float() - y.transpose(1, 2).float()).abs().max())
+            for x, y in zip(got, plain)]
+    emu_errs = [float((x.float() - y.transpose(1, 2).float()).abs().max())
+                for x, y in zip(got, emu)]
+    tops = [float(y.float().abs().max()) for y in plain]
+    # as the train kernel rows: 1e-2 of the largest gradient of each
+    assert all(e <= 1e-2 * t for e, t in zip(errs, tops)), (errs, tops)
+    delta = (dot.float() * ot.float()).sum(-1).contiguous()
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_bhsd_plain(
+        qt, kt, vt, ot, lse, dot, causal=True, window=W), 5)
+    pairs = window_pairs(B, H, S, W)
+    in_bytes = (3 * q.numel() + 2 * k.numel()) * 2 + 2 * lse.numel() * 4
+    for name, ops, err, emu_err, top, out_bytes, line, src, kern in (
+            ("flash_attention_bwd_dq", 6 * D * pairs, errs[0], emu_errs[0],
+             tops[0], 2 * q.numel(), 145, "flash_attention_dq_sm90.cu",
+             fa.flash_attention_bwd_dq),
+            ("flash_attention_bwd_dkv", 8 * D * pairs, max(errs[1:]),
+             max(emu_errs[1:]), max(tops[1:]), 4 * k.numel(), 174,
+             "flash_attention_bwd_sm90.cu", fa.flash_attention_bwd_dkv)):
+        nbytes = in_bytes + out_bytes
+        rows.append({
+            "name": name, "route": "cuda", "kernel_route": "wgmma",
+            "cell": "hymba train microbatch",
+            "source": "src/repro_torch/kernels/csrc/" + src,
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "shape": [B, S, H, D], "layout": "BSHD", "kv_heads": Hkv,
+            "window": W, "dtype": "bfloat16", "max_abs_err": err,
+            "max_abs_grad": top, "emulation_err": emu_err,
+            "ms": graph_ms(torch, lambda kern=kern: kern(
+                qt, kt, vt, dot, lse, delta, causal=True, window=W), 20),
+            "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
+            "timing": "ms: a CUDA graph of the calls; library_ms, "
+                      "profiled_ms: device spans under torch.profiler "
+                      "after the timed phases; plain_ms: eager calls",
+            "bound_ms": max(ops / H100_BF16_OPS,
+                            nbytes / H100_HBM_BPS) * 1e3,
+            "bound_by": ("operations" if ops / H100_BF16_OPS
+                         > nbytes / H100_HBM_BPS else "bytes")})
+    return rows
+
+
+def serve_recurrent_phase(torch, np, engines, exec_cfg, arch, get_config,
+                          LayeredModel, tree_leaves, is_spec, packing, ssm,
+                          ServeConfig, sample_batch, counters, dev):
+    """``arch`` (hymba-1.5b or rwkv6-1.6b) at full width and, host
+    allowing, full depth with the serve phase's engine settings, every
+    counter set to 0 just before and read just after: decode_init on 4
+    prompts of 16 tokens, 8 greedy steps, Engine.prefill on the prompts
+    and at B=2 x S=2048 (for hymba also at B=1 x S=4096, where its 2048
+    window masks), then 12 greedy requests (prompts of 8-32 tokens, 4-8
+    new) into 8 slots (the ServeEngine forces a recurrent family's prefill
+    chunk to 1).  Not counted: the request that waited longest alone (its
+    tokens equal to the crowd's bit for bit), prefill against decode_init
+    in f32 at depth 2 and in bf16 at depths 1, 4 (also at fan-in scales)
+    and the full depth, one layer's scan at the 2 x 2048 prefill's shape
+    timed.  -> (line, launches, routes)."""
+    from repro_torch.testing import fan_in_params
+    B, P, GEN = 4, 16, 8
+    full = get_config(arch, "full")
+    (row,) = group_rows(LayeredModel, tree_leaves, is_spec, full)
+    depth = host_depth(row, full.n_layers, reserve=24 * 2 ** 30)
+    cfg = full.replace(n_layers=depth, use_pallas=True)
+    hybrid = cfg.family == "hybrid"
+    eng = engines.create("l2l", cfg, exec_cfg)
+    t0 = time.perf_counter()
+    params = eng.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eps = params["groups"][0].segs["float32"]
+    assert eps.is_pinned() and eps.shape == (depth, row // 4)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    long = torch.randint(0, cfg.vocab_size, (2, 2048), device=dev,
+                         generator=torch.Generator(dev).manual_seed(2))
+    longer = torch.randint(0, cfg.vocab_size, (1, 4096), device=dev,
+                           generator=torch.Generator(dev).manual_seed(3))
+    rs = np.random.RandomState(6)
+    n_req = 12
+    lens = rs.randint(8, 33, size=n_req)
+    news = rs.randint(4, 9, size=n_req)
+    prompts = [rs.randint(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+               for n in lens]
+    scfg = ServeConfig(**REC_CROWD)
+
+    def serve(reqs_in):
+        srv = eng.serve_session(params, scfg)
+        reqs = [srv.submit(p, int(n)) for p, n in reqs_in]
+        ticks = []
+        t0 = time.perf_counter()
+        while not srv.scheduler.idle:
+            t1 = time.perf_counter()
+            srv.tick()
+            ticks.append(time.perf_counter() - t1)
+        return srv, reqs, ticks, time.perf_counter() - t0
+
+    # ---------------------------------------------- the counted main path
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    t0 = time.perf_counter()
+    caches, last = eng.decode_init(params, prompt, P + GEN)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tok = sample_batch(last)[:, None]
+    toks = [tok]
+    f0, b0 = counters["relay_copy"].launches, counters["relay_copy"].bytes
+    t0 = time.perf_counter()
+    for i in range(GEN):
+        logits, caches = eng.decode_step(params, caches, tok, P + i)
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        tok = sample_batch(logits[:, -1])[:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    fetches_per_step = (counters["relay_copy"].launches - f0) / GEN
+    step_bytes = (counters["relay_copy"].bytes - b0) / GEN
+    decode_peak = torch.cuda.max_memory_allocated()
+    pl = eng.prefill(params, {"tokens": prompt})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pl2 = eng.prefill(params, {"tokens": long})
+    torch.cuda.synchronize()
+    t_pf2 = time.perf_counter() - t0
+    peak_2048 = torch.cuda.max_memory_allocated()
+    pf4 = {}
+    if hybrid:
+        k2 = counters["flash_attention_fwd"].launches
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pl4 = eng.prefill(params, {"tokens": longer})
+        torch.cuda.synchronize()
+        pf4 = {"prefill_4096_s": time.perf_counter() - t0,
+               "prefill_4096_k2_launches":
+                   counters["flash_attention_fwd"].launches - k2,
+               "prefill_4096_peak_allocated_bytes":
+                   torch.cuda.max_memory_allocated()}
+        assert pl4.shape == (1, cfg.vocab_size) and \
+            bool(torch.isfinite(pl4).all())
+    torch.cuda.reset_peak_memory_stats()
+    f0, b0 = counters["relay_copy"].launches, counters["relay_copy"].bytes
+    srv, reqs, ticks, secs = serve(zip(prompts, news))
+    crowd_fetches = counters["relay_copy"].launches - f0
+    crowd_bytes = counters["relay_copy"].bytes - b0
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    crowd_peak = torch.cuda.max_memory_allocated()
+    stats = srv.stats()
+    toks = torch.cat(toks, dim=1)
+
+    # ---------------------------------------------------- not counted
+    pick = max(range(n_req), key=lambda i: reqs[i].t_first)
+    _, (solo,), solo_ticks, solo_s = serve([(prompts[pick], news[pick])])
+
+    def gap(d, dt, sub=None):
+        """prefill's last logits against decode_init's, relative L2, at
+        depth d in dtype dt: on the first d rows, or on ``sub``."""
+        e = engines.create("l2l", cfg.replace(n_layers=d, dtype=dt),
+                           exec_cfg)
+        sub = sub or {**params, "groups": (packing.Packed(
+            {"float32": eps[:d]}, params["groups"][0].spec),)}
+        _, want = e.decode_init(sub, prompt, P)
+        got = e.prefill(sub, {"tokens": prompt})
+        return float((got.float() - want.float()).norm()
+                     / want.float().norm())
+
+    gen = torch.Generator(dev).manual_seed(4)
+    fan = fan_in_params(LayeredModel(cfg.replace(n_layers=4)).param_specs(),
+                        lambda shape: torch.randn(shape, generator=gen,
+                                                  device=dev))
+    gaps = {"f32_depth2": gap(2, "float32"), "bf16_depth1": gap(1, "bfloat16"),
+            "bf16_depth4": gap(4, "bfloat16"),
+            "bf16_full": float((pl.float() - last.float()).norm()
+                               / last.float().norm()),
+            "bf16_depth4_fan_in": gap(4, "bfloat16", fan)}
+    del fan
+    agree = int((pl.argmax(-1) == last.argmax(-1)).sum())
+    fn, scan = scan_fn(torch, ssm, cfg, 2, 2048, dev)
+    with torch.inference_mode():
+        scan["ms_per_layer"] = time_ms(torch, fn, 2, warmup=1)
+    scan["timing"] = ("CUDA events around eager calls: the host's issue "
+                      "time where it is the longer")
+    est = eng.serve_memory_estimate(scfg)
+    n = len(ticks)
+    line = {
+        "phase": "serve-recurrent", "arch": full.name, "depth": depth,
+        "full_depth": full.n_layers, "family": cfg.family,
+        "reduced": (None if depth == full.n_layers else
+                    f"depth {full.n_layers} -> {depth}: host memory for "
+                    "the pinned EPS"),
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "heads": ([cfg.n_heads, cfg.n_kv_heads, cfg.d_head] if hybrid
+                  else [cfg.rwkv_heads, cfg.rwkv_head_dim]),
+        "window": cfg.sliding_window, "layer_row_bytes": row,
+        "eps_pinned_bytes": depth * row, "init_s": init_s,
+        "batch": B, "prompt": P, "steps": GEN, "tokens": toks.tolist(),
+        "decode_init_s": t_init, "decode_s": t_dec,
+        "tok_per_s": B * GEN / t_dec,
+        "relay_fetches_per_step": fetches_per_step,
+        "relay_bytes_per_step": step_bytes,
+        "relay_GBps": GEN * step_bytes / t_dec / 1e9,
+        "decode_peak_allocated_bytes": decode_peak,
+        "prefill_2048_s": t_pf2, "prefill_tok_per_s_2048": 2 * 2048 / t_pf2,
+        "prefill_2048_peak_allocated_bytes": peak_2048, **pf4,
+        "scan_layer": scan,
+        "rel_l2_prefill_vs_decode_init": gaps,
+        "argmax_agree": agree,
+        "continuous": {
+            "serve_config": REC_CROWD,
+            "prefill_chunk_run": srv.cfg.prefill_chunk, "requests": n_req,
+            "prompt_lens": lens.tolist(), "max_new": news.tolist(),
+            "ticks": n, "seconds": secs,
+            "tokens": sum(len(r.generated) for r in reqs),
+            "tok_per_s": sum(len(r.generated) for r in reqs) / secs,
+            "tick_s_median": float(np.median(ticks)),
+            "relay_fetches_per_tick": crowd_fetches / n,
+            "relay_GBps": crowd_bytes / secs / 1e9,
+            "scheduler_stats": stats,
+            "peak_allocated_bytes": crowd_peak,
+            "estimate_serve": {k: getattr(est, k) for k in (
+                "kv_page_bytes", "slot_state_bytes", "total_device")},
+            "solo": {"request": pick, "ticks": len(solo_ticks),
+                     "seconds": solo_s,
+                     "tok_per_s": len(solo.generated) / solo_s,
+                     "tokens": solo.generated}},
+        "launches": launches}
+    emit(line)
+    assert toks.shape == (B, GEN + 1) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all())
+    assert pl2.shape == (2, cfg.vocab_size) and bool(torch.isfinite(pl2).all())
+    # one fetch a layer, and the prefetch ring's clamped re-fetch at the
+    # end of the pass
+    assert fetches_per_step == depth + 1, fetches_per_step
+    if hybrid:
+        # the 4096-token prefill ran K2 (window 2048) once a layer
+        assert pf4["prefill_4096_k2_launches"] == depth, pf4
+    # f32 at depth 2: the dense phases' 1e-4 (a wrong mask, position or
+    # state shows as O(1)); bf16 at depth 1 and at depth 4 with fan-in
+    # scales: 0.1.  bf16 at full depth is printed, not bounded: at the
+    # reference's init (std 1/sqrt(depth) for every matrix) the stack
+    # amplifies the decode's bf16 state rounding (the reference's cast
+    # points) without limit
+    assert gaps["f32_depth2"] <= 1e-4 and gaps["bf16_depth1"] <= 0.1 and \
+        gaps["bf16_depth4_fan_in"] <= 0.1, gaps
+    assert srv.cfg.prefill_chunk == 1, srv.cfg
+    for r, m in zip(reqs, news):
+        assert r.status == "done" and len(r.generated) == m and all(
+            0 <= t < cfg.vocab_size for t in r.generated), (r.rid, r.status)
+    assert stats["free_pages"] == REC_CROWD["n_pages"] and \
+        stats["free_slots"] == REC_CROWD["max_batch"] and \
+        stats["active"] == 0 and stats["pending"] == 0, stats
+    assert solo.generated == reqs[pick].generated, \
+        ("crowded and solo tokens differ", pick)
+    del eng, params, eps, caches, srv, pl, pl2, last, logits, fn
+    pf4.clear()
+    free_host(torch)
+    return line, launches, routes
+
+
+def train_recurrent_phase(torch, np, engines, ExecutionConfig, knobs, arch,
+                          get_config, LayeredModel, tree_leaves, is_spec,
+                          SyntheticLM, DataConfig, adam, make_schedule,
+                          counters, dev):
+    """``arch`` at full width and, host allowing, full depth under l2l-p
+    with the train phase's knobs, B=8 x S=512, UB=2, 3 steps, every
+    counter set to 0 just before and read just after.  Then, not counted:
+    Engine.grads in f32 at depth 2 under l2l-p against the baseline engine
+    at fan-in scales, the relay knobs (pack, prefetch, G) at depth 3 in
+    bf16 against the plain schedule's grads bit for bit, and one l2l-p
+    step at depth 2 run twice from the same state, bitwise.
+    -> (line, launches, routes)."""
+    from repro_torch.testing import fan_in_params
+    B, S, UB, STEPS = 8, 512, 2, 3
+    full = get_config(arch, "full")
+    (row,) = group_rows(LayeredModel, tree_leaves, is_spec, full)
+    # w, m and v, twice at the step's peak (the step is functional)
+    depth = host_depth(6 * row, full.n_layers, reserve=16 * 2 ** 30)
+    assert depth >= 3, "the host cannot pin three layers' training state"
+    cfg = full.replace(n_layers=depth, use_pallas=True)
+    opt = adam(schedule=make_schedule(1e-4, warmup=10))
+    eng = engines.create("l2l-p", cfg, ExecutionConfig(n_microbatches=UB,
+                                                       **knobs),
+                         optimizer=opt)
+    t0 = time.perf_counter()
+    state = eng.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                   seed=0)).batch(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    fetch0, wb0 = counters["relay_copy"].bytes, \
+        counters["relay_copy_writeback"].bytes
+    steps = []
+    for i in range(STEPS):
+        t0 = time.perf_counter()
+        state, metrics = eng.train_step(state, batch)
+        issued = time.perf_counter() - t0
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps.append({"step": i, "s": dt, "host_issue_s": issued,
+                      "tok_per_s": B * S / dt, "loss": loss,
+                      "grad_norm": float(metrics["grad_norm"])})
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    fetched = counters["relay_copy"].bytes - fetch0
+    written = counters["relay_copy_writeback"].bytes - wb0
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.mean([s["s"] for s in steps[1:]]))
+    out = {"phase": "train-recurrent", "arch": full.name, "depth": depth,
+           "full_depth": full.n_layers,
+           "reduced": (None if depth == full.n_layers else
+                       f"depth {full.n_layers} -> {depth}: w, m and v "
+                       "pinned, twice at the step's peak"),
+           "d_model": cfg.d_model, "batch": B, "seq": S,
+           "microbatches": UB, "knobs": knobs, "init_s": init_s,
+           "eps_pinned_bytes": 3 * depth * row, "steps": steps,
+           "steady_s_per_step": steady,
+           "relay_in_bytes_per_step": fetched / STEPS,
+           "relay_out_bytes_per_step": written / STEPS,
+           "relay_in_GBps": fetched / STEPS / steady / 1e9,
+           "relay_out_GBps": written / STEPS / steady / 1e9,
+           "peak_allocated_bytes": peak,
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "launches_per_step": {n: v / STEPS for n, v in launches.items()}}
+    assert all(np.isfinite(s["loss"]) for s in steps), steps
+    del eng, state, metrics
+    free_host(torch)
+
+    # Engine.grads in f32 at depth 2: l2l-p (the train knobs) against the
+    # baseline engine, parameters at fan-in scales
+    g2 = cfg.replace(n_layers=2, dtype="float32")
+    gen = torch.Generator(dev).manual_seed(1)
+    params = fan_in_params(LayeredModel(g2).param_specs(),
+                           lambda shape: torch.randn(shape, generator=gen,
+                                                     device=dev))
+    lb, gb = engines.create("baseline", g2, ExecutionConfig(
+        n_microbatches=UB)).grads(params, batch)
+    ll, gl = engines.create("l2l-p", g2, ExecutionConfig(
+        n_microbatches=UB, **knobs)).grads(params, batch)
+    torch.cuda.synchronize()
+    lb_ = tree_leaves(gb)
+    la = [a.to(b.device) for a, b in zip(tree_leaves(gl), lb_)]
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(la, lb_))
+    rel_max = max_abs / max(float(b.abs().max()) for b in lb_)
+    out["grads_check"] = {
+        "dtype": "float32", "depth": 2,
+        "params": "fan-in scales (fan_in_params)",
+        "loss_l2l_p": float(ll), "loss_baseline": float(lb),
+        "max_abs": max_abs, "rel_max": rel_max, "bound_rel_max": 1e-5,
+        "bitwise": all(torch.equal(a, b) for a, b in zip(la, lb_))}
+    assert rel_max <= 1e-5 and \
+        abs(float(ll) - float(lb)) <= 1e-5 * abs(float(lb)), \
+        out["grads_check"]
+    del gb, gl, la, lb_
+
+    # the relay knobs at depth 3 (G = 2 does not divide it), bf16 compute:
+    # every point's grads equal the plain schedule's bit for bit
+    g3 = cfg.replace(n_layers=3)
+    p3 = fan_in_params(LayeredModel(g3).param_specs(),
+                       lambda shape: torch.randn(shape, generator=gen,
+                                                 device=dev))
+    b3 = {k: v[:4] for k, v in batch.items()}
+    want = engines.create("l2l-p", g3, ExecutionConfig(
+        n_microbatches=UB)).grads(p3, b3)
+    grid = [dict(weight_stream=True, pack_params=pk, prefetch_depth=k,
+                 layers_per_relay=gr, transport="pallas")
+            for pk, k, gr in ((False, 0, 1), (True, 1, 2), (False, 1, 3),
+                              (True, 2, 1))]
+    for kw in grid:
+        got = engines.create("l2l-p", g3, ExecutionConfig(
+            n_microbatches=UB, **kw)).grads(p3, b3)
+        torch.cuda.synchronize()
+        assert float(got[0]) == float(want[0]) and all(
+            torch.equal(a.to(b.device), b) for a, b in
+            zip(tree_leaves(got[1]), tree_leaves(want[1]))), kw
+    out["knob_grid"] = {"depth": 3, "batch": [4, S], "points": grid,
+                        "bitwise": True}
+    del params, p3, want, got
     free_host(torch)
 
     # one l2l-p step at depth 2, twice from the same state: bitwise
@@ -1965,13 +2520,14 @@ def backward_device_ms(torch, F, dev, fa, rows, gqa):
     (``k3_gqa_check``'s result, which gains the same keys).  With kv heads
     fewer than q heads, SDPA gets them repeated inside the autograd graph,
     so its backward also sums dk and dv over each group, as K3b does."""
-    def measure(B, S, H, Hkv, D):
+    def measure(B, S, H, Hkv, D, window=0):
         g = torch.Generator(dev).manual_seed(11)
         q, do = (torch.randn(B, S, H, D, generator=g, device=dev)
                  .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
         k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev)
                 .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
-        o, lse = fa.flash_attention_fwd_bhsd(q, k, v, causal=True)
+        o, lse = fa.flash_attention_fwd_bhsd(q, k, v, causal=True,
+                                             window=window)
         delta = (do.float() * o.float()).sum(-1).contiguous()
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
         ke, ve = (ks, vs) if Hkv == H else (
@@ -1984,21 +2540,85 @@ def backward_device_ms(torch, F, dev, fa, rows, gqa):
         for kern in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
             res[kern.__name__ + "_device_ms"] = device_ms(
                 torch, lambda kern=kern: kern(q, k, v, do, lse, delta,
-                                              causal=True), 20)
+                                              causal=True, window=window), 20)
         return res
 
     B, S, H, D = next(r["shape"] for r in rows
                       if r["name"] == "flash_attention_bwd_dq")
     out = {"phase": "library", **measure(B, S, H, H, D)}
-    for r in rows:
-        if r["name"] in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+    k3 = [r for r in rows if r["name"] in ("flash_attention_bwd_dq",
+                                           "flash_attention_bwd_dkv")]
+    for r in k3:
+        if "cell" not in r:
             r["library_ms"] = out["sdpa_backward_device_ms"]
             r["profiled_ms"] = out[r["name"] + "_device_ms"]
+    # hymba's microbatch (GQA 25 over 5; its 2048 window covers S = 512,
+    # so SDPA's causal mask is the same mask)
+    hy = [r for r in k3 if r.get("cell") == "hymba train microbatch"]
+    B, S, H, D = hy[0]["shape"]
+    assert hy[0]["window"] >= S
+    out["hymba"] = measure(B, S, H, hy[0]["kv_heads"], D, hy[0]["window"])
+    for r in hy:
+        r["library_ms"] = out["hymba"]["sdpa_backward_device_ms"]
+        r["profiled_ms"] = out["hymba"][r["name"] + "_device_ms"]
+        r["library_covers"] = ("SDPA backward over the kv heads repeated: "
+                               "dq, dk and dv")
     B, S, H, D = gqa["shape"]
     out["gqa"] = measure(B, S, H, gqa["kv_heads"], D)
     gqa["library_ms"] = out["gqa"]["sdpa_backward_device_ms"]
     gqa["library_covers"] = ("SDPA backward over the kv heads repeated: "
                              "dq, dk and dv")
+    return out
+
+
+def scan_profile(torch, ssm, get_config, dev):
+    """After the timed phases: one layer's sequence scan of each recurrent
+    family at the 2 x 2048 prefill's shape (``scan_fn``) under
+    torch.profiler: its device time (the summed spans), the device
+    operations it launched, and the wall time of the call."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {"phase": "scan-profile"}
+    for arch in RECURRENT_ARCHS:
+        fn, info = scan_fn(torch, ssm, get_config(arch, "full"), 2, 2048,
+                           dev)
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[arch] = {**info, "device_ms": sum(spans) / 1e3,
+                     "device_launches": len(spans), "wall_ms": wall * 1e3}
+        del fn
+    return out
+
+
+def recurrent_profiles(torch, engines, ExecutionConfig, knobs, get_config,
+                       SyntheticLM, DataConfig, adam, make_schedule, dev):
+    """After the timed phases: one l2l-p step of each recurrent family at
+    full width and depth 4, with train-recurrent's knobs and batch, under
+    torch.profiler (``profile_step``, after one step unprofiled): the
+    device's idle share of the step and its time by kernel."""
+    out = {"phase": "recurrent-profile", "depth": 4}
+    for arch in RECURRENT_ARCHS:
+        cfg = get_config(arch, "full").replace(n_layers=4, use_pallas=True)
+        eng = engines.create("l2l-p", cfg, ExecutionConfig(
+            n_microbatches=2, **knobs), optimizer=adam(
+                schedule=make_schedule(1e-4, warmup=10)))
+        state = eng.init(torch.Generator(dev).manual_seed(0))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+            DataConfig(vocab_size=cfg.vocab_size, seq_len=512,
+                       global_batch=8, seed=0)).batch(0).items()}
+        state, m = eng.train_step(state, batch)
+        float(m["loss"])
+        out[arch] = profile_step(torch, eng, state, batch)
+        del eng, state, m
+        free_host(torch)
     return out
 
 
@@ -2071,6 +2691,7 @@ def main(argv=None):
     from repro_torch.core import packing
     from repro_torch.core.decode import init_caches
     from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import ssm
     from repro_torch.models.common import is_spec
     from repro_torch.models.model import LayeredModel
     from repro_torch.serve import ServeConfig
@@ -2183,11 +2804,13 @@ def main(argv=None):
     # rows in bf16, and the prompt rows in f32 (32 KB rows, the kernel's
     # widest), the depth-1 check's dtype; then deepseek-v2-lite's at the
     # serve-moe prefill's 2 x 2048 rows: MLA's kv_norm (width 512) and the
-    # block norms (2048).  bf16 within one bf16 ulp of the
+    # block norms (2048); then hymba-1.5b's width 1600 at its decode rows
+    # and its 2 x 2048 prefill's.  bf16 within one bf16 ulp of the
     # plain version; f32 within 1e-5 of its largest value (the sums run in
     # another order)
     qwen = get_config("qwen1.5-110b", "full")
     moe_cfg = get_config(MOE_ARCH, "full")
+    hymba = get_config("hymba-1.5b", "full")
     for R, d, dt in ((4, cfg.d_model, torch.bfloat16),
                      (4 * 2048, cfg.d_model, torch.bfloat16),
                      (CROWD["max_batch"] * CROWD["prefill_chunk"],
@@ -2196,7 +2819,9 @@ def main(argv=None):
                      (4 * 16, qwen.d_model, torch.bfloat16),
                      (4 * 16, qwen.d_model, torch.float32),
                      (2 * 2048, moe_cfg.kv_lora_rank, torch.bfloat16),
-                     (2 * 2048, moe_cfg.d_model, torch.bfloat16)):
+                     (2 * 2048, moe_cfg.d_model, torch.bfloat16),
+                     (4, hymba.d_model, torch.bfloat16),
+                     (2 * 2048, hymba.d_model, torch.bfloat16)):
         scale = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
         wb = scale.to(dt)
         x = torch.randn(R, d, generator=g, device=dev).to(dt)
@@ -2326,6 +2951,10 @@ def main(argv=None):
         lib_o, emu_o, fns
     rows += train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, ref,
                               get_config, LayeredModel, tree_leaves, is_spec)
+    # hymba's attention: K2 at its window prefill, K3a and K3b at its
+    # training microbatch (GQA 25 over 5, window 2048)
+    rows += hymba_attention_rows(torch, F, dev, g, fa, kops, ref,
+                                 hymba)
     torch.cuda.empty_cache()
     report["kernels"] = {"phase": "kernels", "rows": rows}
     emit(report["kernels"])
@@ -2710,6 +3339,31 @@ def main(argv=None):
           "serve_moe": report["serve_moe"]["phase_seconds"],
           "train_moe": report["train_moe"]["phase_seconds"]})
 
+    # ------------------------------------------ serve- and train-recurrent
+    rec_launches, rec_routes = {}, {}
+    for arch in RECURRENT_ARCHS:
+        key = arch.split("-")[0]
+        t0 = time.perf_counter()
+        line, rec_launches["serve-" + key], rec_routes["serve-" + key] = \
+            serve_recurrent_phase(torch, np, engines, exec_cfg, arch,
+                                  get_config, LayeredModel, tree_leaves,
+                                  is_spec, packing, ssm, ServeConfig,
+                                  sample_batch, counters, dev)
+        line["phase_seconds"] = time.perf_counter() - t0
+        report["serve_recurrent_" + key] = line
+        t0 = time.perf_counter()
+        line, rec_launches["train-" + key], rec_routes["train-" + key] = \
+            train_recurrent_phase(torch, np, engines, ExecutionConfig,
+                                  slice_knobs, arch, get_config,
+                                  LayeredModel, tree_leaves, is_spec,
+                                  SyntheticLM, DataConfig, adam,
+                                  make_schedule, counters, dev)
+        line["phase_seconds"] = time.perf_counter() - t0
+        report["train_recurrent_" + key] = line
+    emit({"phase": "recurrent-seconds", **{
+        k: v["phase_seconds"] for k, v in report.items()
+        if "recurrent" in k}})
+
     # ---------------------------------------------------------------- train
     report["train"], step1, train_keep = train_phase(
         torch, engines, ExecutionConfig, bert, slice_knobs, SyntheticLM,
@@ -2739,6 +3393,12 @@ def main(argv=None):
     report["library"] = backward_device_ms(torch, F, dev, fa, rows,
                                            report["train_rmsnorm"]["k3_gqa"])
     emit(report["library"])
+    report["scan_profile"] = scan_profile(torch, ssm, get_config, dev)
+    emit(report["scan_profile"])
+    report["recurrent_profile"] = recurrent_profiles(
+        torch, engines, ExecutionConfig, slice_knobs, get_config,
+        SyntheticLM, DataConfig, adam, make_schedule, dev)
+    emit(report["recurrent_profile"])
 
     # --------------------------------------------------------- memory-model
     # the analytic model (the reference's buffers, not PyTorch's
@@ -2768,17 +3428,17 @@ def main(argv=None):
                 "train": train_launches, "train-rmsnorm": rms_launches,
                 "dynamic-depth": dyn_launches,
                 "host-optimizer": host_launches,
-                "serve-moe": smoe_launches, "train-moe": tmoe_launches}
+                "serve-moe": smoe_launches, "train-moe": tmoe_launches,
+                **rec_launches}
     routes = {"serve": serve_routes, "serve-dense": dense_routes,
               "serve-continuous": cont_routes,
               "train": train_routes, "train-rmsnorm": rms_routes,
               "dynamic-depth": dyn_routes, "host-optimizer": host_routes,
-              "serve-moe": smoe_routes, "train-moe": tmoe_routes}
+              "serve-moe": smoe_routes, "train-moe": tmoe_routes,
+              **rec_routes}
     emit({"launches": launches, "routes": routes})
-    assert len(launches) == 9, sorted(launches)
-    for path in ("serve-dense", "serve-continuous", "train",
-                 "train-rmsnorm", "dynamic-depth", "host-optimizer",
-                 "serve-moe", "train-moe"):
+    assert len(launches) == 13, sorted(launches)
+    for path in [p for p in launches if p != "serve"]:
         got, by = launches[path], routes[path]
         # every bf16 K2, K3a and K3b launch of the path took the wgmma route
         for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -2808,7 +3468,13 @@ def main(argv=None):
                     "host-optimizer": train_kernels[:-1],
                     "serve-moe": ("relay_copy", "rmsnorm"),
                     "train-moe": ("relay_copy", "relay_copy_writeback",
-                                  "rmsnorm", "fused_adam")}
+                                  "rmsnorm", "fused_adam"),
+                    "serve-hymba": ("relay_copy", "rmsnorm",
+                                    "flash_attention_fwd"),
+                    "train-hymba": train_kernels + ("rmsnorm",),
+                    "serve-rwkv6": ("relay_copy",),
+                    "train-rwkv6": ("relay_copy", "relay_copy_writeback",
+                                    "fused_adam")}
     for path, names in path_kernels.items():
         assert all(launches[path].get(n, 0) > 0 for n in names), \
             (path, launches[path])
@@ -2819,6 +3485,12 @@ def main(argv=None):
         assert all(launches[path][n] == 0 for n in (
             "flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")), (path, launches[path])
+    # rwkv6 has no attention and norms by layernorm (plain arithmetic in
+    # both packages): no K2, K3 or K5 on its paths
+    for path in ("serve-rwkv6", "train-rwkv6"):
+        assert all(launches[path][n] == 0 for n in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv", "rmsnorm")), (path, launches[path])
     # the host optimizer's path runs no K1: the update is on the host
     assert launches["host-optimizer"]["fused_adam"] == 0, launches
     total = {n: sum(launches[p].get(n, 0) for p in launches)

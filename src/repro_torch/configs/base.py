@@ -202,4 +202,5 @@ def _load_all():
     from repro_torch.configs import (bert_large, chatglm3_6b,  # noqa: F401
                                      command_r_35b, deepseek_v2_lite_16b,
                                      granite_3_8b, grok_1_314b,
-                                     qwen1_5_110b)
+                                     hymba_1_5b, qwen1_5_110b,
+                                     rwkv6_1_6b)

@@ -4,8 +4,10 @@ of ``repro/core/decode.py``).
 With ``weight_stream`` the model rests in pinned host memory and every
 decode step relays the layer stack through HBM one slot at a time — the
 paper's constant device footprint, applied to inference.  Caches are
-updated IN PLACE: a step writes each layer's new k/v/pos into the stacked
-cache tensors it was given (the reference returns new caches).
+updated IN PLACE: a step writes each layer's new k/v/pos, and the
+recurrent families' state (mamba's ``h`` and conv window, rwkv's ``wkv``
+and token shifts, rounded to the cache dtype), into the stacked cache
+tensors it was given (the reference returns new caches).
 
 With ``dynamic_depth`` a step runs the first ``n_active`` layers: the
 others leave the hidden state and their cache rows untouched, and their
@@ -68,8 +70,9 @@ def make_serve_step(model, exec_cfg: ExecutionConfig,
 
 
 def init_caches(model, batch: int, live_seq: int, device="cpu", dtype=None):
-    """The stacked decode caches: k/v zeros in the compute dtype, position
-    slots int32 starting at -1 (invalid)."""
+    """The stacked decode caches: k/v and recurrent state zeros in the
+    compute dtype (the reference's ``cfg.dtype``: bf16 state is rounded
+    after every step), position slots int32 starting at -1 (invalid)."""
     dtype = dtype or model.dtype()
 
     def build(t, name=None):

@@ -1,10 +1,10 @@
 """Per-family layer blocks with a uniform interface (the port of
-``repro/models/blocks.py``: the dense and MoE families so far).
+``repro/models/blocks.py``: the dense, MoE, hybrid and SSM families).
 
 * ``spec(cfg)``                          — ParamSpec tree for ONE layer
 * ``apply(w, x, mem, ctx, cfg)``         — full-seq forward -> (x', aux)
 * ``decode(w, x, cache, mem, ctx, cfg)`` — one step -> (x', cache), the
-  cache updated in place
+  cache updated in place (KV slots and recurrent state alike)
 * ``cache_spec(cfg, batch, live)``       — per-layer decode cache specs
 """
 from __future__ import annotations
@@ -12,7 +12,8 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import apply_norm, norm_spec
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import ParamSpec, apply_norm, norm_spec
 from repro_torch.models.mlp import mlp_apply, mlp_spec
 from repro_torch.models.moe import moe_apply, moe_spec
 
@@ -115,3 +116,85 @@ def moe_block_decode(w, x, cache, mem, ctx: Ctx, cfg):
     else:
         y = mlp_apply(w["ffn"], h2, cfg)
     return x + y, cache
+
+
+def _write_state(cache, new):
+    """Recurrent state into the cache's own tensors, in place (the stacked
+    cache's layer view, or the serve tick's slot view): the reference
+    returns a new cache; here the step's caller keeps the one it gave."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+
+
+# ===========================================================================
+# Hybrid block (hymba: parallel attention + mamba heads)
+# ===========================================================================
+def hybrid_spec(cfg) -> dict:
+    return {"ln1": norm_spec(cfg), "attn": attn.gqa_spec(cfg),
+            "mamba": ssm_mod.mamba_spec(cfg),
+            "beta_a": ParamSpec((cfg.d_model,), ("d_model",), "ones"),
+            "beta_s": ParamSpec((cfg.d_model,), ("d_model",), "ones"),
+            "ln2": norm_spec(cfg), "mlp": mlp_spec(cfg)}
+
+
+def hybrid_apply(w, x, mem, ctx: Ctx, cfg):
+    h = _norm(w["ln1"], x, cfg)
+    a = attn.self_attention(w["attn"], h, cfg, ctx.positions,
+                            causal=ctx.causal, window=ctx.window)
+    s = ssm_mod.mamba_apply(w["mamba"], h, cfg)
+    fused = 0.5 * (a * w["beta_a"].to(x.dtype)
+                   + s * w["beta_s"].to(x.dtype))
+    x = x + fused
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+    return x, 0.0
+
+
+def hybrid_decode(w, x, cache, mem, ctx: Ctx, cfg):
+    h = _norm(w["ln1"], x, cfg)
+    a, _ = attn.decode_self_attention(w["attn"], h, cache["kv"], cfg,
+                                      ctx.cur_pos, window=ctx.window)
+    s, st = ssm_mod.mamba_decode(w["mamba"], h, cache["ssm"], cfg)
+    _write_state(cache["ssm"], st)
+    fused = 0.5 * (a * w["beta_a"].to(x.dtype)
+                   + s * w["beta_s"].to(x.dtype))
+    x = x + fused
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+    return x, cache
+
+
+def hybrid_cache_spec(cfg, batch, live):
+    return {"kv": attn.kv_cache_spec(cfg, batch, live),
+            "ssm": ssm_mod.mamba_state_spec(cfg, batch)}
+
+
+# ===========================================================================
+# RWKV6 block (attention-free)
+# ===========================================================================
+def rwkv_spec(cfg) -> dict:
+    return {"ln1": norm_spec(cfg), **ssm_mod.rwkv6_spec(cfg),
+            "ln2": norm_spec(cfg)}
+
+
+def rwkv_apply(w, x, mem, ctx: Ctx, cfg):
+    y, _ = ssm_mod.rwkv6_time_mix(w["tm"], _norm(w["ln1"], x, cfg), cfg)
+    x = x + y
+    y, _ = ssm_mod.rwkv6_channel_mix(w["cm"], _norm(w["ln2"], x, cfg))
+    return x + y, 0.0
+
+
+def rwkv_decode(w, x, cache, mem, ctx: Ctx, cfg):
+    tm_state = {"wkv": cache["wkv"], "shift": cache["tm_shift"]}
+    y, tm_new = ssm_mod.rwkv6_time_mix(w["tm"], _norm(w["ln1"], x, cfg),
+                                       cfg, state=tm_state)
+    x = x + y
+    y, cm_new = ssm_mod.rwkv6_channel_mix(
+        w["cm"], _norm(w["ln2"], x, cfg), state={"shift": cache["cm_shift"]})
+    x = x + y
+    # copy_ rounds to the cache's dtype, as the reference's astype
+    _write_state(cache, {"wkv": tm_new["wkv"], "tm_shift": tm_new["shift"],
+                         "cm_shift": cm_new["shift"]})
+    return x, cache
+
+
+def rwkv_cache_spec(cfg, batch, live):
+    return ssm_mod.rwkv6_state_spec(cfg, batch)

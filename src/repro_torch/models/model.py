@@ -1,5 +1,6 @@
 """LayeredModel: the layer-granular model API the L2L engine executes (the
-port of ``repro/models/model.py``: the dense and MoE families).
+port of ``repro/models/model.py``: the dense, MoE, hybrid and SSM
+families).
 
 A model is ``prepare`` (embeddings) -> homogeneous layer groups, each run
 over a stacked ``(N, ...)`` parameter tree, joined by a ``transition``
@@ -71,9 +72,17 @@ class LayeredModel:
                         blocks.moe_block_apply, blocks.moe_block_decode,
                         blocks.dense_cache_spec))
             return tuple(gs)
+        if cfg.family == "hybrid":
+            return (G("layers", cfg.n_layers, blocks.hybrid_spec(cfg),
+                      blocks.hybrid_apply, blocks.hybrid_decode,
+                      blocks.hybrid_cache_spec),)
+        if cfg.family == "ssm":
+            return (G("layers", cfg.n_layers, blocks.rwkv_spec(cfg),
+                      blocks.rwkv_apply, blocks.rwkv_decode,
+                      blocks.rwkv_cache_spec),)
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs the dense and MoE "
-            "families so far")
+            f"family {cfg.family!r}: the port runs the dense, MoE, hybrid "
+            "and SSM families so far")
 
     # ------------------------------------------------------------------
     # parameters

@@ -159,9 +159,10 @@ def tick_index(table, pos, active, page_size: int, device="cpu") -> TickIndex:
 def gather_view(pool_layer, pages: GroupPages, table, page_size: int,
                 index: Optional[TickIndex] = None):
     """One layer's pool -> the contiguous (B, P*page_size, ...) per-slot
-    view the decode blocks expect (fresh tensors).  ``table``: (B, P)
-    physical page ids, -1 = unmapped; unmapped pages read physical page 0
-    but their ``pos`` entries are forced to -1, so attention masks them.
+    view the decode blocks expect (fresh tensors, the per-slot state
+    leaves copied).  ``table``: (B, P) physical page ids, -1 = unmapped;
+    unmapped pages read physical page 0 but their ``pos`` entries are
+    forced to -1, so attention masks them.
     ``index``: this tick's ``tick_index`` (else made from ``table``)."""
     if index is None:
         B = len(table)
@@ -172,7 +173,9 @@ def gather_view(pool_layer, pages: GroupPages, table, page_size: int,
 
     def one(spec, leaf):
         if not is_paged_spec(spec):
-            return leaf
+            # a copy: the decode blocks write recurrent state in place,
+            # and only the active rows may reach the pool (scatter_new)
+            return leaf.clone()
         g = leaf[index.safe].reshape((B, P * page_size)
                                      + tuple(leaf.shape[2:]))
         if _is_pos(spec):

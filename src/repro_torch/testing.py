@@ -5,11 +5,18 @@ from __future__ import annotations
 import math
 
 
+SCALES = ("scale", "kv_norm", "beta_a", "beta_s", "d_skip", "ln_scale")
+
+
 def fan_in_params(tree, randn):
     """Parameters at the usual scales, shaped like ``tree`` (ParamSpecs,
     tensors or arrays; the stacked layer groups inside tuples): weights
     N(0, 1/fan_in), biases and the embedding N(0, 0.02^2), norm scales
-    1 + N(0, 0.01) (MLA's ``kv_norm`` too).  An expert's matrices (under
+    and the other per-channel scales 1 + N(0, 0.01) (``SCALES``: MLA's
+    ``kv_norm``, hymba's branch scales ``beta_a`` / ``beta_s`` and its
+    skip ``d_skip``, rwkv's groupnorm ``ln_scale``; drawn as biases or
+    weights they would shrink a branch to a few percent, where a wrong
+    one hides inside any tolerance).  An expert's matrices (under
     ``experts``, ``(E, fan_in, fan_out)`` per layer) take the fan-in after
     the expert axis.  ``randn(shape)`` draws a standard normal tensor or
     array; the leaves are drawn in flatten order (dict keys sorted).
@@ -26,7 +33,7 @@ def fan_in_params(tree, randn):
         shape = tuple(node.shape)
         fan = shape[int(stacked) + int(expert):]
         x = randn(shape)
-        if name in ("scale", "kv_norm"):
+        if name in SCALES:
             return 1.0 + 0.1 * x
         if name.startswith("b") or name == "tok":
             return 0.02 * x

@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro_torch import bridge  # noqa: E402
 from repro_torch import engine as engines  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402

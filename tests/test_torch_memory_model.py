@@ -2,15 +2,19 @@
 against the reference's (``repro/core/memory_model.py``): the same
 integers and floats for the same model and knobs, at full width
 (arithmetic only, no weights) for granite-3-8b, bert-large,
-chatglm3-6b and deepseek-v2-lite-16b (two layer groups: a dense layer 0,
-26 MoE layers of 2.339 GB in f32); and the Engine facades' ``memory_estimate`` /
-``serve_memory_estimate`` with each engine's ``memory_mode``."""
+chatglm3-6b, deepseek-v2-lite-16b (two layer groups: a dense layer 0,
+26 MoE layers of 2.339 GB in f32), hymba-1.5b and rwkv6-1.6b (per-slot
+recurrent state in the serve pools; rwkv6 pages nothing); and the Engine
+facades' ``memory_estimate`` / ``serve_memory_estimate`` with each
+engine's ``memory_mode``."""
 import dataclasses
 import itertools
 
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro import engine as jengines  # noqa: E402
 from repro.configs.base import get_config as jget_config  # noqa: E402
@@ -25,7 +29,8 @@ from repro_torch.core.schedule import ExecutionConfig  # noqa: E402
 from repro_torch.models.model import LayeredModel  # noqa: E402
 from repro_torch.serve import ServeConfig  # noqa: E402
 
-ARCHS = ["granite-3-8b", "bert-large", "chatglm3-6b", "deepseek-v2-lite-16b"]
+ARCHS = ["granite-3-8b", "bert-large", "chatglm3-6b", "deepseek-v2-lite-16b",
+         "hymba-1.5b", "rwkv6-1.6b"]
 
 
 def _models(arch):
@@ -140,3 +145,31 @@ def test_deepseek_v2_lite_integers():
     got = mm.estimate(model, mode="l2l_p", **kw)
     _same(got, jmm.estimate(jmodel, mode="l2l_p", **kw))
     assert got.total_device < got.total_host
+
+
+def test_serve_slot_state_follows_max_batch_for_recurrent():
+    """tests/test_memory_model.py's test in the port, and the slot-state
+    and page bytes of both recurrent families at full width equal to the
+    reference's integers."""
+    model = LayeredModel(get_config("rwkv6-1.6b", "smoke"))
+    b4 = mm.estimate_serve(model, max_batch=4, page_size=8, n_pages=16,
+                           max_seq=64)
+    b8 = mm.estimate_serve(model, max_batch=8, page_size=8, n_pages=16,
+                           max_seq=64)
+    assert b4.slot_state_bytes > 0
+    assert b8.slot_state_bytes == 2 * b4.slot_state_bytes
+    # rwkv has NO paged leaves: the whole cache is per-slot state
+    assert b4.kv_page_bytes == 0
+    kw = dict(max_batch=8, page_size=16, n_pages=64, max_seq=256)
+    got = {}
+    for arch in ("hymba-1.5b", "rwkv6-1.6b"):
+        model, jmodel = _models(arch)
+        a, b = mm.estimate_serve(model, **kw), jmm.estimate_serve(jmodel, **kw)
+        _same(a, b)
+        got[arch] = (a.kv_page_bytes, a.slot_state_bytes)
+    # bf16 state: hymba's h (8, 1600, 16) and conv window (8, 3, 1600) per
+    # layer, 32 layers; rwkv6's wkv (8, 32, 64, 64) and two shifts (8, 2048)
+    # per layer, 24 layers
+    assert got["hymba-1.5b"][1] == 32 * 2 * 8 * (1600 * 16 + 3 * 1600)
+    assert got["rwkv6-1.6b"] == (0, 24 * 2 * 8 * (32 * 64 * 64 + 2 * 2048))
+    assert got["hymba-1.5b"][0] == 32 * 64 * 16 * (2 * 2 * 5 * 64 + 4)

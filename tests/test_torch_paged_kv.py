@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import get_config as jget_config  # noqa: E402
@@ -191,3 +193,75 @@ def test_ring_scatter_drops_like_reference(pos):
     want = jattn.ring_scatter(jnp.asarray(view["pos"]), jnp.asarray(pos),
                               jnp.asarray(pos))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
+def test_recurrent_pools_match(arch):
+    """The recurrent families' pools: hymba pages its KV beside per-slot
+    Mamba state, rwkv6 pages nothing.  ``init_pool`` and ``pool_bytes``
+    equal the reference's; one layer's ``scatter_new`` without a
+    precomputed index (rwkv6 has no paged leaf to size a page from)
+    writes the active rows' state only, as the reference's; and
+    ``gather_view`` hands out copies of the slot leaves, so a decode
+    block that writes its state in place leaves the pool as it was."""
+    kw = SHAPES[0]
+    model, jmodel = (LayeredModel(get_config(arch, "smoke")),
+                     JModel(jget_config(arch, "smoke")))
+    (got,) = pk.init_pool(model, **kw)
+    (want,) = jpk.init_pool(jmodel, **kw)
+    flat = _flat(got)
+    jflat = _flat(want)
+    assert sorted(flat) == sorted(jflat)
+    for k, w in jflat.items():
+        w = np.asarray(w)
+        assert tuple(flat[k].shape) == w.shape, k
+        np.testing.assert_array_equal(flat[k].float().numpy(),
+                                      w.astype(np.float32), err_msg=k)
+    assert pk.pool_bytes(model, **kw) == jpk.pool_bytes(jmodel, **kw)
+    (gp,), (jgp,) = (pk.group_pages(model, kw["max_batch"], kw["max_seq"]),
+                     jpk.group_pages(jmodel, kw["max_batch"], kw["max_seq"]))
+    paged = [k for k, v in _flat(gp.paged).items() if v]
+    assert paged == ([] if arch.startswith("rwkv") else
+                     ["kv/k", "kv/pos", "kv/v"])
+    rs = np.random.RandomState(6)
+    layer = {k: rs.randn(*v.shape[1:]).astype(np.float32)
+             for k, v in flat.items() if not k.endswith("pos")}
+    layer.update({k: np.full(v.shape[1:], -1, np.int32)
+                  for k, v in flat.items() if k.endswith("pos")})
+    new = {k: (v + 1 if v.dtype != np.int32 else v) for k, v in layer.items()}
+    Pn = kw["max_seq"] // kw["page_size"]
+    table = np.arange(kw["max_batch"] * Pn, dtype=np.int32).reshape(-1, Pn)
+    pos = np.array([[3], [-1], [7]], np.int32)
+    active = np.array([True, False, True])
+    port = _unflat(_t(layer))
+    view = pk.gather_view(port, gp, table, kw["page_size"])
+    for v in _flat(view).values():
+        if v.is_floating_point():
+            v.add_(1.0)                         # a block writing in place
+    for k, v in _flat(port).items():
+        np.testing.assert_array_equal(v.numpy(), layer[k], err_msg=k)
+    out = pk.scatter_new(port, _unflat(_t(new)), gp, table, pos, active)
+    ref = jpk.scatter_new(_unflat(_j(layer)), _unflat(_j(new)), jgp,
+                          jnp.asarray(table), jnp.asarray(pos),
+                          jnp.asarray(active))
+    _same(_flat(out), _flat(ref))
+
+
+def _flat(tree, prefix=""):
+    """A nested dict -> {"a/b": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def _unflat(flat):
+    out = {}
+    for key, v in flat.items():
+        *path, last = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = v
+    return out

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro_torch.kernels import host_alloc as ha  # noqa: E402
 from repro_torch.kernels import relay_copy as rc  # noqa: E402
 

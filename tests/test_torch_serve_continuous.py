@@ -1,8 +1,11 @@
 """Continuous-batching serve in the port (``repro_torch.serve``) on the CPU:
 the port's ServeEngine against the JAX package's ServeEngine (greedy
 tokens equal, request by request) in the reference's four dense parity
-cases and its ``mla-moe`` case (deepseek-v2-lite: MLA's compressed paged
-cache, MoE, two decode groups in each tick) under the port's slice knobs; crowded equals solo, bit for bit,
+cases, its ``mla-moe`` case (deepseek-v2-lite: MLA's compressed paged
+cache, MoE, two decode groups in each tick) and its ``hybrid`` and ``ssm``
+cases (hymba-1.5b: paged KV beside per-slot Mamba state; rwkv6-1.6b: per-
+slot state only, no paged leaf) under the port's slice knobs; crowded
+equals solo, bit for bit, for granite and for both recurrent families,
 inside the port; slot and page recycling; the ServeEngine's validation;
 grouped decode attention on and off; and the CLI's ``--mode continuous``.
 
@@ -15,6 +18,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch import engine as engines  # noqa: E402
@@ -35,9 +40,11 @@ CASES = [
     ("granite-3-8b", dict(decode_window=16), 16, 1),  # max_seq IS the window
     ("granite-3-8b", {}, 32, 4),                      # chunked prefill
     ("deepseek-v2-lite-16b", {}, 32, 1),              # MLA + MoE
+    ("hymba-1.5b", {}, 32, 1),                        # recurrent families
+    ("rwkv6-1.6b", {}, 32, 1),
 ]
 CASE_IDS = ["dense", "dense-G2pf1pack", "window", "chunked-prefill",
-            "mla-moe"]
+            "mla-moe", "hybrid", "ssm"]
 
 # 4 requests for 3 slots: the last one joins when the first leaves; in the
 # window case the 11-token prompt decodes past the 16-position ring
@@ -120,6 +127,22 @@ def _crowded_vs_solo(eng, params, vocab, scfg):
     return solo.generated, crowded.generated, b, c
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
+def test_recurrent_crowded_equals_solo_bitwise(arch):
+    """The per-slot state of a request is its own: strangers joining and
+    leaving the other slots (their state zeroed at claim, written only on
+    active rows) leave its tokens unchanged bit for bit."""
+    cfg = get_config(arch, "smoke")
+    eng = _port(cfg, prefetch_depth=1, **PORT_KNOBS)
+    params = eng.model.init_params(torch.Generator().manual_seed(0))
+    solo, crowded, b, c = _crowded_vs_solo(eng, params, cfg.vocab_size,
+                                           _scfg(32, 4))
+    assert eng.serve_session(params, ServeConfig(**_scfg(32, 4))) \
+        .cfg.prefill_chunk == 1
+    assert crowded == solo and len(solo) == 10
+    assert len(b.generated) == 3 and len(c.generated) == 4
+
+
 @pytest.mark.parametrize("chunk", [1, 4])
 def test_crowded_equals_solo_bitwise(granite, chunk):
     cfg, params = granite
@@ -179,7 +202,7 @@ def test_serve_engine_validation(granite):
         srv.submit(np.zeros(16, np.int32), 1)
     # families the port does not have yet keep raising
     with pytest.raises(NotImplementedError, match="family"):
-        _port(cfg.replace(family="ssm"))
+        _port(cfg.replace(family="audio"))
 
 
 def test_grouped_decode_attn_on_and_off(granite):
