@@ -36,7 +36,12 @@ Phases, one JSON line each:
               heads, window 2048, against SDPA with the window as a
               boolean mask over the kv heads repeated, K3a / K3b at its
               training microbatch (4, 512, 25, 64), and K5 at its width
-              1600; then
+              1600; internvl2-1b's attention (GQA 14 over 2): K2 at its
+              prefill (2, 2304, 14, 64) against SDPA over the kv heads
+              repeated, K3a / K3b at its training microbatch (4, 768, 14,
+              64), K5 at its width 896; K4 each way at an internvl2 layer
+              row (59.6 MB) and whisper-base's encoder and decoder rows
+              (12.6 / 16.8 MB) against ``copy_``; then
    k4-sweep — K4's designs, one lever at a time, on one granite row
               pinned host -> HBM and one bert-large row back, on each
               host allocation kind, with ``copy_``; a fetch and
@@ -58,7 +63,7 @@ Phases, one JSON line each:
               phase and phase 6's two prefills), read before the
               comparison engines run;
    serve-dense — chatglm3-6b (all 28 layers unless the host cannot pin
-              them), command-r-35b and qwen1.5-110b (4 layers) at full
+              them), command-r-35b and qwen1.5-110b (2 layers) at full
               width through the serve phase's engine settings: decode_init
               on 4 prompts of 16 tokens, 4 greedy steps, Engine.prefill held
               to decode_init's last-token logits (and in f32 at depth 1,
@@ -111,7 +116,7 @@ Phases, one JSON line each:
               (prefill and decode logits), each bit for bit;
    serve-moe — deepseek-v2-lite-16b (MLA, 64 routed experts top 6 and 2
               shared, a dense layer 0 then MoE layers: two layer groups)
-              at full width and depth 8 through the serve phase's engine
+              at full width and depth 6 through the serve phase's engine
               settings, the counters set to 0 just before and read just
               after: decode_init on 4 prompts of 16 tokens, 4 greedy
               steps, Engine.prefill on them and at B=2 x S=2048 (the
@@ -120,7 +125,7 @@ Phases, one JSON line each:
               (128 rows a tick, the dense MoE path); not counted: the
               request that waited longest alone (bit for bit the crowd's),
               the 2048-token prefill's peak at depth 4 (within 5% of depth
-              8's), prefill against decode_init in f32 at depth 2, one
+              6's), prefill against decode_init in f32 at depth 2, one
               fetch of each row kind;
    train-moe — deepseek-v2-lite-16b at full width and depth 3 (the dense
               layer 0 + 2 MoE layers), l2l-p with the train phase's knobs,
@@ -142,12 +147,43 @@ Phases, one JSON line each:
               against decode_init in f32 at depth 2 and in bf16 at depths
               1, 4 (also at fan-in scales) and full, one layer's scan
               timed;
-   train-recurrent — each at full width and depth under l2l-p with the
-              train phase's knobs, 3 steps at B=8, S=512, UB=2, the
+   train-recurrent — each at full width under l2l-p (hymba at full
+              depth, rwkv6 at 8 of its 24 layers: its WKV step loop is
+              host-bound) with the train phase's knobs, 3 steps at B=8,
+              S=512, UB=2, the
               counters set to 0 just before and read just after; then
               Engine.grads in f32 at depth 2 against the baseline engine,
               the relay knobs (pack, prefetch, G) at depth 3 against the
               plain schedule, and one step at depth 2 run twice: bitwise;
+   serve-vlm — internvl2-1b (24 layers, d 896, 14 heads over 2; 256
+              stub patches of 1024 projected in front of the tokens) at
+              full width and depth through the serve phase's engine
+              settings, the counters set to 0 just before and read just
+              after: decode_init on 4 text prompts of 128 tokens (the
+              reference decodes the language backbone), 8 greedy steps,
+              Engine.prefill at 4 x 128 and 2 x 2048 tokens behind the
+              patches (384 and 2304 positions: the flash kernels' 128-row
+              tiles); not counted: text-only prefill against decode_init
+              in f32 at depth 2 and in bf16 at depth 1 (bounded) and full
+              depth (printed);
+   train-vlm — internvl2-1b at full width and depth under l2l-p with the
+              train phase's knobs, B=8 x 512 tokens behind 256 patches,
+              UB=2, 3 steps, counted; then the train-recurrent checks
+              (grads in f32 at depth 2 against the baseline, the relay
+              knobs with K = 2 at depth 3, a repeated step: bitwise);
+   serve-audio — whisper-base (6 encoder + 6 decoder layers, d 512, 1500
+              stub frames) at full width and depth, ``use_pallas=False``
+              (1500 frames do not tile by 128: plain attention, as the
+              reference must run it), counted: decode_init with the
+              frames on 4 prompts of 16 (the encoder's one-shot pass and
+              the decoder's cross K/V through the relay: its fetches
+              printed), 8 greedy steps, Engine.prefill at 4 x 448 target
+              tokens; not counted: prefill against decode_init at full
+              depth in f32 at fan-in scales (bounded) and at the
+              reference's init in f32 and bf16 (printed);
+   train-audio — whisper-base under l2l-p with the train phase's knobs,
+              B=8 x 448 target tokens with 1500 frames, UB=2, 3 steps,
+              counted; then the train-vlm checks;
 9. train    — bert-large at full width and all 24 layers, l2l-p with
               weight_stream, pack_params, prefetch 1, transport "pallas",
               use_pallas, offload_stash, Adam: the peak HBM of two steps
@@ -174,18 +210,20 @@ Phases, one JSON line each:
               the 2 x 2048 prefill's shape under torch.profiler: device
               time, device operations, wall time;
    recurrent-profile — one train-recurrent step of each family at
-              depth 4 under torch.profiler: the device's idle share and
+              depth 2 under torch.profiler: the device's idle share and
               its time by kernel;
    memory-model — ``Engine.memory_estimate`` for the train phase's
               bert-large at depths 24 and 12 beside its peaks, and the
               serve estimate beside serve-continuous's peak (printed, not
               tied: the model counts the reference's buffers);
-10. launches — every kernel's count over the thirteen main paths
+10. launches — every kernel's count over the seventeen main paths
               (serve, serve-dense, serve-continuous, train, train-rmsnorm,
               dynamic-depth, host-optimizer, serve-moe, train-moe,
-              serve-hymba, train-hymba, serve-rwkv6, train-rwkv6; each of
-              a path's kernels > 0, K1 0 on host-optimizer, K2 and K3 0 on
-              the two MoE paths, K2, K3 and K5 0 on the two rwkv6 paths),
+              serve-hymba, train-hymba, serve-rwkv6, train-rwkv6,
+              serve-vlm, train-vlm, serve-audio, train-audio; each of a
+              path's kernels > 0, K1 0 on host-optimizer, K2 and K3 0 on
+              the two MoE paths, K2, K3 and K5 0 on the rwkv6 and whisper
+              paths),
               and the counts by route: every
               bf16 K2, K3a and K3b
               launch on the wgmma route, none on the CUDA-core one, every
@@ -193,8 +231,10 @@ Phases, one JSON line each:
               K4 fetch and write-back on the relay's route ("lines"), none
               on the kernels it replaced.
 
-Then the kernel table line, the card's name and power limit, and the
-result line.  Any failed check raises, so the script exits nonzero and
+Then the kernel table line (each kernel's launches in all and by path),
+the card's name and power limit, and the result line.  Every phase line
+carries ``elapsed_s``, the seconds since the script started.  Any failed
+check raises, so the script exits nonzero and
 prints no result line.  TF32 is off for matmuls and cuDNN
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
 ``torch.backends.cudnn.allow_tf32 = False``) so f32 comparisons are f32.
@@ -221,7 +261,13 @@ H100_BF16_OPS = 989e12        # dense bf16 tensor-core FLOP/s
 PCIE5_X16_BPS = 64e9          # bytes/s each way
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line gains the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -861,8 +907,8 @@ def free_host(torch):
 
 # the dense configurations the port's blocks cover, served at full width:
 # (arch, depth cap); chatglm3-6b at full depth (28 layers, 22.9 GB of f32
-# rows), the two d-8192 models at 4 layers (2.8 and 5.4 GB per f32 row)
-DENSE_SERVE = (("chatglm3-6b", 0), ("command-r-35b", 4), ("qwen1.5-110b", 4))
+# rows), the two d-8192 models at 2 layers (2.8 and 5.4 GB per f32 row)
+DENSE_SERVE = (("chatglm3-6b", 0), ("command-r-35b", 2), ("qwen1.5-110b", 2))
 
 
 def serve_dense_phase(torch, engines, ExecutionConfig, exec_cfg, get_config,
@@ -1542,7 +1588,7 @@ def host_optimizer_phase(torch, engines, ExecutionConfig, bert, knobs,
 # the MoE family: deepseek-v2-lite-16b (MLA; a dense layer 0, then MoE
 # layers of 64 routed experts, top 6, and 2 shared), at full width
 MOE_ARCH = "deepseek-v2-lite-16b"
-MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 8, 3
+MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 6, 3
 # serve-moe's crowd: 8 slots x 16-row chunks = 128 rows = 2E, so every
 # tick takes the exact dense MoE path
 MOE_CROWD = dict(max_batch=8, page_size=16, max_seq=160, n_pages=64,
@@ -1578,8 +1624,8 @@ def _sub(packing, params, dense_eps, moe_eps, n_moe):
 def serve_moe_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
                     tree_leaves, is_spec, packing, rc, ServeConfig,
                     sample_batch, counters, dev):
-    """deepseek-v2-lite-16b at full width and depth 8 (the dense layer 0 +
-    7 MoE layers) with the serve phase's engine settings, every counter
+    """deepseek-v2-lite-16b at full width and depth 6 (the dense layer 0 +
+    5 MoE layers) with the serve phase's engine settings, every counter
     set to 0 just before and read just after: decode_init on 4 prompts of
     16 tokens, 4 greedy steps, Engine.prefill on the prompts and one at
     B=2 x S=2048 (the capacity path; MLA's plain attention in chunks of
@@ -1587,7 +1633,7 @@ def serve_moe_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
     into 8 slots with prefill chunks of 16 (128 rows a tick: the dense
     MoE path).  Not counted: the request that waited longest alone (its
     tokens equal to the crowd's bit for bit), the same 2048-token prefill
-    at depth 4 (its peak within 5% of depth 8's: a group boundary does not
+    at depth 4 (its peak within 5% of depth 6's: a group boundary does not
     make the footprint grow), prefill against decode_init in f32 at depth
     2, and one fetch of each row kind timed.  -> (line, launches,
     routes)."""
@@ -1909,6 +1955,9 @@ def train_moe_phase(torch, np, engines, ExecutionConfig, knobs, get_config,
 # hymba-1.5b (attention heads beside Mamba heads off one norm, GQA 25 over
 # 5, a 2048-token window) and rwkv6-1.6b (WKV6, layernorm, no attention)
 RECURRENT_ARCHS = ("hymba-1.5b", "rwkv6-1.6b")
+# the train phases' depth caps (0: the full depth, host allowing): rwkv6's
+# host-bound WKV loop made its 24-layer step 10-19 s
+TRAIN_DEPTH_CAP = {"rwkv6-1.6b": 8}
 # serve-recurrent's crowd: a recurrent family feeds one token a tick (the
 # ServeEngine forces prefill_chunk to 1), so the prompts stay short
 REC_CROWD = dict(max_batch=8, page_size=16, max_seq=48, n_pages=24,
@@ -1945,17 +1994,22 @@ def scan_fn(torch, ssm, cfg, B, S, dev):
         "shape": [B, H, S, hd]}
 
 
-def hymba_attention_rows(torch, F, dev, g, fa, kops, ref, cfg):
-    """K2 at hymba's window prefill, q (1, 4096, 25, 64) over 5 kv heads,
-    bf16, causal, window 2048 (the window masks from query 2048 on), and
-    K3a / K3b at its training microbatch (4, 512, 25, 64), window 2048,
-    against their plain versions, graph-timed.  K2's library time is SDPA
-    with the window as an explicit boolean mask over the kv heads
-    repeated; K3's comes from ``backward_device_ms`` (SDPA's backward over
-    the kv heads repeated, after the timed phases)."""
+def gqa_attention_rows(torch, F, dev, g, fa, kops, ref, cfg, fwd, bwd,
+                       cells):
+    """K2 at a model's prefill shape ``fwd`` = (B, S) and K3a / K3b at its
+    training microbatch ``bwd`` = (B, S), bf16, causal, the model's GQA
+    heads and window, against their plain versions, graph-timed; ``cells``
+    names the two.  hymba: K2 at its window prefill (1, 4096, 25, 64) over
+    5 kv heads, window 2048 (the window masks from query 2048 on), K3 at
+    (4, 512, 25, 64); internvl2: K2 at (2, 2304, 14, 64) over 2 kv heads
+    (2 x 2048 tokens behind 256 patches), K3 at (4, 768, 14, 64).  K2's
+    library time is SDPA over the kv heads repeated, the window as an
+    explicit boolean mask where there is one; K3's comes from
+    ``backward_device_ms`` (SDPA's backward over the kv heads repeated,
+    after the timed phases)."""
     rows = []
     H, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.sliding_window
-    B, S = 1, 4096
+    B, S = fwd
     q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
     k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
             for _ in range(2))
@@ -1967,19 +2021,24 @@ def hymba_attention_rows(torch, F, dev, g, fa, kops, ref, cfg):
     emu, _ = ref.ref_attention(qt, kt, vt, causal=True, window=W,
                                tensor_cores=True)
     i = torch.arange(S, device=dev)
-    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < W)
+    mask = ((i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < W)
+            if W else None)
     ke, ve = (t.repeat_interleave(H // Hkv, dim=1) for t in (kt, vt))
-    lib_o = F.scaled_dot_product_attention(qt, ke, ve, attn_mask=mask)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, ke, ve, attn_mask=mask,
+                                              is_causal=mask is None)
+    lib_o = sdpa()
     torch.cuda.synchronize()
     err = float((o.float() - po.transpose(1, 2).float()).abs().max())
     lerr = float((lse - plse).abs().max())
-    assert err <= 2e-2 and lerr <= 2e-2, ("K2 window", err, lerr)
+    assert err <= 2e-2 and lerr <= 2e-2, ("K2", cells[0], err, lerr)
     pairs = window_pairs(B, H, S, W)
     ops = 4 * D * pairs
     nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4
     rows.append({
         "name": "flash_attention_fwd", "route": "cuda",
-        "kernel_route": "wgmma", "cell": "hymba window prefill",
+        "kernel_route": "wgmma", "cell": cells[0],
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:46",
         "shape": [B, S, H, D], "layout": "BSHD", "kv_heads": Hkv,
@@ -1992,10 +2051,10 @@ def hymba_attention_rows(torch, F, dev, g, fa, kops, ref, cfg):
             qt, kt, vt, causal=True, window=W), 10),
         "plain_ms": time_ms(torch, lambda: fa.flash_attention_fwd_bhsd_plain(
             qt, kt, vt, causal=True, window=W), 3),
-        "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, ke, ve, attn_mask=mask), 10),
-        "library_covers": "SDPA, the window as a boolean mask, kv heads "
-                          "repeated",
+        "library_ms": graph_ms(torch, sdpa, 10),
+        "library_covers": ("SDPA, the window as a boolean mask, kv heads "
+                           "repeated" if W else
+                           "SDPA, causal, kv heads repeated"),
         "library_err": float((lib_o.float() - po.float()).abs().max()),
         "timing": "ms, library_ms: a CUDA graph of the calls; plain_ms: "
                   "back-to-back eager calls",
@@ -2004,7 +2063,7 @@ def hymba_attention_rows(torch, F, dev, g, fa, kops, ref, cfg):
                      > nbytes / H100_HBM_BPS else "bytes")})
     del q, k, v, qt, kt, vt, o, lse, po, plse, emu, ke, ve, lib_o, mask
 
-    B, S = 4, 512
+    B, S = bwd
     q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16() \
         .requires_grad_()
     k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
@@ -2042,7 +2101,7 @@ def hymba_attention_rows(torch, F, dev, g, fa, kops, ref, cfg):
         nbytes = in_bytes + out_bytes
         rows.append({
             "name": name, "route": "cuda", "kernel_route": "wgmma",
-            "cell": "hymba train microbatch",
+            "cell": cells[1],
             "source": "src/repro_torch/kernels/csrc/" + src,
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
             "shape": [B, S, H, D], "layout": "BSHD", "kv_heads": Hkv,
@@ -2279,26 +2338,372 @@ def serve_recurrent_phase(torch, np, engines, exec_cfg, arch, get_config,
     return line, launches, routes
 
 
-def train_recurrent_phase(torch, np, engines, ExecutionConfig, knobs, arch,
-                          get_config, LayeredModel, tree_leaves, is_spec,
-                          SyntheticLM, DataConfig, adam, make_schedule,
-                          counters, dev):
-    """``arch`` at full width and, host allowing, full depth under l2l-p
-    with the train phase's knobs, B=8 x S=512, UB=2, 3 steps, every
-    counter set to 0 just before and read just after.  Then, not counted:
-    Engine.grads in f32 at depth 2 under l2l-p against the baseline engine
-    at fan-in scales, the relay knobs (pack, prefetch, G) at depth 3 in
-    bf16 against the plain schedule's grads bit for bit, and one l2l-p
-    step at depth 2 run twice from the same state, bitwise.
+VLM_ARCH = "internvl2-1b"
+AUDIO_ARCH = "whisper-base"
+# internvl2's text lengths: (S + 256 patches) % 128 == 0, the flash
+# kernels' tiling (prompts of 128: 384 positions; prefill rows of 2048:
+# 2304; train rows of 512: 768)
+VLM_PROMPT, VLM_PREFILL = 128, 2048
+VLM_TRAIN = dict(batch=8, seq=512, ub=2)
+# whisper's decoder: at most 448 target positions (max_target_positions)
+AUDIO_TARGET = 448
+
+
+def modality_k4_rows(torch, dev, g, rc, ref, get_config, LayeredModel,
+                     tree_leaves, is_spec):
+    """K4 at the modality families' layer rows, f32, each way: an
+    internvl2 layer (14.9 M elements) and whisper's encoder and decoder
+    layers (3.15 M, 4.20 M), pinned host -> HBM by the relay's route and
+    back by its write-back route, against ``copy_`` in turns on the same
+    buffers, each bit for bit against its plain version."""
+    rows = []
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        full = get_config(arch, "full")
+        for gname, nbytes in zip(
+                [gr.name for gr in LayeredModel(full).groups],
+                group_rows(LayeredModel, tree_leaves, is_spec, full)):
+            n = nbytes // 4
+            cell = f"{full.name} {gname} row"
+            host = torch.empty(2, n, dtype=torch.float32, pin_memory=True)
+            host.copy_(torch.randn(2, n, generator=g, device=dev).cpu())
+            slot = torch.empty(1, n, dtype=torch.float32, device=dev)
+            got = rc.copy_rows(host, 1, size=1, device=dev, out=slot)
+            plain = ref.ref_copy_rows(host, 1, 1, device=dev)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), ("relay_copy", cell)
+            ms, lib_ms = rotation(torch, (
+                lambda: rc.copy_rows(host, 1, size=1, device=dev, out=slot),
+                lambda: slot.copy_(host[1:2], non_blocking=True)), 5,
+                timer=time_ms)
+            common = {"route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/relay_copy.cu",
+                      "cell": cell, "shape": [1, n], "dtype": "float32",
+                      "host_alloc": "pinned (torch.empty(pin_memory=True))",
+                      "grid_blocks": rc.LINE_BLOCKS,
+                      "timing": "ms, library_ms (copy_): back-to-back "
+                                "calls, in turns on the same buffers; "
+                                "plain_ms: eager calls",
+                      "bound_ms": nbytes / PCIE5_X16_BPS * 1e3,
+                      "bound_by": "bytes"}
+            rows.append({
+                "name": "relay_copy", **common,
+                "kernel_route": rc.FETCH_ROUTE,
+                "replaces": "src/repro/kernels/relay_copy.py:58",
+                "max_abs_err": 0.0, "ms": ms, "library_ms": lib_ms,
+                "plain_ms": time_ms(torch, lambda: ref.ref_copy_rows(
+                    host, 1, 1, device=dev), 5),
+                "achieved_GBps": nbytes / ms / 1e6,
+                "library_GBps": nbytes / lib_ms / 1e6})
+            src = slot[0].clone()
+            host[0].zero_()
+            rc.writeback_rows(src, host, 0)
+            torch.cuda.synchronize()
+            assert torch.equal(host[0], src.cpu()), ("write-back", cell)
+            ms, lib_ms = rotation(torch, (
+                lambda: rc.writeback_rows(src, host, 0),
+                lambda: host[0].copy_(src, non_blocking=True)), 5,
+                timer=time_ms)
+            rows.append({
+                "name": "relay_copy_writeback", **common,
+                "kernel_route": rc.WRITEBACK_ROUTE,
+                "replaces": "src/repro/kernels/relay_copy.py:128",
+                "max_abs_err": 0.0, "ms": ms, "library_ms": lib_ms,
+                "plain_ms": time_ms(torch, lambda: rc.writeback_rows_plain(
+                    src, host, 0), 5),
+                "achieved_GBps": nbytes / ms / 1e6,
+                "library_GBps": nbytes / lib_ms / 1e6})
+            del host, slot, got, plain, src
+    return rows
+
+
+def serve_vlm_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
+                    tree_leaves, is_spec, packing, sample_batch, counters,
+                    dev):
+    """internvl2-1b at full width and, host allowing, full depth with the
+    serve phase's engine settings, every counter set to 0 just before and
+    read just after: decode_init on 4 text prompts of 128 tokens (the
+    reference decodes the language backbone), 8 greedy steps,
+    Engine.prefill at 4 x 128 tokens and at 2 x 2048 tokens, each behind
+    256 stub patches (384 and 2304 positions: K2 at GQA 7 once a layer).
+    Not counted: prefill against decode_init on the text-only backbone
+    in f32 at depth 2 and in bf16 at depth 1 (bounded) and at the full
+    depth (printed).  -> (line, launches, routes)."""
+    B, P, GEN = 4, VLM_PROMPT, 8
+    full = get_config(VLM_ARCH, "full")
+    (row,) = group_rows(LayeredModel, tree_leaves, is_spec, full)
+    depth = host_depth(row, full.n_layers, reserve=24 * 2 ** 30)
+    cfg = full.replace(n_layers=depth, use_pallas=True)
+    eng = engines.create("l2l", cfg, exec_cfg)
+    t0 = time.perf_counter()
+    params = eng.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eps = params["groups"][0].segs["float32"]
+    assert eps.is_pinned() and eps.shape == (depth, row // 4)
+    gen = torch.Generator(dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=gen)
+    long = torch.randint(0, cfg.vocab_size, (2, VLM_PREFILL), device=dev,
+                         generator=gen)
+    # the stub ViT features, f32 as add_modality_stubs makes them
+    patches = torch.randn(B, cfg.n_patches, cfg.vit_dim, device=dev,
+                          generator=gen)
+
+    # ---------------------------------------------- the counted main path
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    t0 = time.perf_counter()
+    caches, last = eng.decode_init(params, prompt, P + GEN)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tok = sample_batch(last)[:, None]
+    toks = [tok]
+    f0, b0 = counters["relay_copy"].launches, counters["relay_copy"].bytes
+    t0 = time.perf_counter()
+    for i in range(GEN):
+        logits, caches = eng.decode_step(params, caches, tok, P + i)
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        tok = sample_batch(logits[:, -1])[:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    fetches_per_step = (counters["relay_copy"].launches - f0) / GEN
+    step_bytes = (counters["relay_copy"].bytes - b0) / GEN
+    decode_peak = torch.cuda.max_memory_allocated()
+    k2 = counters["flash_attention_fwd"].launches
+    t0 = time.perf_counter()
+    pl = eng.prefill(params, {"tokens": prompt, "patches": patches})
+    torch.cuda.synchronize()
+    t_pf = time.perf_counter() - t0
+    k2_small = counters["flash_attention_fwd"].launches - k2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pl2 = eng.prefill(params, {"tokens": long, "patches": patches[:2]})
+    torch.cuda.synchronize()
+    t_pf2 = time.perf_counter() - t0
+    peak_2048 = torch.cuda.max_memory_allocated()
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    toks = torch.cat(toks, dim=1)
+
+    # ---------------------------------------------------- not counted
+    text = cfg.replace(is_vlm=False)
+
+    def gap(d, dt):
+        """Text-only prefill's last logits against decode_init's,
+        relative L2, on the first d rows in dtype dt."""
+        e = engines.create("l2l", text.replace(n_layers=d, dtype=dt),
+                           exec_cfg)
+        sub = {**params, "groups": (packing.Packed(
+            {"float32": eps[:d]}, params["groups"][0].spec),)}
+        _, want = e.decode_init(sub, prompt, P)
+        got = e.prefill(sub, {"tokens": prompt})
+        return float((got.float() - want.float()).norm()
+                     / want.float().norm())
+
+    gaps = {"f32_depth2": gap(2, "float32"), "bf16_depth1": gap(1, "bfloat16"),
+            "bf16_full": gap(depth, "bfloat16")}
+    line = {
+        "phase": "serve-vlm", "arch": full.name, "depth": depth,
+        "full_depth": full.n_layers, "family": cfg.family,
+        "reduced": (None if depth == full.n_layers else
+                    f"depth {full.n_layers} -> {depth}: host memory for "
+                    "the pinned EPS"),
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
+        "patches": [cfg.n_patches, cfg.vit_dim], "layer_row_bytes": row,
+        "eps_pinned_bytes": depth * row, "init_s": init_s,
+        "batch": B, "prompt": P, "steps": GEN, "tokens": toks.tolist(),
+        "decode_init_s": t_init, "decode_s": t_dec,
+        "tok_per_s": B * GEN / t_dec,
+        "relay_fetches_per_step": fetches_per_step,
+        "relay_bytes_per_step": step_bytes,
+        "relay_GBps": GEN * step_bytes / t_dec / 1e9,
+        "decode_peak_allocated_bytes": decode_peak,
+        "prefill_128_positions": P + cfg.n_patches, "prefill_128_s": t_pf,
+        "prefill_128_k2_launches": k2_small,
+        "prefill_2048_positions": VLM_PREFILL + cfg.n_patches,
+        "prefill_2048_s": t_pf2,
+        "prefill_tok_per_s_2048": 2 * (VLM_PREFILL + cfg.n_patches) / t_pf2,
+        "prefill_2048_peak_allocated_bytes": peak_2048,
+        "rel_l2_text_prefill_vs_decode_init": gaps,
+        "launches": launches}
+    emit(line)
+    assert toks.shape == (B, GEN + 1) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all())
+    for x, n in ((pl, B), (pl2, 2)):
+        assert x.shape == (n, cfg.vocab_size) and bool(torch.isfinite(x).all())
+    assert fetches_per_step == depth + 1, fetches_per_step
+    assert k2_small == depth, k2_small
+    # f32 at depth 2: the dense phases' 1e-4; bf16 at depth 1: 0.1
+    assert gaps["f32_depth2"] <= 1e-4 and gaps["bf16_depth1"] <= 0.1, gaps
+    del eng, params, eps, caches, pl, pl2, last, logits, patches
+    free_host(torch)
+    return line, launches, routes
+
+
+def serve_audio_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
+                      tree_leaves, is_spec, sample_batch, counters, dev):
+    """whisper-base at full width and depth (6 encoder + 6 decoder
+    layers) with the serve phase's engine settings and ``use_pallas=False``
+    (its 1500 frames do not tile by the flash kernel's 128-row block:
+    attention is the plain ``attend``), every counter set to 0 just
+    before and read just after: decode_init with 1500 stub frames on 4
+    prompts of 16 tokens (the encoder's one-shot pass and the decoder's
+    cross K/V through the relay, then a serve step a token), 8 greedy
+    steps, Engine.prefill at 4 x 448 target tokens with the frames.  Not
+    counted: prefill against decode_init at full depth in f32 at fan-in
+    scales (bounded) and at the reference's init in f32 and bf16 (printed:
+    its std-1/sqrt(6) matrices make the 1500-key softmax ill-conditioned).
     -> (line, launches, routes)."""
     from repro_torch.testing import fan_in_params
-    B, S, UB, STEPS = 8, 512, 2, 3
+    B, P, GEN = 4, 16, 8
+    full = get_config(AUDIO_ARCH, "full")
+    cfg = full.replace(use_pallas=False)
+    enc_row, dec_row = group_rows(LayeredModel, tree_leaves, is_spec, full)
+    eng = engines.create("l2l", cfg, exec_cfg)
+    t0 = time.perf_counter()
+    params = eng.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    assert all(g.segs["float32"].is_pinned() for g in params["groups"])
+    gen = torch.Generator(dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=gen)
+    targets = torch.randint(0, cfg.vocab_size, (B, AUDIO_TARGET),
+                            device=dev, generator=gen)
+    frames = torch.randn(B, cfg.n_frames, cfg.d_model, device=dev,
+                         generator=gen).to(torch.bfloat16)
+
+    # ---------------------------------------------- the counted main path
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    t0 = time.perf_counter()
+    caches, last = eng.decode_init(params, prompt, P + GEN, frames=frames)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_fetches = counters["relay_copy"].launches
+    tok = sample_batch(last)[:, None]
+    toks = [tok]
+    f0, b0 = counters["relay_copy"].launches, counters["relay_copy"].bytes
+    t0 = time.perf_counter()
+    for i in range(GEN):
+        logits, caches = eng.decode_step(params, caches, tok, P + i)
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        tok = sample_batch(logits[:, -1])[:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    fetches_per_step = (counters["relay_copy"].launches - f0) / GEN
+    step_bytes = (counters["relay_copy"].bytes - b0) / GEN
+    decode_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pl = eng.prefill(params, {"tokens": targets, "frames": frames})
+    torch.cuda.synchronize()
+    t_pf = time.perf_counter() - t0
+    peak_pf = torch.cuda.max_memory_allocated()
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    toks = torch.cat(toks, dim=1)
+    # decode_init's fetches beyond its P serve steps: the encoder's pass
+    # and the decoder's cross K/V pass
+    one_shot = init_fetches - P * fetches_per_step
+
+    # ---------------------------------------------------- not counted
+    def gap(dt, p=params):
+        e = engines.create("l2l", cfg.replace(dtype=dt), exec_cfg)
+        f = frames.to(getattr(torch, dt))
+        _, want = e.decode_init(p, prompt, P, frames=f)
+        got = e.prefill(p, {"tokens": prompt, "frames": f})
+        return float((got.float() - want.float()).norm()
+                     / want.float().norm())
+
+    fan = fan_in_params(LayeredModel(cfg).param_specs(),
+                        lambda shape: torch.randn(shape, generator=gen,
+                                                  device=dev))
+    gaps = {"f32_full_fan_in": gap("float32", fan), "f32_full": gap("float32"),
+            "bf16_full": gap("bfloat16")}
+    del fan
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+    line = {
+        "phase": "serve-audio", "arch": full.name,
+        "depth": [n_enc, n_dec], "family": cfg.family,
+        "use_pallas": cfg.use_pallas,
+        "attention": "attend (plain): 1500 frames do not tile by 128",
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "frames": cfg.n_frames, "layer_row_bytes": [enc_row, dec_row],
+        "eps_pinned_bytes": n_enc * enc_row + n_dec * dec_row,
+        "init_s": init_s, "batch": B, "prompt": P, "steps": GEN,
+        "tokens": toks.tolist(), "decode_init_s": t_init,
+        "decode_init_fetches": init_fetches,
+        "one_shot_pass_fetches": one_shot,
+        "decode_s": t_dec, "tok_per_s": B * GEN / t_dec,
+        "relay_fetches_per_step": fetches_per_step,
+        "relay_bytes_per_step": step_bytes,
+        "relay_GBps": GEN * step_bytes / t_dec / 1e9,
+        "decode_peak_allocated_bytes": decode_peak,
+        "prefill_targets": AUDIO_TARGET, "prefill_s": t_pf,
+        "prefill_peak_allocated_bytes": peak_pf,
+        "rel_l2_prefill_vs_decode_init": gaps,
+        "launches": launches}
+    emit(line)
+    assert toks.shape == (B, GEN + 1) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all())
+    assert pl.shape == (B, cfg.vocab_size) and bool(torch.isfinite(pl).all())
+    # a decode step relays the decoder only (one fetch a layer, and the
+    # ring's clamped re-fetch); the one-shot pass each group once, and
+    # the ring's re-fetch per group
+    assert fetches_per_step == n_dec + 1, fetches_per_step
+    assert one_shot == n_enc + n_dec + 2, one_shot
+    # f32 at full depth and fan-in scales: the dense phases' 1e-4
+    assert gaps["f32_full_fan_in"] <= 1e-4, gaps
+    del eng, params, caches, pl, last, logits, frames
+    free_host(torch)
+    return line, launches, routes
+
+
+def _depths(cfg, n):
+    """``cfg`` at depth n: whisper's encoder and decoder both."""
+    return cfg.replace(n_layers=n, **({"n_encoder_layers": n}
+                                      if cfg.n_encoder_layers else {}))
+
+
+def train_family_phase(torch, np, engines, ExecutionConfig, knobs, arch,
+                       get_config, LayeredModel, tree_leaves, is_spec,
+                       SyntheticLM, DataConfig, add_modality_stubs, adam,
+                       make_schedule, counters, dev, *, phase, seq=512,
+                       depth_cap=0):
+    """``arch`` at full width and, host allowing, full depth (at most
+    ``depth_cap`` layers when given) under l2l-p with the train phase's
+    knobs, B=8 x S=``seq``, UB=2, 3 steps, every counter set to 0 just
+    before and read just after (internvl2's 256 patches and whisper's
+    1500 frames from ``add_modality_stubs``; whisper with
+    ``use_pallas=False``, every other family with the flash kernels).
+    Then, not counted: Engine.grads in f32 at depth 2 under l2l-p against
+    the baseline engine at fan-in scales, the relay knobs (pack,
+    prefetch, G; for the modality families also K = stash_every) at depth
+    3 in bf16 against the plain schedule's grads bit for bit, and one
+    l2l-p step at depth 2 run twice from the same state, bitwise.
+    -> (line, launches, routes)."""
+    from repro_torch.testing import fan_in_params
+    B, S, UB, STEPS = 8, seq, 2, 3
     full = get_config(arch, "full")
-    (row,) = group_rows(LayeredModel, tree_leaves, is_spec, full)
-    # w, m and v, twice at the step's peak (the step is functional)
-    depth = host_depth(6 * row, full.n_layers, reserve=16 * 2 ** 30)
+    rows = group_rows(LayeredModel, tree_leaves, is_spec, full)
+    if len(rows) == 1:
+        # w, m and v, twice at the step's peak (the step is functional)
+        depth = host_depth(6 * rows[0], depth_cap or full.n_layers,
+                           reserve=16 * 2 ** 30)
+    else:
+        # whisper-base: 6 + 6 layers of 12.6 / 16.8 MB, pinned whole
+        depth = full.n_layers
     assert depth >= 3, "the host cannot pin three layers' training state"
-    cfg = full.replace(n_layers=depth, use_pallas=True)
+    audio = full.family == "audio"
+    cfg = full.replace(n_layers=depth, use_pallas=not audio)
     opt = adam(schedule=make_schedule(1e-4, warmup=10))
     eng = engines.create("l2l-p", cfg, ExecutionConfig(n_microbatches=UB,
                                                        **knobs),
@@ -2307,9 +2712,10 @@ def train_recurrent_phase(torch, np, engines, ExecutionConfig, knobs, arch,
     state = eng.init(torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
-        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
-                   seed=0)).batch(0).items()}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in add_modality_stubs(
+        SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                               global_batch=B, seed=0)).batch(0), cfg,
+        np.random.default_rng(0)).items()}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2333,14 +2739,22 @@ def train_recurrent_phase(torch, np, engines, ExecutionConfig, knobs, arch,
     written = counters["relay_copy_writeback"].bytes - wb0
     peak = torch.cuda.max_memory_allocated()
     steady = float(np.mean([s["s"] for s in steps[1:]]))
-    out = {"phase": "train-recurrent", "arch": full.name, "depth": depth,
+    out = {"phase": phase, "arch": full.name, "depth": depth,
            "full_depth": full.n_layers,
+           "encoder_depth": cfg.n_encoder_layers or None,
            "reduced": (None if depth == full.n_layers else
-                       f"depth {full.n_layers} -> {depth}: w, m and v "
-                       "pinned, twice at the step's peak"),
+                       f"depth {full.n_layers} -> {depth}: " + (
+                           f"the phase's cap ({depth_cap})"
+                           if depth == depth_cap else
+                           "w, m and v pinned, twice at the step's peak")),
+           "use_pallas": cfg.use_pallas,
+           "positions": S + (cfg.n_patches if cfg.is_vlm else 0),
+           "frames": cfg.n_frames if audio else None,
            "d_model": cfg.d_model, "batch": B, "seq": S,
            "microbatches": UB, "knobs": knobs, "init_s": init_s,
-           "eps_pinned_bytes": 3 * depth * row, "steps": steps,
+           "eps_pinned_bytes": 3 * sum(
+               r * g.n_layers for r, g in zip(rows, eng.model.groups)),
+           "steps": steps,
            "steady_s_per_step": steady,
            "relay_in_bytes_per_step": fetched / STEPS,
            "relay_out_bytes_per_step": written / STEPS,
@@ -2355,7 +2769,7 @@ def train_recurrent_phase(torch, np, engines, ExecutionConfig, knobs, arch,
 
     # Engine.grads in f32 at depth 2: l2l-p (the train knobs) against the
     # baseline engine, parameters at fan-in scales
-    g2 = cfg.replace(n_layers=2, dtype="float32")
+    g2 = _depths(cfg, 2).replace(dtype="float32")
     gen = torch.Generator(dev).manual_seed(1)
     params = fan_in_params(LayeredModel(g2).param_specs(),
                            lambda shape: torch.randn(shape, generator=gen,
@@ -2382,7 +2796,7 @@ def train_recurrent_phase(torch, np, engines, ExecutionConfig, knobs, arch,
 
     # the relay knobs at depth 3 (G = 2 does not divide it), bf16 compute:
     # every point's grads equal the plain schedule's bit for bit
-    g3 = cfg.replace(n_layers=3)
+    g3 = _depths(cfg, 3)
     p3 = fan_in_params(LayeredModel(g3).param_specs(),
                        lambda shape: torch.randn(shape, generator=gen,
                                                  device=dev))
@@ -2393,6 +2807,11 @@ def train_recurrent_phase(torch, np, engines, ExecutionConfig, knobs, arch,
                  layers_per_relay=gr, transport="pallas")
             for pk, k, gr in ((False, 0, 1), (True, 1, 2), (False, 1, 3),
                               (True, 2, 1))]
+    if cfg.is_vlm or audio:
+        # the constant-memory stash: K = 2 does not divide the depth
+        grid.append(dict(weight_stream=True, pack_params=True,
+                         prefetch_depth=1, transport="pallas",
+                         offload_stash=True, stash_every=2))
     for kw in grid:
         got = engines.create("l2l-p", g3, ExecutionConfig(
             n_microbatches=UB, **kw)).grads(p3, b3)
@@ -2406,7 +2825,7 @@ def train_recurrent_phase(torch, np, engines, ExecutionConfig, knobs, arch,
     free_host(torch)
 
     # one l2l-p step at depth 2, twice from the same state: bitwise
-    e2 = engines.create("l2l-p", cfg.replace(n_layers=2), ExecutionConfig(
+    e2 = engines.create("l2l-p", _depths(cfg, 2), ExecutionConfig(
         n_microbatches=UB, **knobs), optimizer=opt)
     s0 = e2.init(torch.Generator(dev).manual_seed(2))
     a, ma = e2.train_step(s0, batch)
@@ -2553,16 +2972,19 @@ def backward_device_ms(torch, F, dev, fa, rows, gqa):
             r["library_ms"] = out["sdpa_backward_device_ms"]
             r["profiled_ms"] = out[r["name"] + "_device_ms"]
     # hymba's microbatch (GQA 25 over 5; its 2048 window covers S = 512,
-    # so SDPA's causal mask is the same mask)
-    hy = [r for r in k3 if r.get("cell") == "hymba train microbatch"]
-    B, S, H, D = hy[0]["shape"]
-    assert hy[0]["window"] >= S
-    out["hymba"] = measure(B, S, H, hy[0]["kv_heads"], D, hy[0]["window"])
-    for r in hy:
-        r["library_ms"] = out["hymba"]["sdpa_backward_device_ms"]
-        r["profiled_ms"] = out["hymba"][r["name"] + "_device_ms"]
-        r["library_covers"] = ("SDPA backward over the kv heads repeated: "
-                               "dq, dk and dv")
+    # so SDPA's causal mask is the same mask) and internvl2's (GQA 14 over
+    # 2, S = 768)
+    for cell, key in (("hymba train microbatch", "hymba"),
+                      ("internvl2 train microbatch", "internvl2")):
+        cr = [r for r in k3 if r.get("cell") == cell]
+        B, S, H, D = cr[0]["shape"]
+        assert cr[0]["window"] == 0 or cr[0]["window"] >= S
+        out[key] = measure(B, S, H, cr[0]["kv_heads"], D, cr[0]["window"])
+        for r in cr:
+            r["library_ms"] = out[key]["sdpa_backward_device_ms"]
+            r["profiled_ms"] = out[key][r["name"] + "_device_ms"]
+            r["library_covers"] = ("SDPA backward over the kv heads "
+                                   "repeated: dq, dk and dv")
     B, S, H, D = gqa["shape"]
     out["gqa"] = measure(B, S, H, gqa["kv_heads"], D)
     gqa["library_ms"] = out["gqa"]["sdpa_backward_device_ms"]
@@ -2601,12 +3023,14 @@ def scan_profile(torch, ssm, get_config, dev):
 def recurrent_profiles(torch, engines, ExecutionConfig, knobs, get_config,
                        SyntheticLM, DataConfig, adam, make_schedule, dev):
     """After the timed phases: one l2l-p step of each recurrent family at
-    full width and depth 4, with train-recurrent's knobs and batch, under
+    full width and depth 2, with train-recurrent's knobs and batch, under
     torch.profiler (``profile_step``, after one step unprofiled): the
-    device's idle share of the step and its time by kernel."""
-    out = {"phase": "recurrent-profile", "depth": 4}
+    device's idle share of the step and its time by kernel.  (Depth 2: the
+    host's processing of rwkv6's profile, ~8200 launches a layer and
+    microbatch, grows with depth.)"""
+    out = {"phase": "recurrent-profile", "depth": 2}
     for arch in RECURRENT_ARCHS:
-        cfg = get_config(arch, "full").replace(n_layers=4, use_pallas=True)
+        cfg = get_config(arch, "full").replace(n_layers=2, use_pallas=True)
         eng = engines.create("l2l-p", cfg, ExecutionConfig(
             n_microbatches=2, **knobs), optimizer=adam(
                 schedule=make_schedule(1e-4, warmup=10)))
@@ -2678,7 +3102,8 @@ def main(argv=None):
     from repro_torch import bridge
     from repro_torch import engine as engines
     from repro_torch.configs.base import get_config
-    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
+                                            add_modality_stubs)
     from repro_torch.kernels import fused_adam as fadam
     from repro_torch.optim import adam, make_schedule
     from repro_torch.core.schedule import ExecutionConfig
@@ -2811,6 +3236,7 @@ def main(argv=None):
     qwen = get_config("qwen1.5-110b", "full")
     moe_cfg = get_config(MOE_ARCH, "full")
     hymba = get_config("hymba-1.5b", "full")
+    vlm_cfg = get_config(VLM_ARCH, "full")
     for R, d, dt in ((4, cfg.d_model, torch.bfloat16),
                      (4 * 2048, cfg.d_model, torch.bfloat16),
                      (CROWD["max_batch"] * CROWD["prefill_chunk"],
@@ -2821,7 +3247,10 @@ def main(argv=None):
                      (2 * 2048, moe_cfg.kv_lora_rank, torch.bfloat16),
                      (2 * 2048, moe_cfg.d_model, torch.bfloat16),
                      (4, hymba.d_model, torch.bfloat16),
-                     (2 * 2048, hymba.d_model, torch.bfloat16)):
+                     (2 * 2048, hymba.d_model, torch.bfloat16),
+                     (4, vlm_cfg.d_model, torch.bfloat16),
+                     (2 * (VLM_PREFILL + vlm_cfg.n_patches), vlm_cfg.d_model,
+                      torch.bfloat16)):
         scale = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
         wb = scale.to(dt)
         x = torch.randn(R, d, generator=g, device=dev).to(dt)
@@ -2952,9 +3381,25 @@ def main(argv=None):
     rows += train_kernel_rows(torch, F, dev, g, fa, fadam, kops, rc, ref,
                               get_config, LayeredModel, tree_leaves, is_spec)
     # hymba's attention: K2 at its window prefill, K3a and K3b at its
-    # training microbatch (GQA 25 over 5, window 2048)
-    rows += hymba_attention_rows(torch, F, dev, g, fa, kops, ref,
-                                 hymba)
+    # training microbatch (GQA 25 over 5, window 2048); internvl2's: K2 at
+    # the serve-vlm prefill (2 x 2048 tokens behind 256 patches), K3a and
+    # K3b at the train-vlm microbatch (4 x 512 tokens behind 256 patches;
+    # GQA 14 over 2)
+    rows += gqa_attention_rows(torch, F, dev, g, fa, kops, ref, hymba,
+                               (1, 4096), (4, 512),
+                               ("hymba window prefill",
+                                "hymba train microbatch"))
+    rows += gqa_attention_rows(
+        torch, F, dev, g, fa, kops, ref, vlm_cfg,
+        (2, VLM_PREFILL + vlm_cfg.n_patches),
+        (VLM_TRAIN["batch"] // VLM_TRAIN["ub"],
+         VLM_TRAIN["seq"] + vlm_cfg.n_patches),
+        ("internvl2 prefill", "internvl2 train microbatch"))
+    # K4 at the modality families' rows: an internvl2 layer (59.6 MB f32)
+    # and whisper's encoder and decoder layers (12.6 / 16.8 MB), each
+    # way, against copy_
+    rows += modality_k4_rows(torch, dev, g, rc, ref, get_config,
+                             LayeredModel, tree_leaves, is_spec)
     torch.cuda.empty_cache()
     report["kernels"] = {"phase": "kernels", "rows": rows}
     emit(report["kernels"])
@@ -3353,16 +3798,48 @@ def main(argv=None):
         report["serve_recurrent_" + key] = line
         t0 = time.perf_counter()
         line, rec_launches["train-" + key], rec_routes["train-" + key] = \
-            train_recurrent_phase(torch, np, engines, ExecutionConfig,
-                                  slice_knobs, arch, get_config,
-                                  LayeredModel, tree_leaves, is_spec,
-                                  SyntheticLM, DataConfig, adam,
-                                  make_schedule, counters, dev)
+            train_family_phase(torch, np, engines, ExecutionConfig,
+                               slice_knobs, arch, get_config, LayeredModel,
+                               tree_leaves, is_spec, SyntheticLM, DataConfig,
+                               add_modality_stubs, adam, make_schedule,
+                               counters, dev, phase="train-recurrent",
+                               depth_cap=TRAIN_DEPTH_CAP.get(arch, 0))
         line["phase_seconds"] = time.perf_counter() - t0
         report["train_recurrent_" + key] = line
     emit({"phase": "recurrent-seconds", **{
         k: v["phase_seconds"] for k, v in report.items()
         if "recurrent" in k}})
+
+    # ------------------------------------ serve- and train-vlm, -audio
+    mod_launches, mod_routes = {}, {}
+    t0 = time.perf_counter()
+    report["serve_vlm"], mod_launches["serve-vlm"], \
+        mod_routes["serve-vlm"] = serve_vlm_phase(
+            torch, np, engines, exec_cfg, get_config, LayeredModel,
+            tree_leaves, is_spec, packing, sample_batch, counters, dev)
+    report["serve_vlm"]["phase_seconds"] = time.perf_counter() - t0
+    for arch, key, seq in ((VLM_ARCH, "vlm", VLM_TRAIN["seq"]),
+                           (AUDIO_ARCH, "audio", AUDIO_TARGET)):
+        if key == "audio":
+            t0 = time.perf_counter()
+            report["serve_audio"], mod_launches["serve-audio"], \
+                mod_routes["serve-audio"] = serve_audio_phase(
+                    torch, np, engines, exec_cfg, get_config, LayeredModel,
+                    tree_leaves, is_spec, sample_batch, counters, dev)
+            report["serve_audio"]["phase_seconds"] = \
+                time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line, mod_launches["train-" + key], mod_routes["train-" + key] = \
+            train_family_phase(torch, np, engines, ExecutionConfig,
+                               slice_knobs, arch, get_config, LayeredModel,
+                               tree_leaves, is_spec, SyntheticLM, DataConfig,
+                               add_modality_stubs, adam, make_schedule,
+                               counters, dev, phase="train-" + key, seq=seq)
+        line["phase_seconds"] = time.perf_counter() - t0
+        report["train_" + key] = line
+    emit({"phase": "modality-seconds", **{
+        k: report[k]["phase_seconds"] for k in (
+            "serve_vlm", "train_vlm", "serve_audio", "train_audio")}})
 
     # ---------------------------------------------------------------- train
     report["train"], step1, train_keep = train_phase(
@@ -3429,15 +3906,15 @@ def main(argv=None):
                 "dynamic-depth": dyn_launches,
                 "host-optimizer": host_launches,
                 "serve-moe": smoe_launches, "train-moe": tmoe_launches,
-                **rec_launches}
+                **rec_launches, **mod_launches}
     routes = {"serve": serve_routes, "serve-dense": dense_routes,
               "serve-continuous": cont_routes,
               "train": train_routes, "train-rmsnorm": rms_routes,
               "dynamic-depth": dyn_routes, "host-optimizer": host_routes,
               "serve-moe": smoe_routes, "train-moe": tmoe_routes,
-              **rec_routes}
+              **rec_routes, **mod_routes}
     emit({"launches": launches, "routes": routes})
-    assert len(launches) == 13, sorted(launches)
+    assert len(launches) == 17, sorted(launches)
     for path in [p for p in launches if p != "serve"]:
         got, by = launches[path], routes[path]
         # every bf16 K2, K3a and K3b launch of the path took the wgmma route
@@ -3474,6 +3951,12 @@ def main(argv=None):
                     "train-hymba": train_kernels + ("rmsnorm",),
                     "serve-rwkv6": ("relay_copy",),
                     "train-rwkv6": ("relay_copy", "relay_copy_writeback",
+                                    "fused_adam"),
+                    "serve-vlm": ("relay_copy", "rmsnorm",
+                                  "flash_attention_fwd"),
+                    "train-vlm": train_kernels + ("rmsnorm",),
+                    "serve-audio": ("relay_copy",),
+                    "train-audio": ("relay_copy", "relay_copy_writeback",
                                     "fused_adam")}
     for path, names in path_kernels.items():
         assert all(launches[path].get(n, 0) > 0 for n in names), \
@@ -3486,8 +3969,11 @@ def main(argv=None):
             "flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")), (path, launches[path])
     # rwkv6 has no attention and norms by layernorm (plain arithmetic in
-    # both packages): no K2, K3 or K5 on its paths
-    for path in ("serve-rwkv6", "train-rwkv6"):
+    # both packages): no K2, K3 or K5 on its paths; nor on whisper's,
+    # layernorm with use_pallas=False (its 1500 frames do not tile by the
+    # flash kernel's block)
+    for path in ("serve-rwkv6", "train-rwkv6", "serve-audio",
+                 "train-audio"):
         assert all(launches[path][n] == 0 for n in (
             "flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv", "rmsnorm")), (path, launches[path])
@@ -3502,7 +3988,9 @@ def main(argv=None):
     main_rows = {}
     for r in rows:                      # the first row of each kernel: the
         main_rows.setdefault(r["name"], r)   # path's shape, its dtype
-    table = [{k: ({**r, "launches": total[n]}).get(k) for k in keys}
+    table = [{**{k: ({**r, "launches": total[n]}).get(k) for k in keys},
+              "launches_by_path": {p: launches[p].get(n, 0)
+                                   for p in launches}}
              for n, r in main_rows.items()]
     assert len(table) == 7, sorted(main_rows)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)

@@ -198,9 +198,10 @@ def list_archs():
 
 
 def _load_all():
-    # import registers (the port carries the architectures it runs so far)
+    # import registers
     from repro_torch.configs import (bert_large, chatglm3_6b,  # noqa: F401
                                      command_r_35b, deepseek_v2_lite_16b,
                                      granite_3_8b, grok_1_314b,
-                                     hymba_1_5b, qwen1_5_110b,
-                                     rwkv6_1_6b)
+                                     hymba_1_5b, internvl2_1b,
+                                     qwen1_5_110b, rwkv6_1_6b,
+                                     whisper_base)

@@ -12,6 +12,11 @@ tensors it was given (the reference returns new caches).
 With ``dynamic_depth`` a step runs the first ``n_active`` layers: the
 others leave the hidden state and their cache rows untouched, and their
 weights are not fetched.
+
+Whisper (the audio family) decodes its decoder group only: before the
+first step ``encode_cross_kv`` runs the encoder once over the frames and
+writes each decoder layer's projected cross-attention K/V into its cache,
+both passes through the same relay (K4 from pinned host memory).
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from repro_torch.core import packing
 from repro_torch.core.eps import EPSPlacements, make_placements
 from repro_torch.core.relay import Stream, depth_window, relay_scan
 from repro_torch.core.schedule import ExecutionConfig
-from repro_torch.models.common import is_spec
+from repro_torch.models.attention import _proj
+from repro_torch.models.common import apply_norm, is_spec
 
 
 def make_serve_step(model, exec_cfg: ExecutionConfig,
@@ -88,14 +94,22 @@ def init_caches(model, batch: int, live_seq: int, device="cpu", dtype=None):
 
 def prefill(model, params, tokens, live_seq: int,
             exec_cfg: Optional[ExecutionConfig] = None, placements=None,
-            device="cpu", copy_stream=None, n_layers=None):
+            device="cpu", copy_stream=None, frames=None, n_layers=None):
     """Build caches by feeding the prompt one token at a time through
-    ``serve_step``.  Returns (caches, last_logits (B, V)).  With
+    ``serve_step``.  Returns (caches, last_logits (B, V)).  For whisper
+    pass ``frames`` (B, n_frames, d): the encoder runs once and its
+    projected cross-attention K/V fill the decoder caches first.  With
     ``exec_cfg.dynamic_depth``, ``n_layers`` (default: the capacity) is
     the run depth of every step."""
     exec_cfg = exec_cfg or ExecutionConfig()
     B, S = tokens.shape
     caches = init_caches(model, B, live_seq, device)
+    if model.cfg.family == "audio":
+        if frames is None:
+            raise ValueError("the audio family decodes with frames: pass "
+                             "frames (B, n_frames, d_model)")
+        encode_cross_kv(model, params, frames, caches, exec_cfg, placements,
+                        device, copy_stream)
     serve = make_serve_step(model, exec_cfg, placements, device, copy_stream)
     depth = ()
     if exec_cfg.dynamic_depth:
@@ -105,3 +119,54 @@ def prefill(model, params, tokens, live_seq: int,
     for i in range(S):
         logits, caches = serve(params, caches, tokens[:, i:i + 1], i, *depth)
     return caches, logits[:, 0]
+
+
+def encode_cross_kv(model, params, frames, caches,
+                    exec_cfg: Optional[ExecutionConfig] = None,
+                    placements=None, device="cpu", copy_stream=None):
+    """Run whisper's encoder once over ``frames`` and write each decoder
+    layer's cross-attention K/V of its output (after ``enc_ln_post``) into
+    that layer's ``xk`` / ``xv`` cache rows, in place.  Both passes relay
+    their group's rows as every other pass does (K4 from pinned host
+    memory; packed rows are unpacked on the device), so the one-shot pass
+    fetches each encoder and decoder layer once, plus the prefetch ring's
+    clamped re-fetch per group.  Returns ``caches``."""
+    exec_cfg = exec_cfg or ExecutionConfig()
+    if placements is None:
+        placements = make_placements(exec_cfg, len(model.groups), device)
+    cfg = model.cfg
+    static = {"embed": params["embed"], "head": params["head"]}
+    batch = {"frames": frames}
+    x, _ = model.prepare(static, batch)
+    enc, dec = 0, len(model.groups) - 1
+    ctx = model.train_ctx(batch, model.groups[enc])
+
+    def weights(slots):
+        (w,) = slots
+        return packing.unpack(w) if exec_cfg.pack_params else w
+
+    def relay(body, init, gi, xs=None):
+        return relay_scan(body, init, (Stream(placements.weights[gi],
+                                              params["groups"][gi]),),
+                          xs=xs, group=exec_cfg.layers_per_relay,
+                          prefetch=exec_cfg.prefetch_depth,
+                          transport=exec_cfg.transport, device=device,
+                          copy_stream=copy_stream)
+
+    x, _ = relay(lambda h, slots, _x: (model.groups[enc].apply(
+        weights(slots), h, None, ctx)[0], None), x, enc)
+    mem = apply_norm(static["embed"]["enc_ln_post"], x, cfg.norm_eps)
+
+    def kv_body(_, slots, cache_l):
+        xa = weights(slots)["xattn"]
+        k, v = _proj(mem, xa["wk"]), _proj(mem, xa["wv"])
+        if "bk" in xa:
+            k = k + xa["bk"].to(mem.dtype)
+            v = v + xa["bv"].to(mem.dtype)
+        cache_l["xk"].copy_(k)
+        cache_l["xv"].copy_(v)
+        return None, None
+
+    # the decoder is the last group and the only decode group
+    relay(kv_body, None, dec, xs=caches[-1])
+    return caches

@@ -59,18 +59,28 @@ layer's rows on the CPU while the device runs the next layer's backward
 (Algorithm 4); under Algorithm 3 the trailing update is a host loop over
 the gradient rows.  The step joins every update before it returns.
 
-Layer groups (deepseek's dense layer 0, then its MoE layers): the
-forward runs group by group, each group's input saved for the vjp of the
-``transition`` into it; the backward walks the groups in reverse, each
-with its own placements, optimizer slots, stash segments and sinks, and
-the transition's vjp carries dx back (the static params take its share:
-none for the identity).  A layer's vjp differentiates its ``(y, aux)``
-with the cotangent ``(dx, S_loss / UB)``, so the MoE router's
-load-balance loss reaches its gradient.
+Layer groups (deepseek's dense layer 0, then its MoE layers; whisper's
+encoder, then its decoder): the forward runs group by group, each
+group's input saved for the vjp of the ``transition`` into it; the
+backward walks the groups in reverse, each with its own placements,
+optimizer slots, stash segments and sinks, and the transition's vjp
+carries dx back (the static params take its share: none for the
+identity).  A layer's vjp differentiates its ``(y, aux)`` with the
+cotangent ``(dx, S_loss / UB)``, so the MoE router's load-balance loss
+reaches its gradient.
 
-Not ported (each asserts): ``tiers=3``, cross-attention memory
-(``has_mem``) and ``dynamic_depth`` over more than one group (as the
-reference).
+Cross-attention memory (``has_mem``, whisper's decoder): the
+transition makes the group's memory per microbatch (the encoder's
+output through ``enc_ln_post``), which every layer of the group reads
+beside its input.  The backward takes each layer's vjp with
+respect to (w, x, mem) and sums ``dmem`` over the group's layers, in
+reverse layer order on every knob point (no atomics: the knob grid stays
+bitwise); the stash's boundary recompute reads the same memory.  The
+transition's vjp then carries ``dmem`` through ``transition_mem`` into
+the encoder's last output (dx) and ``enc_ln_post``'s gradient.
+
+Not ported (each asserts): ``tiers=3``, and ``dynamic_depth`` over more
+than one group (as the reference).
 """
 from __future__ import annotations
 
@@ -150,9 +160,12 @@ def _vjp(fn, inputs: list, cotangent, zeros: bool = True):
                       else ((out,), (cotangent,)))
         pairs = [(o, c) for o, c in zip(outs, cots)
                  if torch.is_tensor(o) and o.requires_grad]
-        grads = torch.autograd.grad([o for o, _ in pairs], leaves,
-                                    grad_outputs=[c for _, c in pairs],
-                                    allow_unused=True)
+        # no output depends on an input (whisper's prepare reads no
+        # parameter): every gradient is absent
+        grads = (torch.autograd.grad([o for o, _ in pairs], leaves,
+                                     grad_outputs=[c for _, c in pairs],
+                                     allow_unused=True)
+                 if pairs else [None] * len(leaves))
     if zeros:
         grads = [torch.zeros_like(a) if g is None else g
                  for a, g in zip(leaves, grads)]
@@ -215,9 +228,6 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
     (Algorithm 4 with ``host_optimizer``)."""
     assert exec_cfg.tiers == 2, "tiers=3 (the disk tier) is not ported yet"
     groups = model.groups
-    assert not any(g.has_mem for g in groups), \
-        "cross-attention memory (the encoder-decoder family) is not " \
-        "ported yet"
     device = torch.device(device)
     if placements is None:
         placements = make_placements(exec_cfg, len(groups), device)
@@ -280,11 +290,12 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             for h in hosts:
                 h.close()
 
-    def apply_ub(group, ctx, w, x_c):
+    def apply_ub(group, ctx, w, x_c, mem):
         ys = []
         aux_l = 0.0
         for u in range(UB):
-            y, a = group.apply(w, x_c[u], None, ctx)
+            y, a = group.apply(w, x_c[u], None if mem is None else mem[u],
+                               ctx)
             ys.append(y)
             aux_l = aux_l + a
         return torch.stack(ys), aux_l
@@ -359,21 +370,26 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         # ------------------------------------------------------------
         x_ub = torch.stack([model.prepare(static, b)[0] for b in ub])
         group_inputs = [None] * NG
+        mems = [None] * NG        # per group: its memory per microbatch
         stashes = [None] * NG     # the stash sink (K = 1), the entries (K > 1)
         aux_total = torch.zeros((), **f32)
         for gi, group in enumerate(groups):
             if gi > 0:
-                group_inputs[gi] = x_ub
-                x_ub = torch.stack([model.transition_x(gi, static, x_ub[u],
+                group_inputs[gi] = x_prev = x_ub
+                x_ub = torch.stack([model.transition_x(gi, static, x_prev[u],
                                                        ub[u])
                                     for u in range(UB)])
+                if group.has_mem:
+                    mems[gi] = torch.stack([model.transition_mem(
+                        gi, static, x_prev[u], ub[u]) for u in range(UB)])
             W, N, aux = Ws[gi], group.n_layers, []
 
             def fwd_body(x_c, slots, _x, _stash=True, _g=group,
-                         _ctx=ctxs[gi], _aux=aux):
+                         _ctx=ctxs[gi], _aux=aux, _mem=mems[gi]):
                 (w,) = slots
                 y_ub, aux_l = apply_ub(_g, _ctx,
-                                       packing.unpack(w) if PK else w, x_c)
+                                       packing.unpack(w) if PK else w, x_c,
+                                       _mem)
                 _aux.append(aux_l)
                 return y_ub, ((x_c,) if _stash else None)
 
@@ -422,25 +438,33 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         # loss adds each layer's aux summed over microbatches over UB
         d_aux = S_loss / UB
 
-        def bwd_body(core, slots, stash_l, _g, _ctx):
+        def bwd_body(core, slots, stash_l, _g, _ctx, _mem):
             """Recompute-vjp microbatch loop (+ eager update) of one
             layer.  With pack_params the vjp differentiates the UNPACKED
-            views and every gradient-side reduction stays on the tree."""
+            views and every gradient-side reduction stays on the tree.
+            With a memory the vjp also gives dmem, summed into the carry's
+            ``dmem_c`` layer by layer."""
             w_dev = slots[0]
             opt_l = slots[1] if len(slots) > 1 else None
-            dx_c, gn_c, nf_c = core
+            dx_c, dmem_c, gn_c, nf_c = core
             w_tree = packing.unpack(w_dev) if PK else w_dev
             w_leaves = tree_leaves(w_tree)
+            nw = len(w_leaves)
             dw = [torch.zeros(a.shape, dtype=torch.float32, device=a.device)
                   for a in w_leaves]
-            dxin = []
+            dxin, dmem = [], []
             for u in range(UB):
                 def layer(ls):
-                    return _g.apply(tree_unflatten_like(w_tree, ls[:-1]),
-                                    ls[-1], None, _ctx)
-                _, g = _vjp(layer, w_leaves + [stash_l[u]], (dx_c[u], d_aux))
-                dw = [a + b.float() for a, b in zip(dw, g[:-1])]
-                dxin.append(g[-1])
+                    return _g.apply(tree_unflatten_like(w_tree, ls[:nw]),
+                                    ls[nw], None if _mem is None else
+                                    ls[nw + 1], _ctx)
+                _, g = _vjp(layer, w_leaves + [stash_l[u]] + (
+                    [] if _mem is None else [_mem[u]]), (dx_c[u], d_aux))
+                dw = [a + b.float() for a, b in zip(dw, g[:nw])]
+                dxin.append(g[nw])
+                dmem.extend(g[nw + 1:])
+            if _mem is not None:
+                dmem_c = dmem_c + torch.stack(dmem)
             dw = tree_unflatten_like(w_tree, [g / S_loss for g in dw])
             finite_l = _finite(dw)
             if CLIP:
@@ -467,18 +491,22 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             else:
                 # Alg 3: the gradient is shipped to the EPS
                 out = (dw_out,)
-            return (torch.stack(dxin), gn_c, nf_c), out
+            return (torch.stack(dxin), dmem_c, gn_c, nf_c), out
 
         # Alg 4 on the card fetches the Adam slots with the weights; the
         # host optimizer reads them where they rest
         with_opt = EAGER and not HOST
-        core = (dx_ub, torch.zeros((), **f32),
+        core = (dx_ub, None, torch.zeros((), **f32),
                 torch.zeros((), dtype=torch.int32, device=W_total.device))
         for gi in reversed(range(NG)):
             group, W, O = groups[gi], Ws[gi], Os[gi]
             wp, op = wps[gi], ops[gi]
-            body = (lambda c, sl, x, _g=group, _ctx=ctxs[gi]:
-                    bwd_body(c, sl, x, _g, _ctx))
+            mem = mems[gi]
+            # the group's dmem starts at zero and sums over its layers
+            core = (core[0], None if mem is None else torch.zeros_like(mem),
+                    ) + core[2:]
+            body = (lambda c, sl, x, _g=group, _ctx=ctxs[gi], _m=mem:
+                    bwd_body(c, sl, x, _g, _ctx, _m))
             if SE == 1:
                 streams = [Stream(wp, W)] + \
                     ([Stream(op, O)] if with_opt else [])
@@ -486,12 +514,15 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                                 reverse=True, sinks=outs[gi],
                                 active=(0, n_acts[gi]))
             else:
-                def rec_body(x_c, slots, _x, _g=group, _ctx=ctxs[gi]):
-                    """One layer of the boundary recompute: its OUTPUT
-                    boundary goes to the segment's stash rows."""
+                def rec_body(x_c, slots, _x, _g=group, _ctx=ctxs[gi],
+                             _m=mem):
+                    """One layer of the boundary recompute (with the same
+                    memory as the forward): its OUTPUT boundary goes to
+                    the segment's stash rows."""
                     (w,) = slots
                     y_ub, _ = apply_ub(_g, _ctx,
-                                       packing.unpack(w) if PK else w, x_c)
+                                       packing.unpack(w) if PK else w, x_c,
+                                       _m)
                     return y_ub, (y_ub,)
 
                 for si in reversed(range(len(bounds[gi]))):
@@ -514,22 +545,30 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                                     reverse=True, sinks=outs[gi],
                                     sink_row0=s0, active=(0, hi))
             if gi > 0:
-                # the transition's vjp back to group gi-1's output; the
+                # the transition's vjp back to group gi-1's output: dx
+                # through transition_x, dmem through transition_mem; the
                 # static params take their share (none for the identity)
                 dx_prev = []
                 for u in range(UB):
-                    def trans(ls, _u=u):
-                        return model.transition_x(
-                            gi, tree_unflatten_like(static, ls[:-1]),
-                            ls[-1], ub[_u])
-                    _, g = _vjp(trans, s_leaves + [group_inputs[gi][u]],
-                                core[0][u], zeros=False)
-                    d_static = tree_unflatten_like(static, [
-                        a if b is None else a + b.float() for a, b in
-                        zip(tree_leaves(d_static), g[:-1])])
-                    dx_prev.append(g[-1])
-                core = (torch.stack(dx_prev),) + core[1:]
-        dx_ub, gnorm_sq, nonfinite = core
+                    parts = [(model.transition_x, core[0][u])]
+                    if mem is not None:
+                        parts.append((model.transition_mem, core[1][u]))
+                    dxp = None
+                    for fn, cot in parts:
+                        def trans(ls, _u=u, _fn=fn):
+                            return _fn(gi, tree_unflatten_like(
+                                static, ls[:-1]), ls[-1], ub[_u])
+                        _, g = _vjp(trans, s_leaves + [group_inputs[gi][u]],
+                                    cot, zeros=False)
+                        d_static = tree_unflatten_like(static, [
+                            a if b is None else a + b.float() for a, b in
+                            zip(tree_leaves(d_static), g[:-1])])
+                        if g[-1] is not None:
+                            dxp = g[-1] if dxp is None else dxp + g[-1]
+                    dx_prev.append(torch.zeros_like(group_inputs[gi][u])
+                                   if dxp is None else dxp)
+                core = (torch.stack(dx_prev), None) + core[2:]
+        dx_ub, _, gnorm_sq, nonfinite = core
 
         # ---- prepare (embedding) vjp ---------------------------------
         for u in range(UB):
@@ -758,20 +797,25 @@ def make_prefill_fn(model, exec_cfg: ExecutionConfig,
                       for u in range(UB)]
         x_ub = torch.stack([model.prepare(static, b)[0] for b in ub_batches])
         for gi, group in enumerate(model.groups):
-            assert not group.has_mem, \
-                "cross-attention memory comes with the encoder-decoder family"
+            mem = None
             if gi > 0:
-                x_ub = torch.stack([model.transition_x(gi, static, x_ub[u],
+                x_prev = x_ub
+                x_ub = torch.stack([model.transition_x(gi, static, x_prev[u],
                                                        ub_batches[u])
                                     for u in range(UB)])
+                if group.has_mem:
+                    mem = torch.stack([model.transition_mem(
+                        gi, static, x_prev[u], ub_batches[u])
+                        for u in range(UB)])
             ctx = model.train_ctx(ub_batches[0], group)
 
-            def fwd_body(x_c, slots, _x, _g=group, _ctx=ctx):
+            def fwd_body(x_c, slots, _x, _g=group, _ctx=ctx, _mem=mem):
                 (w,) = slots
                 if exec_cfg.pack_params:
                     w = packing.unpack(w)
-                return torch.stack([_g.apply(w, x_c[u], None, _ctx)[0]
-                                    for u in range(UB)]), None
+                return torch.stack([_g.apply(
+                    w, x_c[u], None if _mem is None else _mem[u], _ctx)[0]
+                    for u in range(UB)]), None
 
             x_ub, _ = relay_scan(
                 fwd_body, x_ub, (Stream(placements.weights[gi],

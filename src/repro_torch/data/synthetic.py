@@ -16,7 +16,7 @@ job can materialize exactly its shard without coordination.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -90,3 +90,18 @@ class SyntheticLM:
         while True:
             yield self.batch(step)
             step += 1
+
+
+def add_modality_stubs(batch: dict, cfg, rng: Optional[np.random.Generator]
+                       = None) -> dict:
+    """Attach the stubbed frontend embeddings (whisper's audio frames,
+    internvl2's vision patches) as deterministic pseudo features."""
+    rng = rng or np.random.default_rng(1234)
+    B = batch["tokens"].shape[0]
+    if cfg.family == "audio":
+        batch = dict(batch, frames=rng.standard_normal(
+            (B, cfg.n_frames, cfg.d_model)).astype(np.float32))
+    if cfg.is_vlm:
+        batch = dict(batch, patches=rng.standard_normal(
+            (B, cfg.n_patches, cfg.vit_dim)).astype(np.float32))
+    return batch

@@ -310,7 +310,8 @@ class Engine:
     # -- inference ----------------------------------------------------------
     def prefill(self, params, batch, n_layers=None):
         """Last-token logits (B, vocab) of a prompt batch
-        (``{"tokens": (B, S)}``) under the layer-major relay."""
+        (``{"tokens": (B, S)}``, with ``"patches"`` for internvl2 and
+        ``"frames"`` for whisper) under the layer-major relay."""
         if "prefill" not in self._fns:
             self._fns["prefill"] = _l2l.make_prefill_fn(
                 self.model, self.exec_cfg, self.placements, self.device,
@@ -321,16 +322,20 @@ class Engine:
             return self._fns["prefill"](self._relay_params(params), batch,
                                         *depth)
 
-    def decode_init(self, params, tokens, live_seq: int, n_layers=None):
-        """Fill the decode caches from a prompt, one token per serve step.
-        Returns (caches, last_logits)."""
+    def decode_init(self, params, tokens, live_seq: int, frames=None,
+                    n_layers=None):
+        """Fill the decode caches from a prompt, one token per serve step
+        (whisper: ``frames`` (B, n_frames, d) go through the encoder
+        first).  Returns (caches, last_logits)."""
         self._depth(n_layers)
         with torch.inference_mode():
             return _decode.prefill(
                 self.model, self._relay_params(params),
                 tokens.to(self.device), live_seq, exec_cfg=self.exec_cfg,
                 placements=self.placements, device=self.device,
-                copy_stream=self.copy_stream, n_layers=n_layers)
+                copy_stream=self.copy_stream,
+                frames=None if frames is None else frames.to(self.device),
+                n_layers=n_layers)
 
     def decode_step(self, params, caches, token, cur_pos, n_layers=None):
         """One decode step: (logits (B, T, V), caches updated in place)."""

@@ -12,6 +12,9 @@ it (the port of ``repro/launch/serve.py``)::
     PYTHONPATH=src python -m repro_torch.launch.serve --mode oneshot \
         --variant full --weight-stream --pack --prefetch 1 --transport pallas
 
+whisper-base (``--arch whisper-base``) always runs one-shot, on random
+frames; internvl2-1b serves its language backbone (text only) either way.
+
 Runs on the card unless ``--device cpu``.  With ``--weight-stream`` the
 layer stack rests in pinned host memory and every decode step (every
 tick) relays it through HBM one slot at a time.  The first tick / step
@@ -59,6 +62,12 @@ def run_oneshot(eng, cfg, args):
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
         device=dev)
+    frames = None
+    if cfg.family == "audio":
+        frames = torch.randn(
+            (args.batch, cfg.n_frames, cfg.d_model),
+            generator=torch.Generator(device=dev).manual_seed(2),
+            device=dev).to(torch.bfloat16)
 
     def pick(logits, pos):
         return sample_batch(logits, temperature=args.temperature,
@@ -66,7 +75,7 @@ def run_oneshot(eng, cfg, args):
                             position=pos)[:, None]
 
     t0 = time.perf_counter()
-    caches, last_logits = eng.decode_init(params, prompt, live)
+    caches, last_logits = eng.decode_init(params, prompt, live, frames=frames)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -212,7 +221,9 @@ def main(argv=None):
         layers_per_relay=args.group, pack_params=args.pack,
         transport=args.transport, decode_window=args.window),
         device=args.device)
-    if args.mode == "oneshot":
+    if args.mode == "oneshot" or cfg.family == "audio":
+        # continuous batching refuses the audio family (its encoder K/V
+        # is per request, not paged)
         return run_oneshot(eng, cfg, args)
     return run_continuous(eng, cfg, args)
 

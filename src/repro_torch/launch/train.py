@@ -45,7 +45,8 @@ from repro_torch import engine as engines
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs.base import get_config
 from repro_torch.core.schedule import ExecutionConfig
-from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
+                                        add_modality_stubs)
 from repro_torch.optim import get_optimizer, make_schedule
 
 # flags of the reference's CLI whose features the port does not have
@@ -206,8 +207,11 @@ def main(argv=None):
     preempted = False
     last_saved = start_step if resumed_from is not None else None
     for i in range(start_step, args.steps):
-        # batch(i) is a function of i alone: a resumed run replays the data
-        batch = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
+        # batch(i) and its stubs are functions of i alone: a resumed run
+        # replays the data
+        rng = np.random.default_rng((args.seed, i))
+        batch = {k: torch.from_numpy(v) for k, v in
+                 add_modality_stubs(data.batch(i), cfg, rng).items()}
         t0 = time.perf_counter()
         state, metrics = eng.train_step(state, batch, n_layers=run_layers)
         loss = float(metrics["loss"])          # waits for the step

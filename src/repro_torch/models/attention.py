@@ -4,8 +4,8 @@ through the flash kernel (K2), decode against a ring-buffer KV cache,
 plain or with the KV heads kept grouped (``attend_grouped_decode``), and
 MLA (DeepSeek-V2): the full-sequence ``mla_attention`` (plain ``attend``,
 as the reference's, even with ``use_pallas``) and the absorbed decode
-against the compressed cache (``decode_mla_attention``).
-Cross-attention comes with the audio family.
+against the compressed cache (``decode_mla_attention``), and whisper's
+cross-attention (``cross_attention``, plain ``attend`` as the reference's).
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ NEG_INF = -1.0e30
 # Parameter specs
 # ---------------------------------------------------------------------------
 def gqa_spec(cfg) -> dict:
+    """Self- or cross-attention projections (whisper's decoder has both):
+    one layout, as in the reference."""
     d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     spec = {
         "wq": ParamSpec((d, H, Dh), ("d_model", "heads", "head_dim")),
@@ -184,13 +186,24 @@ def out_project(w, o):
     return y
 
 
+def uses_flash(x, cfg) -> bool:
+    """Whether full-sequence self attention runs the flash kernel (K2, K3a
+    and K3b under grad): with ``cfg.use_pallas`` (on the CPU the kernels'
+    plain versions), and on a CUDA tensor for every family but audio.
+    Whisper's 1500 encoder frames do not tile by the kernel's 128-row
+    block (the reference's contract), so on the card as on the CPU the
+    audio family takes the reference's choice, ``use_pallas``."""
+    return cfg.use_pallas or (x.device.type == "cuda"
+                              and cfg.family != "audio")
+
+
 def self_attention(w, x, cfg, positions, *, causal: bool = True,
                    window: int = 0, rope: bool = True):
-    """Full-sequence self attention (prefill).  On a CUDA tensor always the
-    flash kernel (K2, which reads the KV heads unexpanded); on the CPU the
-    kernel's plain version when ``cfg.use_pallas``, else ``attend``."""
+    """Full-sequence self attention (prefill, training): the flash kernel
+    (K2, which reads the KV heads unexpanded) where ``uses_flash``, else
+    ``attend``."""
     q, k, v = qkv_project(w, x, cfg, positions, rope=rope)
-    if x.device.type == "cuda" or cfg.use_pallas:
+    if uses_flash(x, cfg):
         from repro_torch.kernels import ops as kops
         o = kops.flash_attention(q, k, v, causal=causal, window=window,
                                  soft_cap=0.0)
@@ -198,6 +211,23 @@ def self_attention(w, x, cfg, positions, *, causal: bool = True,
         o = attend(q, expand_kv(k, cfg.n_q_per_kv),
                    expand_kv(v, cfg.n_q_per_kv), positions, positions,
                    causal=causal, window=window, chunk=cfg.attn_chunk)
+    return out_project(w, o)
+
+
+def cross_attention(w, x, mem, cfg, positions, mem_positions):
+    """x (B,S,d) attends to ``mem`` (B,Sm,d), whisper's decoder to the
+    encoder's output: the plain ``attend``, unmasked, as the reference's
+    (no kernel on either device)."""
+    dt = x.dtype
+    q = _proj(x, w["wq"])
+    k, v = _proj(mem, w["wk"]), _proj(mem, w["wv"])
+    if "bq" in w:
+        q = q + w["bq"].to(dt)
+    if "bk" in w:
+        k = k + w["bk"].to(dt)
+        v = v + w["bv"].to(dt)
+    o = attend(q, expand_kv(k, cfg.n_q_per_kv), expand_kv(v, cfg.n_q_per_kv),
+               positions, mem_positions, causal=False, chunk=0)
     return out_project(w, o)
 
 

@@ -1,15 +1,21 @@
 """Per-family layer blocks with a uniform interface (the port of
-``repro/models/blocks.py``: the dense, MoE, hybrid and SSM families).
+``repro/models/blocks.py``).
 
 * ``spec(cfg)``                          — ParamSpec tree for ONE layer
 * ``apply(w, x, mem, ctx, cfg)``         — full-seq forward -> (x', aux)
 * ``decode(w, x, cache, mem, ctx, cfg)`` — one step -> (x', cache), the
   cache updated in place (KV slots and recurrent state alike)
 * ``cache_spec(cfg, batch, live)``       — per-layer decode cache specs
+
+``mem`` is the cross-attention memory (whisper's decoder: the encoder's
+normed output), None elsewhere; the L2L engine takes each layer's vjp
+with respect to (w, x, mem).
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
+
+import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
@@ -20,6 +26,7 @@ from repro_torch.models.moe import moe_apply, moe_spec
 
 class Ctx(NamedTuple):
     positions: Optional[Any] = None       # (B,S) int32
+    mem_positions: Optional[Any] = None   # (B,Sm) int32 (cross-attention)
     cur_pos: Optional[Any] = None         # scalar or per-row (decode)
     window: int = 0                       # sliding window (0 = full)
     causal: bool = True
@@ -198,3 +205,73 @@ def rwkv_decode(w, x, cache, mem, ctx: Ctx, cfg):
 
 def rwkv_cache_spec(cfg, batch, live):
     return ssm_mod.rwkv6_state_spec(cfg, batch)
+
+
+# ===========================================================================
+# Whisper encoder / decoder blocks (layernorm, biased projections, gelu)
+# ===========================================================================
+def whisper_enc_spec(cfg) -> dict:
+    return {"ln1": norm_spec(cfg), "attn": attn.gqa_spec(cfg),
+            "ln2": norm_spec(cfg), "mlp": mlp_spec(cfg)}
+
+
+def whisper_enc_apply(w, x, mem, ctx: Ctx, cfg):
+    h = _norm(w["ln1"], x, cfg)
+    x = x + attn.self_attention(w["attn"], h, cfg, ctx.positions,
+                                causal=False, rope=False)
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+    return x, 0.0
+
+
+def whisper_dec_spec(cfg) -> dict:
+    return {"ln1": norm_spec(cfg), "attn": attn.gqa_spec(cfg),
+            "ln_x": norm_spec(cfg), "xattn": attn.gqa_spec(cfg),
+            "ln2": norm_spec(cfg), "mlp": mlp_spec(cfg)}
+
+
+def whisper_dec_apply(w, x, mem, ctx: Ctx, cfg):
+    h = _norm(w["ln1"], x, cfg)
+    x = x + attn.self_attention(w["attn"], h, cfg, ctx.positions,
+                                causal=True, rope=False)
+    h = _norm(w["ln_x"], x, cfg)
+    x = x + attn.cross_attention(w["xattn"], h, mem, cfg, ctx.positions,
+                                 ctx.mem_positions)
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+    return x, 0.0
+
+
+def whisper_dec_decode(w, x, cache, mem, ctx: Ctx, cfg):
+    """Self-attention against the ring cache (written in place);
+    cross-attention against the encoder's K/V, projected once before the
+    first step (``core.decode.encode_cross_kv``) into the cache's ``xk`` /
+    ``xv``."""
+    dt = x.dtype
+    h = _norm(w["ln1"], x, cfg)
+    a, _ = attn.decode_self_attention(w["attn"], h, cache["kv"], cfg,
+                                      ctx.cur_pos, window=ctx.window,
+                                      rope=False)
+    x = x + a
+    h = _norm(w["ln_x"], x, cfg)
+    q = attn._proj(h, w["xattn"]["wq"])
+    if "bq" in w["xattn"]:
+        q = q + w["xattn"]["bq"].to(dt)
+    B, Sm = x.shape[0], cache["xk"].shape[1]
+    pos = attn.decode_positions(x, ctx.cur_pos)
+    mpos = torch.arange(Sm, dtype=torch.int32, device=x.device).expand(B, Sm)
+    o = attn.attend(q, attn.expand_kv(cache["xk"].to(dt), cfg.n_q_per_kv),
+                    attn.expand_kv(cache["xv"].to(dt), cfg.n_q_per_kv),
+                    pos, mpos, causal=False, chunk=0)
+    x = x + attn.out_project(w["xattn"], o)
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+    return x, cache
+
+
+def whisper_dec_cache_spec(cfg, batch, live):
+    KV, Dh = cfg.n_kv_heads, cfg.d_head
+    return {
+        "kv": attn.kv_cache_spec(cfg, batch, live),
+        "xk": ParamSpec((batch, cfg.n_frames, KV, Dh),
+                        ("batch", "seq", "kv", "head_dim"), "zeros"),
+        "xv": ParamSpec((batch, cfg.n_frames, KV, Dh),
+                        ("batch", "seq", "kv", "head_dim"), "zeros"),
+    }

@@ -1,19 +1,23 @@
 """LayeredModel: the layer-granular model API the L2L engine executes (the
-port of ``repro/models/model.py``: the dense, MoE, hybrid and SSM
-families).
+port of ``repro/models/model.py``).
 
-A model is ``prepare`` (embeddings) -> homogeneous layer groups, each run
-over a stacked ``(N, ...)`` parameter tree, joined by a ``transition``
-(the identity for a homogeneous stream: deepseek's dense -> MoE) -> the
-head.  Parameters are nested dicts: ``{"embed": {...}, "head": {...},
-"groups": (group, ...)}``.  Cross-attention memory (``has_mem``, the
-encoder-decoder family) is not ported yet.
+A model is ``prepare`` (embeddings, and the modality stubs: internvl2's
+projected patches in front of the tokens, whisper's frames) ->
+homogeneous layer groups, each run over a stacked ``(N, ...)`` parameter
+tree, joined by a ``transition`` -> the head.  A transition is the
+identity for a homogeneous stream (deepseek's dense -> MoE); for
+whisper it turns the encoder's output into the decoder's cross-attention
+memory (``transition_mem``) and builds the decoder's input from the
+target tokens (``transition_x``).  Parameters are nested dicts:
+``{"embed": {...}, "head": {...}, "groups": (group, ...)}``.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -34,7 +38,24 @@ class Group(NamedTuple):
     decode: Callable                 # (w, x, cache, mem, ctx) -> (x, cache)
     cache_spec: Callable             # (batch, live_seq) -> per-layer spec
     has_mem: bool = False
-    is_encoder: bool = False
+    is_encoder: bool = False         # not run during decode
+
+
+def sinusoidal(positions, d: int, dtype):
+    """positions: (B,S) -> (B,S,d), the classic sin / cos embedding."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions[..., None].float() * freq
+    emb = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    if d % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb.to(dtype)
+
+
+def _arange(n: int, B: int, device):
+    return torch.arange(n, dtype=torch.int32, device=device).expand(B, n)
 
 
 def stack_layers(layers):
@@ -49,13 +70,13 @@ class LayeredModel:
 
     @staticmethod
     def _build_groups(cfg) -> Tuple[Group, ...]:
-        def G(name, n, spec, apply_fn, decode_fn, cache_fn):
+        def G(name, n, spec, apply_fn, decode_fn, cache_fn, **kw):
             ap = lambda w, x, mem, ctx: apply_fn(w, x, mem, ctx, cfg)
             de = lambda w, x, c, mem, ctx: decode_fn(w, x, c, mem, ctx, cfg)
             cs = lambda b, live: cache_fn(cfg, b, live)
-            return Group(name, n, spec, ap, de, cs)
+            return Group(name, n, spec, ap, de, cs, **kw)
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             return (G("layers", cfg.n_layers, blocks.dense_spec(cfg),
                       blocks.dense_apply, blocks.dense_decode,
                       blocks.dense_cache_spec),)
@@ -80,9 +101,16 @@ class LayeredModel:
             return (G("layers", cfg.n_layers, blocks.rwkv_spec(cfg),
                       blocks.rwkv_apply, blocks.rwkv_decode,
                       blocks.rwkv_cache_spec),)
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs the dense, MoE, hybrid "
-            "and SSM families so far")
+        if cfg.family == "audio":
+            enc = G("encoder", cfg.n_encoder_layers,
+                    blocks.whisper_enc_spec(cfg), blocks.whisper_enc_apply,
+                    blocks.whisper_dec_decode, blocks.whisper_dec_cache_spec,
+                    is_encoder=True)
+            dec = G("decoder", cfg.n_layers, blocks.whisper_dec_spec(cfg),
+                    blocks.whisper_dec_apply, blocks.whisper_dec_decode,
+                    blocks.whisper_dec_cache_spec, has_mem=True)
+            return (enc, dec)
+        raise ValueError(f"unknown family {cfg.family}")
 
     # ------------------------------------------------------------------
     # parameters
@@ -91,6 +119,12 @@ class LayeredModel:
         cfg = self.cfg
         embed = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model),
                                   ("vocab", "d_model"), "embed")}
+        if cfg.family == "audio":
+            embed["enc_ln_post"] = norm_spec(cfg)
+        if cfg.is_vlm:
+            embed["proj_w"] = ParamSpec((cfg.vit_dim, cfg.d_model),
+                                        ("lora", "d_model"))
+            embed["proj_b"] = ParamSpec((cfg.d_model,), ("d_model",), "zeros")
         head: dict = {"ln_f": norm_spec(cfg)}
         if not cfg.tie_embeddings:
             head["out"] = ParamSpec((cfg.d_model, cfg.vocab_size),
@@ -139,39 +173,81 @@ class LayeredModel:
         return getattr(torch, self.cfg.dtype)
 
     def prepare(self, static, batch):
-        """-> (x0 for group 0, mem for group 0 (None))."""
-        return embed_tokens(static["embed"], batch["tokens"], self.cfg,
-                            self.dtype()), None
+        """-> (x0 for group 0, mem for group 0 (None)).  Whisper's encoder
+        input is the frames plus sinusoidal positions; internvl2's is the
+        projected patches, then the tokens' embeddings."""
+        cfg, dt = self.cfg, self.dtype()
+        emb = static["embed"]
+        if cfg.family == "audio":
+            frames = batch["frames"].to(dt)            # (B, nf, d) stub
+            B, nf, _ = frames.shape
+            pos = _arange(nf, B, frames.device)
+            return frames + sinusoidal(pos, cfg.d_model, dt), None
+        x = embed_tokens(emb, batch["tokens"], cfg, dt)
+        if cfg.is_vlm:
+            p = batch["patches"].to(dt) @ emb["proj_w"].to(dt) \
+                + emb["proj_b"].to(dt)
+            x = torch.cat([p, x], dim=1)
+        return x, None
 
     def transition_x(self, g: int, static, x_prev, batch):
         """Input activations of group g from group g-1's output: the
-        identity for every family ported so far (the audio family builds
-        its decoder input from the target tokens)."""
-        return x_prev
+        identity, but for whisper's decoder, whose input is built from the
+        target tokens (its gradient path to the encoder goes through
+        ``transition_mem``)."""
+        cfg = self.cfg
+        if cfg.family != "audio":
+            return x_prev
+        toks = batch["tokens"]
+        B, S = toks.shape
+        x = embed_tokens(static["embed"], toks, cfg, self.dtype())
+        return x + sinusoidal(_arange(S, B, toks.device), cfg.d_model,
+                              self.dtype())
 
     def transition_mem(self, g: int, static, x_prev, batch):
-        """Cross-attention memory of group g (None unless ``has_mem``)."""
-        assert not self.groups[g].has_mem, \
-            "cross-attention memory comes with the encoder-decoder family"
-        return None
+        """Cross-attention memory of group g (None unless ``has_mem``): the
+        encoder's output through ``enc_ln_post``."""
+        if not self.groups[g].has_mem:
+            return None
+        return apply_norm(static["embed"]["enc_ln_post"], x_prev,
+                          self.cfg.norm_eps)
 
     def transition(self, g: int, static, x_prev, batch):
         return (self.transition_x(g, static, x_prev, batch),
                 self.transition_mem(g, static, x_prev, batch))
 
     def train_ctx(self, batch, group: Group) -> Ctx:
+        cfg = self.cfg
+        if group.is_encoder:
+            B, nf = batch["frames"].shape[:2]
+            return Ctx(positions=_arange(nf, B, batch["frames"].device),
+                       causal=False)
         B, S = batch["tokens"].shape
-        pos = torch.arange(S, dtype=torch.int32,
-                           device=batch["tokens"].device).expand(B, S)
-        return Ctx(positions=pos, causal=True, window=self.cfg.sliding_window)
+        dev = batch["tokens"].device
+        if cfg.family == "audio":
+            return Ctx(positions=_arange(S, B, dev),
+                       mem_positions=_arange(cfg.n_frames, B, dev),
+                       causal=True)
+        if cfg.is_vlm:
+            S = S + cfg.n_patches
+        return Ctx(positions=_arange(S, B, dev), causal=True,
+                   window=cfg.sliding_window)
 
     def decode_ctx(self, cur_pos, window: int = 0) -> Ctx:
         w = window if window else self.cfg.sliding_window
         return Ctx(cur_pos=cur_pos, window=w, causal=True)
 
     def decode_embed(self, static, token, cur_pos):
-        """token: (B,T) -> x (B,T,d), the same lookup as ``prepare``."""
-        return embed_tokens(static["embed"], token, self.cfg, self.dtype())
+        """token: (B,T) -> x (B,T,d), the same lookup as ``prepare``; for
+        whisper plus the sinusoidal position (``cur_pos``: a scalar or
+        per-row positions, negative entries clamped to 0)."""
+        cfg, dt = self.cfg, self.dtype()
+        x = embed_tokens(static["embed"], token, cfg, dt)
+        if cfg.family == "audio":
+            from repro_torch.models.attention import decode_positions
+            pos = decode_positions(x, cur_pos).clamp_min(0)
+            x = x + sinusoidal(pos, cfg.d_model, dt)
+        return x
 
     def decode_logits(self, static, x):
         cfg = self.cfg
@@ -180,7 +256,11 @@ class LayeredModel:
 
     def head_loss(self, static, x, batch):
         """-> (loss_sum, weight_sum); the caller normalizes.  BERT's head
-        is untied: ``ln_f`` (layernorm), then ``out``."""
+        is untied: ``ln_f`` (layernorm), then ``out``.  internvl2's x
+        covers patches and tokens: the loss reads the token positions only
+        (sliced before the head: per position the same logits)."""
+        if self.cfg.is_vlm:
+            x = x[:, self.cfg.n_patches:]
         return softmax_xent(self.decode_logits(static, x), batch["targets"],
                             batch["mask"])
 
@@ -200,8 +280,9 @@ class LayeredModel:
                 w = tree_map(lambda a, _l=li: a[_l], stacked)
                 if remat:
                     x, aux = torch.utils.checkpoint.checkpoint(
-                        lambda ww, h, _g=group, _c=ctx, _m=mem:
-                        _g.apply(ww, h, _m, _c), w, x, use_reentrant=False)
+                        lambda ww, h, m, _g=group, _c=ctx:
+                        _g.apply(ww, h, m, _c), w, x, mem,
+                        use_reentrant=False)
                 else:
                     x, aux = group.apply(w, x, mem, ctx)
                 aux_total = aux_total + aux

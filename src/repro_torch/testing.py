@@ -6,12 +6,15 @@ import math
 
 
 SCALES = ("scale", "kv_norm", "beta_a", "beta_s", "d_skip", "ln_scale")
+# biases whose names do not start with "b" (internvl2's patch projection)
+BIASES = ("proj_b",)
 
 
 def fan_in_params(tree, randn):
     """Parameters at the usual scales, shaped like ``tree`` (ParamSpecs,
     tensors or arrays; the stacked layer groups inside tuples): weights
-    N(0, 1/fan_in), biases and the embedding N(0, 0.02^2), norm scales
+    N(0, 1/fan_in), biases (``b*``, ``BIASES``) and the embedding
+    N(0, 0.02^2), norm scales
     and the other per-channel scales 1 + N(0, 0.01) (``SCALES``: MLA's
     ``kv_norm``, hymba's branch scales ``beta_a`` / ``beta_s`` and its
     skip ``d_skip``, rwkv's groupnorm ``ln_scale``; drawn as biases or
@@ -35,7 +38,7 @@ def fan_in_params(tree, randn):
         x = randn(shape)
         if name in SCALES:
             return 1.0 + 0.1 * x
-        if name.startswith("b") or name == "tok":
+        if name.startswith("b") or name in BIASES or name == "tok":
             return 0.02 * x
         return x / math.sqrt(fan[0] * (fan[1] if name == "wo" else 1))
     return draw(tree)

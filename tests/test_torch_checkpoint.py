@@ -282,6 +282,10 @@ def _launch(argv):
     env = dict(os.environ)
     env["PYTHONPATH"] = _SRC + (os.pathsep + env["PYTHONPATH"]
                                 if env.get("PYTHONPATH") else "")
+    # one intra-op thread, as tests/torch_threads.py gives the test
+    # process: beside the suite's busy workers an OpenMP team of one
+    # thread a core waits on the others
+    env["OMP_NUM_THREADS"] = "1"
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", *argv],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,

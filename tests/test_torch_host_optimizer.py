@@ -78,14 +78,16 @@ def reference():
     jeng = jengines.create("l2l-p", jcfg, JExec(n_microbatches=2,
                                                 host_optimizer=True),
                            optimizer=jadam(1e-3), donate=False)
-    own = jeng.init(jax.random.PRNGKey(0))
+    # the draws need the parameters' shapes only
+    shapes = jeng.model.abstract_params()
     rs = np.random.RandomState(0)
     params = jax.tree.map(
         lambda a: np.asarray(a, np.float32),
-        fan_in_params(jax.tree.map(np.asarray, own.params),
+        fan_in_params(shapes,
                       lambda shape: rs.randn(*shape)))
-    opt = jax.tree.map(np.asarray, {k: own.legacy_opt()[k]
-                                    for k in ("embed", "head", "groups")})
+    opt = jax.tree.map(np.asarray, {
+        k: v for k, v in jeng._init_opt_legacy(params).items()
+        if k in ("embed", "head", "groups")})
     batch = _batch(jcfg.vocab_size)
     state = JState.from_legacy(jax.tree.map(jnp.asarray, params),
                                jeng._init_opt_legacy(params))

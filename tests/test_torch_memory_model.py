@@ -30,7 +30,7 @@ from repro_torch.models.model import LayeredModel  # noqa: E402
 from repro_torch.serve import ServeConfig  # noqa: E402
 
 ARCHS = ["granite-3-8b", "bert-large", "chatglm3-6b", "deepseek-v2-lite-16b",
-         "hymba-1.5b", "rwkv6-1.6b"]
+         "hymba-1.5b", "rwkv6-1.6b", "internvl2-1b", "whisper-base"]
 
 
 def _models(arch):

@@ -68,8 +68,9 @@ def test_mla_attention_matches_jax(chunk):
     B, S = 2, 10
     x = np.random.RandomState(1).randn(B, S, cfg.d_model).astype(np.float32)
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
-    want = jattn.mla_attention({k: jnp.asarray(v) for k, v in w.items()},
-                               jnp.asarray(x), jcfg, jnp.asarray(pos))
+    want = jax.jit(jattn.mla_attention, static_argnums=2)(
+        {k: jnp.asarray(v) for k, v in w.items()}, jnp.asarray(x), jcfg,
+        jnp.asarray(pos))
     got = attn.mla_attention(bridge.params_from_numpy(w), torch.from_numpy(x),
                              cfg, torch.from_numpy(pos.copy()))
     assert got.shape == (B, S, cfg.d_model)
@@ -84,10 +85,10 @@ def _caches(cfg, B, L):
 
 
 def _decode_both(cfg, jcfg, w, x, cache, cur_pos):
-    jy, jc = jattn.decode_mla_attention(
+    jy, jc = jax.jit(jattn.decode_mla_attention, static_argnums=3)(
         {k: jnp.asarray(v) for k, v in w.items()}, jnp.asarray(x),
         {k: jnp.asarray(v) for k, v in cache.items()}, jcfg,
-        cur_pos if np.ndim(cur_pos) == 0 else jnp.asarray(cur_pos))
+        jnp.asarray(cur_pos, jnp.int32))
     tc = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
     ty, tc2 = attn.decode_mla_attention(
         bridge.params_from_numpy(w), torch.from_numpy(x), tc, cfg,
@@ -166,8 +167,9 @@ def test_absorbed_decode_matches_full_sequence():
         _, last = decode.prefill(model, tp, torch.from_numpy(toks), S)
     err = float(np.abs(full - last.numpy()).max())
     assert err / (float(np.abs(full).max()) + 1e-9) < 2e-3
-    _, jlast = jdecode.prefill(jmodel, jax.tree.map(jnp.asarray, params),
-                               jnp.asarray(toks), live_seq=S)
+    _, jlast = jax.jit(lambda p, t: jdecode.prefill(jmodel, p, t,
+                                                    live_seq=S))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(toks))
     assert _rel(last.numpy(), jlast) <= 1e-5
     # the caches: c / kr in the compute dtype, pos -1 where never written
     caches = init_caches(model, B, S + 2)

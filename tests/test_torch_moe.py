@@ -99,9 +99,14 @@ def test_moe_apply_and_vjp_match_jax(arch, path):
         counts = np.bincount(np.asarray(jt_i).reshape(-1), minlength=E)
         assert counts.max() > C, (counts, C)
 
-    (jy, jaux), vjp = jax.vjp(lambda ww, xx: jmoe.moe_apply(ww, xx, jcfg),
-                              jw, jnp.asarray(x))
-    jdw, jdx = vjp((jnp.asarray(gy), jnp.asarray(ga)))
+    @jax.jit
+    def jrun(ww, xx, g, a):
+        out, vjp = jax.vjp(lambda w_, x_: jmoe.moe_apply(w_, x_, jcfg), ww,
+                           xx)
+        return out, vjp((g, a))
+
+    (jy, jaux), (jdw, jdx) = jrun(jw, jnp.asarray(x), jnp.asarray(gy),
+                                  jnp.asarray(ga))
 
     leaves = [a.requires_grad_() for a in tree_leaves(tw)]
     xt = torch.from_numpy(x).requires_grad_()

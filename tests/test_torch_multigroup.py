@@ -153,12 +153,14 @@ def drawn(request):
     arch = request.param
     jeng = jengines.create("l2l-p", _jcfg(arch), JExec(n_microbatches=2),
                            donate=False)
-    own = jeng.init(jax.random.PRNGKey(0))
+    # the draws need the parameters' shapes only
+    shapes = jeng.model.abstract_params()
     rs = np.random.RandomState(0)
     params = jax.tree.map(lambda a: np.asarray(a, np.float32),
-                          fan_in_params(_np(own.params),
+                          fan_in_params(shapes,
                                         lambda s: rs.randn(*s)))
-    opt = _np({k: own.legacy_opt()[k] for k in ("embed", "head", "groups")})
+    opt = _np({k: v for k, v in jeng._init_opt_legacy(params).items()
+               if k in ("embed", "head", "groups")})
     batch = _batch(jeng.model.cfg.vocab_size)
     state = JState.from_legacy(jax.tree.map(jnp.asarray, params),
                                jeng._init_opt_legacy(params))
@@ -178,7 +180,7 @@ def test_full_loss_matches_jax(drawn):
     """Both groups through the transition, aux included: the loss and the
     aux within 1e-6 relative (f32, sums in other orders)."""
     arch = drawn["arch"]
-    jl, (_, _, jaux) = JModel(_jcfg(arch)).full_loss(
+    jl, (_, _, jaux) = jax.jit(JModel(_jcfg(arch)).full_loss)(
         jax.tree.map(jnp.asarray, drawn["params"]),
         {k: jnp.asarray(v) for k, v in drawn["batch"].items()})
     with torch.no_grad():

@@ -124,14 +124,16 @@ def drawn(request):
     arch = request.param
     jeng = jengines.create("l2l-p", _jcfg(arch), JExec(n_microbatches=2),
                            donate=False)
-    own = jeng.init(jax.random.PRNGKey(0))
+    # the draws need the parameters' shapes only
+    shapes = jeng.model.abstract_params()
     rs = np.random.RandomState(0)
     params = jax.tree.map(
         lambda a: np.asarray(a, np.float32),
-        fan_in_params(jax.tree.map(np.asarray, own.params),
+        fan_in_params(shapes,
                       lambda s: rs.randn(*s)))
-    opt = jax.tree.map(np.asarray, {k: own.legacy_opt()[k]
-                                    for k in ("embed", "head", "groups")})
+    opt = jax.tree.map(np.asarray, {
+        k: v for k, v in jeng._init_opt_legacy(params).items()
+        if k in ("embed", "head", "groups")})
     batch = _batch(jeng.model.cfg.vocab_size)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     state = JState.from_legacy(jax.tree.map(jnp.asarray, params),
@@ -157,7 +159,7 @@ def test_full_loss_matches_jax(drawn):
     import jax.numpy as jnp
     from repro.models.model import LayeredModel as JModel
     arch = drawn["arch"]
-    jl, _ = JModel(_jcfg(arch)).full_loss(
+    jl, _ = jax.jit(JModel(_jcfg(arch)).full_loss)(
         jax.tree.map(jnp.asarray, drawn["params"]),
         {k: jnp.asarray(v) for k, v in drawn["batch"].items()})
     with torch.no_grad():
