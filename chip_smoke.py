@@ -39,7 +39,13 @@ Phases, one JSON line each:
               1600; internvl2-1b's attention (GQA 14 over 2): K2 at its
               prefill (2, 2304, 14, 64) against SDPA over the kv heads
               repeated, K3a / K3b at its training microbatch (4, 768, 14,
-              64), K5 at its width 896; K4 each way at an internvl2 layer
+              64), K5 at its width 896; grok-1-314b's: K2 at its prefill
+              (2, 2048, 48, 128) over 8 kv heads against SDPA over them
+              repeated, K5 at its width 6144; the f32 routes of K2, K3a
+              and K3b (the CUDA-core kernels the f32 gradient checks run)
+              at bert-large's microbatch (8, 512, 16, 64) beside SDPA in
+              f32, bounded by the card's f32 rate outside the tensor
+              cores; K4 each way at an internvl2 layer
               row (59.6 MB) and whisper-base's encoder and decoder rows
               (12.6 / 16.8 MB) against ``copy_``; then
    k4-sweep — K4's designs, one lever at a time, on one granite row
@@ -69,7 +75,9 @@ Phases, one JSON line each:
               to decode_init's last-token logits (and in f32 at depth 1,
               where qwen's K5 rows reach their 32 KB limit); the counters
               set to 0 before each model and read after its prefill;
-   serve-continuous — granite-3-8b at full width and depth through a
+   serve-continuous — (run right after the serve phase, on its pinned
+              rows) granite-3-8b at full width and depth 20 (the first 20
+              of the serve phase's 40 rows) through a
               continuous-batching ServeEngine with the serve phase's
               engine settings (8 slots, 128 pages of 16 positions, 384
               per slot, prefill chunks of 64): 12 greedy requests
@@ -100,7 +108,8 @@ Phases, one JSON line each:
               in f32 against the same call with K5's plain version patched
               in, every norm scale's gradient not zero, and K3a/K3b at the
               path's GQA-16 microbatch against their plain version;
-   dynamic-depth — ``ExecutionConfig.dynamic_depth``, the counters set
+   dynamic-depth — (run after serve-continuous, on the serve phase's
+              pinned rows) ``ExecutionConfig.dynamic_depth``, the counters set
               to 0 just before and read just after: granite-3-8b at full
               width and the serve phase's depth with its settings,
               decode_init and 4 greedy steps on its 4 prompts at run depth
@@ -133,6 +142,21 @@ Phases, one JSON line each:
               before and read just after; then Engine.grads in f32 at depth
               2 against the baseline engine at fan-in scales, and one step
               at depth 2 run twice from the same state, bitwise;
+   serve-grok — (run last, after memory-model, when the host holds
+              little else) grok-1-314b at full width (d 6144, 48
+              heads over 8, 8 experts top 2 of d_ff 32768, vocab 131072,
+              logits capped at 30 by a soft cap) and the depth the host
+              can pin (at most 2: a 19.7 GB f32 row pins a power of
+              two; MemAvailable
+              printed, and the phase fails if one layer cannot be
+              pinned), drawn layer by layer on the card, through the
+              serve phase's engine settings, counted: decode_init on 4
+              prompts of 4 tokens, 4 greedy steps, Engine.prefill at 4 x
+              16 and 2 x 2048; logits finite and within the cap, every
+              token's 2 of 8 experts distinct, one fetch a layer and the
+              ring's re-fetch; not counted: one K4 fetch of a whole
+              19.7 GB row against ``copy_`` in turns, bit for bit against
+              the plain version;
    serve-recurrent — hymba-1.5b (32 layers: attention heads, GQA 25
               over 5 with a 2048-token window, beside Mamba heads off one
               norm) and rwkv6-1.6b (24 layers: WKV6, layernorm, no
@@ -184,6 +208,21 @@ Phases, one JSON line each:
    train-audio — whisper-base under l2l-p with the train phase's knobs,
               B=8 x 448 target tokens with 1500 frames, UB=2, 3 steps,
               counted; then the train-vlm checks;
+   tier     — the disk tier (``tiers=3``): tier-train, bert-large at
+              full width and depth under l2l-p with the train phase's
+              knobs, B=32 x 512, UB=4, 3 steps with 12 of the 24 layers'
+              weights and Adam slots demoted to segment files under
+              build/ (counted from the tier engine's init to its last
+              step), its state bit for bit a two-tier run's from the same
+              init, the host bytes it holds after its steps below the
+              two-tier run's by at least half the demoted bytes; the step
+              seconds beside the two-tier steps, the tier's stage-in,
+              stage-out and pinning seconds, its read and write GB/s and
+              the filesystem of its directory; tier-serve, internvl2-1b at full width and depth
+              with 12 of its 24 layers demoted through the serve phase's
+              settings, counted: Engine.prefill at 4 x (128 + 256),
+              decode_init on 4 prompts of 16 and 4 greedy steps, bit for
+              bit the same calls of a two-tier engine;
 9. train    — bert-large at full width and all 24 layers, l2l-p with
               weight_stream, pack_params, prefetch 1, transport "pallas",
               use_pallas, offload_stash, Adam: the peak HBM of two steps
@@ -216,11 +255,12 @@ Phases, one JSON line each:
               bert-large at depths 24 and 12 beside its peaks, and the
               serve estimate beside serve-continuous's peak (printed, not
               tied: the model counts the reference's buffers);
-10. launches — every kernel's count over the seventeen main paths
+10. launches — every kernel's count over the twenty main paths
               (serve, serve-dense, serve-continuous, train, train-rmsnorm,
               dynamic-depth, host-optimizer, serve-moe, train-moe,
               serve-hymba, train-hymba, serve-rwkv6, train-rwkv6,
-              serve-vlm, train-vlm, serve-audio, train-audio; each of a
+              serve-vlm, train-vlm, serve-audio, train-audio, serve-grok,
+              tier-train, tier-serve; each of a
               path's kernels > 0, K1 0 on host-optimizer, K2 and K3 0 on
               the two MoE paths, K2, K3 and K5 0 on the rwkv6 and whisper
               paths),
@@ -258,6 +298,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_HBM_BPS = 3.35e12        # bytes/s, H100 SXM data sheet
 H100_BF16_OPS = 989e12        # dense bf16 tensor-core FLOP/s
+H100_F32_OPS = 67e12          # f32 FLOP/s outside the tensor cores
 PCIE5_X16_BPS = 64e9          # bytes/s each way
 
 
@@ -265,10 +306,23 @@ T0 = time.perf_counter()
 
 
 def emit(obj):
-    """One JSON line; a phase's line gains the seconds since the start."""
+    """One JSON line; a phase's line gains the seconds since the start,
+    the process's resident bytes (pinned host memory included) and the
+    host's MemAvailable."""
     if "phase" in obj:
-        obj = {**obj, "elapsed_s": round(time.perf_counter() - T0, 1)}
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T0, 1),
+               "process_rss_bytes": rss_bytes(),
+               "host_mem_available_bytes": mem_available()}
     print(json.dumps(obj), flush=True)
+
+
+def rss_bytes() -> int:
+    """This process's resident set (VmRSS of /proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
 
 
 def time_ms(torch, fn, reps, warmup=2):
@@ -358,14 +412,19 @@ def route_counts(counters):
             if hasattr(c, "launches_by_route")}
 
 
-def host_depth(layer_bytes: int, n_layers: int, reserve: int) -> int:
-    """Layers whose pinned EPS fits in MemAvailable beside ``reserve``
-    bytes.  Pinned allocations are rounded up to a power of two."""
-    avail = 0
+def mem_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
     with open("/proc/meminfo") as f:
         for line in f:
             if line.startswith("MemAvailable:"):
-                avail = int(line.split()[1]) * 1024
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def host_depth(layer_bytes: int, n_layers: int, reserve: int) -> int:
+    """Layers whose pinned EPS fits in MemAvailable beside ``reserve``
+    bytes.  Pinned allocations are rounded up to a power of two."""
+    avail = mem_available()
     depth = n_layers
     while depth > 1 and \
             2 ** math.ceil(math.log2(depth * layer_bytes)) + reserve > avail:
@@ -1011,26 +1070,31 @@ CROWD = dict(max_batch=8, page_size=16, max_seq=384, n_pages=128,
 CROWD_REQUESTS = 12
 
 
-def serve_continuous_phase(torch, np, engines, exec_cfg, cfg, model_bytes,
-                           layer_bytes, packing, ServeConfig, counters,
-                           dev):
-    """granite-3-8b at full width through a continuous-batching ServeEngine
-    with the serve phase's engine settings: 12 greedy requests (prompts
-    of 32-256 tokens, 8-16 new tokens, from a seed) into 8 slots and 128
-    pages of 16 positions, so requests wait on slots and on pages and
-    join as others leave; the counters set to 0 just before the crowd's
-    first tick and read just after its last.  Then one of the requests
-    alone through a fresh ServeEngine (its tokens must equal the crowd's
-    bit for bit), and at depth 2 in f32 three requests against
-    decode_init / decode_step with each prompt on every row.
+CONT_DEPTH = 20       # serve-continuous's depth: the first 20 of 40 rows
+
+
+def serve_continuous_phase(torch, np, engines, exec_cfg, cfg, params,
+                           model_bytes, layer_bytes, packing, ServeConfig,
+                           counters, dev):
+    """granite-3-8b at full width and depth 20 (the first rows of the serve
+    phase's pinned EPS, ``params``) through a continuous-batching
+    ServeEngine with the serve phase's engine settings: 12 greedy
+    requests (prompts of 32-256 tokens, 8-16 new tokens, from a seed)
+    into 8 slots and 128 pages of 16 positions, so requests wait on slots
+    and on pages and join as others leave; the counters set to 0 just
+    before the crowd's first tick and read just after its last.  Then one
+    of the requests alone through a fresh ServeEngine (its tokens must
+    equal the crowd's bit for bit), and at depth 2 in f32 three requests
+    against decode_init / decode_step with each prompt on every row.
+    ``model_bytes`` is the whole model's (all 40 layers).
     -> (line, launches, routes)."""
+    depth = min(CONT_DEPTH, cfg.n_layers)
+    cfg = cfg.replace(n_layers=depth)
     eng = engines.create("l2l", cfg, exec_cfg)
-    t0 = time.perf_counter()
-    params = eng.init_params(torch.Generator(dev).manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    eps = params["groups"][0].segs["float32"]
-    assert eps.is_pinned()
+    eps = params["groups"][0].segs["float32"][:depth]
+    params = {**params, "groups": (packing.Packed(
+        {"float32": eps}, params["groups"][0].spec),)}
+    assert eps.is_pinned() and eps.is_contiguous()
     scfg = ServeConfig(**CROWD)
     rs = np.random.RandomState(3)
     lens = rs.randint(32, 257, size=CROWD_REQUESTS)
@@ -1076,7 +1140,8 @@ def serve_continuous_phase(torch, np, engines, exec_cfg, cfg, model_bytes,
         "phase": "serve-continuous", "arch": cfg.name, "depth": cfg.n_layers,
         "serve_config": CROWD, "requests": CROWD_REQUESTS,
         "prompt_lens": lens.tolist(), "max_new": news.tolist(),
-        "init_s": init_s, "ticks": n, "seconds": secs,
+        "reduced": f"depth 40 -> {depth}: chip_smoke.py's time limit",
+        "ticks": n, "seconds": secs,
         "tokens": n_tok, "tok_per_s": n_tok / secs,
         "tick_s_median": float(np.median(ticks)),
         "tick_s_first": ticks[0],
@@ -1337,14 +1402,16 @@ def train_rmsnorm_phase(torch, engines, ExecutionConfig, knobs, get_config,
 
 
 def dynamic_depth_phase(torch, engines, ExecutionConfig, exec_cfg, cfg,
-                        prompt, serve_tokens, packing, sample_batch, bert,
+                        params, prompt, serve_tokens, packing, sample_batch,
+                        bert,
                         knobs, SyntheticLM, DataConfig, adam, make_schedule,
                         counters, dev):
     """Dynamic depth on the card (``ExecutionConfig.dynamic_depth``).  The
     path, with the counters set to 0 just before and read just after:
 
     * serve: granite-3-8b at full width and the serve phase's depth with
-      the serve phase's settings, decode_init and 4 greedy steps on its
+      the serve phase's settings and rows (``params``, its pinned EPS),
+      decode_init and 4 greedy steps on its
       4 prompts at n = depth (tokens equal to the serve phase's first
       ones), then at n = depth / 2 on the same engine and rows;
     * train: bert-large at full width, capacity 24, the train phase's
@@ -1367,11 +1434,7 @@ def dynamic_depth_phase(torch, engines, ExecutionConfig, exec_cfg, cfg,
     dyn_cfg = dataclasses.replace(exec_cfg, dynamic_depth=True)
     out = {"phase": "dynamic-depth", "arch": cfg.name,
            "capacity": cfg.n_layers, "batch": B, "prompt": P, "steps": GEN}
-    t0 = time.perf_counter()
     eng = engines.create("l2l", cfg, dyn_cfg)
-    params = eng.init_params(torch.Generator(dev).manual_seed(0))
-    torch.cuda.synchronize()
-    out["init_s"] = time.perf_counter() - t0
     fetch = counters["relay_copy"]
     reset_counts(counters.values())
     by_depth = {}
@@ -1997,10 +2060,11 @@ def scan_fn(torch, ssm, cfg, B, S, dev):
 def gqa_attention_rows(torch, F, dev, g, fa, kops, ref, cfg, fwd, bwd,
                        cells):
     """K2 at a model's prefill shape ``fwd`` = (B, S) and K3a / K3b at its
-    training microbatch ``bwd`` = (B, S), bf16, causal, the model's GQA
-    heads and window, against their plain versions, graph-timed; ``cells``
-    names the two.  hymba: K2 at its window prefill (1, 4096, 25, 64) over
-    5 kv heads, window 2048 (the window masks from query 2048 on), K3 at
+    training microbatch ``bwd`` = (B, S) (None: K2 only), bf16, causal,
+    the model's GQA heads and window, against their plain versions,
+    graph-timed; ``cells`` names the two.  hymba: K2 at its window
+    prefill (1, 4096, 25, 64) over 5 kv heads, window 2048 (the window
+    masks from query 2048 on), K3 at
     (4, 512, 25, 64); internvl2: K2 at (2, 2304, 14, 64) over 2 kv heads
     (2 x 2048 tokens behind 256 patches), K3 at (4, 768, 14, 64).  K2's
     library time is SDPA over the kv heads repeated, the window as an
@@ -2062,6 +2126,8 @@ def gqa_attention_rows(torch, F, dev, g, fa, kops, ref, cfg, fwd, bwd,
         "bound_by": ("operations" if ops / H100_BF16_OPS
                      > nbytes / H100_HBM_BPS else "bytes")})
     del q, k, v, qt, kt, vt, o, lse, po, plse, emu, ke, ve, lib_o, mask
+    if bwd is None:                     # a model the paths do not train
+        return rows
 
     B, S = bwd
     q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16() \
@@ -2845,6 +2911,485 @@ def train_family_phase(torch, np, engines, ExecutionConfig, knobs, arch,
     return out, launches, routes
 
 
+def f32_attention_rows(torch, F, dev, g, fa):
+    """The f32 routes of K2, K3a and K3b (the CUDA-core kernels,
+    ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``, which
+    the f32 gradient checks run) at bert-large's training microbatch (8,
+    512, 16, 64), causal, against their plain versions, graph-timed, with
+    SDPA in f32 beside them (TF32 is off: an f32 product); the bound is
+    the operations over the card's f32 rate outside the tensor cores."""
+    B, S, H, D = 8, 512, 16, 64
+    pairs = B * H * S * (S + 1) // 2
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=dev)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd_bhsd(q, k, v, causal=True)
+    po, plse = fa.flash_attention_fwd_bhsd_plain(q, k, v, causal=True)
+    delta = (do * o).sum(-1).contiguous()
+    plain = fa.flash_attention_bwd_bhsd_plain(q, k, v, o, lse, do,
+                                              causal=True)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                        causal=True)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    torch.cuda.synchronize()
+    top = max(float(y.abs().max()) for y in plain)
+    errs = {"fwd": float((o - po).abs().max()),
+            "dq": float((dq - plain[0]).abs().max()),
+            "dkv": max(float((dk - plain[1]).abs().max()),
+                       float((dv - plain[2]).abs().max()))}
+    assert errs["fwd"] <= 1e-4 and errs["dq"] <= 1e-5 * top and \
+        errs["dkv"] <= 1e-5 * top, (errs, top)
+    lib_fwd = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 10)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lib_o, (qs, ks, vs), do, retain_graph=True), 5)
+    plain_bwd = time_ms(torch, lambda: fa.flash_attention_bwd_bhsd_plain(
+        q, k, v, o, lse, do, causal=True), 3)
+    in_bytes = 4 * (q.numel() * 3 + lse.numel())
+    rows = []
+    for name, ops, err, nbytes, ms, plain_ms, lib_ms, line, src in (
+            ("flash_attention_fwd", 4 * D * pairs, errs["fwd"],
+             in_bytes + 4 * q.numel(),
+             graph_ms(torch, lambda: fa.flash_attention_fwd_bhsd(
+                 q, k, v, causal=True), 10),
+             time_ms(torch, lambda: fa.flash_attention_fwd_bhsd_plain(
+                 q, k, v, causal=True), 3), lib_fwd, 46,
+             "flash_attention.cu"),
+            ("flash_attention_bwd_dq", 6 * D * pairs, errs["dq"],
+             in_bytes + 4 * (2 * q.numel() + lse.numel()),
+             graph_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                 q, k, v, do, lse, delta, causal=True), 10),
+             plain_bwd, lib_bwd, 145, "flash_attention_bwd.cu"),
+            ("flash_attention_bwd_dkv", 8 * D * pairs, errs["dkv"],
+             in_bytes + 4 * (3 * q.numel() + lse.numel()),
+             graph_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+                 q, k, v, do, lse, delta, causal=True), 10),
+             plain_bwd, lib_bwd, 174, "flash_attention_bwd.cu")):
+        rows.append({
+            "name": name, "route": "cuda", "kernel_route": "cuda_core",
+            "cell": "f32 (the gradient checks)",
+            "source": "src/repro_torch/kernels/csrc/" + src,
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "shape": [B, S, H, D], "layout": "BHSD", "dtype": "float32",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library_covers": ("SDPA f32 forward" if line == 46 else
+                               "SDPA f32 backward (dq, dk and dv), eager"),
+            "timing": "ms, and SDPA's forward: a CUDA graph of the calls; "
+                      "SDPA's backward and plain_ms: back-to-back eager "
+                      "calls",
+            "bound_ms": max(ops / H100_F32_OPS, nbytes / H100_HBM_BPS) * 1e3,
+            "bound_by": ("operations" if ops / H100_F32_OPS
+                         > nbytes / H100_HBM_BPS else "bytes")})
+    return rows
+
+
+def fs_type(path) -> tuple:
+    """(mount point, filesystem type) of the mount that holds ``path``,
+    from /proc/mounts."""
+    real = os.path.realpath(path)
+    best = ("", "unknown")
+    with open("/proc/mounts") as f:
+        for ln in f:
+            _, mnt, typ = ln.split()[:3]
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) > len(best[0]):
+                best = (mnt, typ)
+    return best
+
+
+TIER_DIR = ROOT / "build" / "chip_smoke_tier"
+TIER_HOT = 12          # of 24 layers kept on the host in the tier phase
+
+
+def tier_phase(torch, np, engines, ExecutionConfig, bert, knobs, exec_cfg,
+               get_config, LayeredModel, tree_leaves, is_spec, SyntheticLM,
+               DataConfig, adam, make_schedule, sample_batch, counters, dev):
+    """The disk tier (``tiers=3``) on the card.  train: bert-large at full
+    width and depth under l2l-p with the train phase's knobs, B=32 x 512,
+    UB=4, 3 steps, with ``host_budget_bytes`` keeping 12 of the 24 layers'
+    weights and Adam slots on the host and the other 12 in segment files
+    under build/, every counter set to 0 just before the tier engine's
+    init and read after its last step; its state after the 3 steps against
+    a two-tier run's from the same init, bit for bit (the two-tier run
+    first, not counted), and the host bytes each run holds after its
+    steps (the process's resident set, pinned memory included, with
+    PyTorch's caches emptied, over its value before the engine): the
+    tier's below the two-tier run's by at least half the demoted bytes.
+    serve: internvl2-1b at full width and depth with
+    the serve phase's settings and 12 of its 24 layers demoted, read back
+    once: Engine.prefill at 4 x (128 + 256) and decode_init on 4 prompts
+    of 16 tokens with 4 greedy steps, against the same calls of a two-tier
+    engine, bit for bit (counted: the tier engine's calls).  Prints step
+    seconds beside the two-tier steps, the tier's stage-in and stage-out
+    seconds, its disk read and write GB/s, the seconds spent pinning, and
+    the filesystem the tier directory is on.
+    -> ({"tier-train": line, "tier-serve": line}, launches, routes)."""
+    import dataclasses
+    import shutil
+    from repro_torch.core import tierstore
+    from repro_torch.kernels import host_alloc
+    B, S, UB, STEPS = 32, 512, 4, 3
+    cfg = bert.replace(use_pallas=True)
+    opt = adam(schedule=make_schedule(1e-4, warmup=10))
+    (row,) = group_rows(LayeredModel, tree_leaves, is_spec, cfg)
+    per_layer = 3 * row                     # weights, Adam m and v
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                   seed=0)).batch(0).items()}
+    shutil.rmtree(TIER_DIR, ignore_errors=True)
+    TIER_DIR.mkdir(parents=True)
+    mount, fstype = fs_type(TIER_DIR)
+
+    def make(tiers, sub):
+        return engines.create("l2l-p", cfg, ExecutionConfig(
+            n_microbatches=UB, tiers=tiers,
+            host_budget_bytes=TIER_HOT * per_layer,
+            tier_dir=str(TIER_DIR / sub), **knobs), optimizer=opt)
+
+    def steps(eng, state):
+        out = []
+        for _ in range(STEPS):
+            m0 = dict(eng.tier.metrics) if eng.tier else {}
+            t0 = time.perf_counter()
+            state, m = eng.train_step(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            rec = {"s": time.perf_counter() - t0, "loss": loss}
+            if eng.tier:
+                rec.update({k: v - m0[k] for k, v in eng.tier.metrics.items()
+                            if k.endswith("_s") or k.endswith("bytes")})
+            out.append(rec)
+        return state, out
+
+    def resident():
+        # what the process holds, PyTorch's device and pinned caches
+        # emptied (the blocks a step freed are not the state's)
+        free_host(torch)
+        time.sleep(1.0)
+        return rss_bytes()
+
+    base2 = resident()
+    e2 = make(2, "two")
+    s2, two = steps(e2, e2.init(torch.Generator(dev).manual_seed(0)))
+    held2 = resident() - base2
+    reset_counts(counters.values())
+    base3 = resident()
+    e3 = make(3, "train")
+    t0 = time.perf_counter()
+    s3 = e3.init(torch.Generator(dev).manual_seed(0))
+    init_s = time.perf_counter() - t0
+    adopt = dict(e3.tier.metrics)
+    s3, three = steps(e3, s3)
+    launches = {"tier-train": {n: c.launches for n, c in counters.items()}}
+    routes = {"tier-train": route_counts(counters)}
+    owned = host_alloc.live()["bytes"]
+    held3 = resident() - base3
+    demoted_bytes = (cfg.n_layers - TIER_HOT) * per_layer
+    m = e3.tier.metrics
+    demoted = [tierstore.is_demoted(g) for g in
+               s3.params["groups"] + s3.opt_state["groups"]]
+    full = e3.tier.stage_in(s3)
+    torch.cuda.synchronize()
+    a, b = tree_leaves((full.params, full.opt_state)), \
+        tree_leaves((s2.params, s2.opt_state))
+    bitwise = len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(a, b)) and [r["loss"] for r in two] == \
+        [r["loss"] for r in three]
+    est = e3.memory_estimate(batch=B, seq=S)
+    train = {
+        "phase": "tier-train", "arch": cfg.name, "depth": cfg.n_layers,
+        "batch": B, "seq": S, "microbatches": UB, "knobs": knobs,
+        "host_budget_bytes": TIER_HOT * per_layer,
+        "layer_state_bytes": per_layer,
+        "tier_dir": str(TIER_DIR), "tier_mount": mount, "tier_fs": fstype,
+        "tier_fs_note": ("tmpfs: the segment files are in RAM, not on a "
+                         "disk" if fstype == "tmpfs" else ""),
+        "init_s": init_s, "adopt_write_bytes": adopt["write_bytes"],
+        "steps_two_tiers": two, "steps": three,
+        "steady_s_two_tiers": float(np.mean([r["s"] for r in two[1:]])),
+        "steady_s": float(np.mean([r["s"] for r in three[1:]])),
+        "tier_metrics": m,
+        "read_GBps": m["read_bytes"] / max(m["load_s"], 1e-9) / 1e9,
+        "write_GBps": (m["write_bytes"] - adopt["write_bytes"])
+        / max(m["stage_out_s"] - adopt["stage_out_s"], 1e-9) / 1e9,
+        "memory_model_demoted_layers": est.demoted_layers,
+        "all_groups_demoted_between_steps": all(demoted),
+        "host_bytes_after_steps": {
+            "tiers_2": held2, "tiers_3": held3,
+            "demoted_bytes": demoted_bytes,
+            "tiers_3_owned_pinned_bytes": owned,
+            "measure": "VmRSS (pinned memory included) after the last "
+                       "step, PyTorch's caches emptied, less VmRSS before "
+                       "the engine"},
+        "bitwise_two_tiers": bitwise, "launches": launches["tier-train"]}
+    emit(train)
+    assert bitwise, "tiers=3 state differs from tiers=2"
+    assert m["demoted_layers"] == cfg.n_layers - TIER_HOT, m
+    assert est.demoted_layers == m["demoted_layers"], est.demoted_layers
+    assert m["async_stage_hits"] > 0 and m["async_stage_misses"] == 0, m
+    assert all(demoted) and m["quarantined"] == 0 and m["retries"] == 0, m
+    # the tier's point: the demoted rows are not held between calls
+    assert held3 <= held2 - demoted_bytes // 2, train["host_bytes_after_steps"]
+    del e2, s2, e3, s3, full, a, b
+    free_host(torch)
+
+    # serving through the tier: internvl2-1b, 12 of 24 layers demoted
+    vcfg = get_config(VLM_ARCH, "full").replace(use_pallas=True)
+    (vrow,) = group_rows(LayeredModel, tree_leaves, is_spec, vcfg)
+    gen = torch.Generator(dev).manual_seed(1)
+    P, GEN = 16, 4
+    prompt = torch.randint(0, vcfg.vocab_size, (4, P), device=dev,
+                           generator=gen)
+    batch = {"tokens": torch.randint(0, vcfg.vocab_size, (4, VLM_PROMPT),
+                                     device=dev, generator=gen),
+             "patches": torch.randn(4, vcfg.n_patches, vcfg.vit_dim,
+                                    device=dev, generator=gen)}
+
+    def serve(eng):
+        state = eng.init(torch.Generator(dev).manual_seed(0))
+        t0 = time.perf_counter()
+        pl = eng.prefill(state, batch)
+        torch.cuda.synchronize()
+        t_pf = time.perf_counter() - t0
+        caches, last = eng.decode_init(state, prompt, P + GEN)
+        tok = sample_batch(last)[:, None]
+        outs = [pl, last]
+        t0 = time.perf_counter()
+        for i in range(GEN):
+            logits, caches = eng.decode_step(state, caches, tok, P + i)
+            tok = sample_batch(logits[:, -1])[:, None]
+            outs.append(logits)
+        torch.cuda.synchronize()
+        return outs, t_pf, time.perf_counter() - t0
+
+    v2 = engines.create("l2l", vcfg, exec_cfg)
+    want, pf2, dec2 = serve(v2)
+    del v2
+    free_host(torch)
+    reset_counts(counters.values())
+    v3 = engines.create("l2l", vcfg, dataclasses.replace(
+        exec_cfg, tiers=3, host_budget_bytes=TIER_HOT * 3 * vrow,
+        tier_dir=str(TIER_DIR / "serve")))
+    got, pf3, dec3 = serve(v3)
+    launches["tier-serve"] = {n: c.launches for n, c in counters.items()}
+    routes["tier-serve"] = route_counts(counters)
+    vm = v3.tier.metrics
+    serve_line = {
+        "phase": "tier-serve", "arch": vcfg.name, "depth": vcfg.n_layers,
+        "host_budget_bytes": TIER_HOT * 3 * vrow, "tier_metrics": vm,
+        "prefill_4x384_s": {"tiers_3": pf3, "tiers_2": pf2},
+        "decode_4_steps_s": {"tiers_3": dec3, "tiers_2": dec2},
+        "bitwise_two_tiers": all(torch.equal(x, y)
+                                 for x, y in zip(got, want)),
+        "launches": launches["tier-serve"]}
+    emit(serve_line)
+    assert serve_line["bitwise_two_tiers"], "tiers=3 serving differs"
+    assert vm["demoted_layers"] == vcfg.n_layers - TIER_HOT, vm
+    del v3, got, want
+    shutil.rmtree(TIER_DIR, ignore_errors=True)
+    free_host(torch)
+    return {"tier-train": train, "tier-serve": serve_line}, launches, routes
+
+
+GROK_ARCH = "grok-1-314b"
+GROK_DEPTH_CAP = 2
+# the phase runs last and holds nothing on the host beside its EPS and
+# the process: with 24 GiB, 93.5 GB of MemAvailable on an H100 host left
+# depth 1
+GROK_RESERVE = 16 * 2 ** 30
+
+
+def grok_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
+               tree_leaves, is_spec, rc, ref, sample_batch, counters, dev):
+    """grok-1-314b at full width (d 6144, 48 heads over 8, 8 experts top
+    2 of d_ff 32768, vocab 131072, logits soft-capped at 30), f32 masters,
+    served with the serve phase's settings at the depth the host can pin
+    (at most 2; a layer is a 19.7 GB f32 row, pinned as a power of two),
+    drawn layer by layer on the card.  Every counter set to 0 just before
+    and read just after: decode_init on 4 prompts of 4 tokens, 4 greedy
+    steps, Engine.prefill at 4 x 16 and 2 x 2048.  Checks: finite logits
+    within the cap, the router's 2 of 8 distinct experts for every token.
+    Not counted: one K4 fetch of a whole 19.7 GB row against ``copy_``, in
+    turns, and against the plain version bit for bit; in f32 at fan-in
+    scales (``fan_in_params``, one layer drawn on the card and relayed
+    from there), the prefill's last-position logits against decode_init's
+    on the 4 prompts within the dense phases' 1e-4 relative L2.
+    -> (line, launches, routes)."""
+    import dataclasses
+    from repro_torch.models import moe
+    from repro_torch.testing import fan_in_params
+    B, P, GEN = 4, 4, 4
+    full = get_config(GROK_ARCH, "full")
+    (row,) = group_rows(LayeredModel, tree_leaves, is_spec, full)
+    avail = mem_available()
+    one = 2 ** math.ceil(math.log2(row))
+    emit({"phase": "serve-grok-host", "mem_available_bytes": avail,
+          "layer_row_bytes": row, "pinned_block_one_layer": one})
+    assert one <= avail, f"cannot pin one grok-1 layer: MemAvailable {avail}"
+    depth = min(GROK_DEPTH_CAP, host_depth(row, full.n_layers,
+                                           reserve=GROK_RESERVE))
+    cfg = full.replace(n_layers=depth, use_pallas=True)
+    eng = engines.create("l2l", cfg, exec_cfg)
+    t0 = time.perf_counter()
+    params = eng.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eps = params["groups"][0].segs["float32"]
+    assert eps.is_pinned() and eps.shape == (depth, row // 4)
+
+    # K4 on one whole row, before the relay's ring takes its slots
+    slot = torch.empty((1, row // 4), dtype=torch.float32, device=dev)
+    rc.copy_rows(eps, 0, size=1, out=slot)
+    plain = ref.ref_copy_rows(eps, 0, 1, device=dev)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(slot, plain))
+    del plain
+    runs = {"k4": [], "copy_": []}
+    for name in ("k4", "copy_", "copy_", "k4"):
+        fn = ((lambda: rc.copy_rows(eps, 0, size=1, out=slot))
+              if name == "k4" else
+              (lambda: slot.copy_(eps[0:1], non_blocking=True)))
+        runs[name].append(time_ms(torch, fn, 1, warmup=0))
+    t0 = time.perf_counter()
+    ref.ref_copy_rows(eps, 0, 1, device=dev)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del slot
+    torch.cuda.empty_cache()
+    k4_ms, copy_ms = (sum(runs[n]) / 2 for n in ("k4", "copy_"))
+    k4 = {"name": "relay_copy", "route": "cuda",
+          "kernel_route": rc.FETCH_ROUTE, "cell": "grok-1 layer row",
+          "source": "src/repro_torch/kernels/csrc/relay_copy.cu",
+          "replaces": "src/repro/kernels/relay_copy.py:58",
+          "shape": [1, row // 4], "dtype": "float32", "bitwise": exact,
+          "max_abs_err": 0.0 if exact else None,
+          "ms": k4_ms, "library_ms": copy_ms, "plain_ms": plain_ms,
+          "runs_ms": runs,
+          "timing": "one call each, K4, copy_, copy_, K4; plain_ms: one "
+                    "call by the host clock",
+          "bound_ms": row / PCIE5_X16_BPS * 1e3, "bound_by": "bytes",
+          "achieved_GBps": row / k4_ms / 1e6,
+          "library_GBps": row / copy_ms / 1e6}
+    assert exact, "K4 is not bit-exact on a 19.7 GB row"
+
+    # the router: every token's 2 of 8 experts, distinct
+    picks = []
+    route = moe._route
+
+    def watched(w, xf, cfg_):
+        top_w, top_i, aux = route(w, xf, cfg_)
+        picks.append((top_i.shape[1], int(top_i.min()), int(top_i.max()),
+                      bool((top_i[:, 0] != top_i[:, 1]).all())))
+        return top_w, top_i, aux
+
+    gen = torch.Generator(dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=gen)
+    long = torch.randint(0, cfg.vocab_size, (2, 2048), device=dev,
+                         generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    moe._route = watched
+    try:
+        t0 = time.perf_counter()
+        caches, last = eng.decode_init(params, prompt, P + GEN)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        tok = sample_batch(last)[:, None]
+        toks, caps = [tok], [float(last.float().abs().max())]
+        f0, b0 = counters["relay_copy"].launches, \
+            counters["relay_copy"].bytes
+        t0 = time.perf_counter()
+        for i in range(GEN):
+            logits, caches = eng.decode_step(params, caches, tok, P + i)
+            assert bool(torch.isfinite(logits).all()), "non-finite logits"
+            caps.append(float(logits.float().abs().max()))
+            tok = sample_batch(logits[:, -1])[:, None]
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        fetches = (counters["relay_copy"].launches - f0) / GEN
+        step_bytes = (counters["relay_copy"].bytes - b0) / GEN
+        decode_peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        pl = eng.prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        t_pf = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pl2 = eng.prefill(params, {"tokens": long})
+        torch.cuda.synchronize()
+        t_pf2 = time.perf_counter() - t0
+    finally:
+        moe._route = route
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    caps += [float(pl.float().abs().max()), float(pl2.float().abs().max())]
+    toks = torch.cat(toks, dim=1)
+    # not counted: prefill against decode_init in f32 at fan-in scales
+    # (the reference's init, std 1/sqrt(depth) on every stacked matrix,
+    # amplifies f32 rounding at these widths), one layer drawn on the
+    # card and relayed from there through one slot
+    del caches, eng, params, eps
+    free_host(torch)
+    f32 = cfg.replace(dtype="float32", n_layers=1)
+    gen = torch.Generator(dev).manual_seed(4)
+    fan = fan_in_params(LayeredModel(f32).param_specs(),
+                        lambda shape: torch.randn(shape, generator=gen,
+                                                  device=dev))
+    e32 = engines.create("l2l", f32, dataclasses.replace(
+        exec_cfg, weight_stream=False, pack_params=False, prefetch_depth=0))
+    _, r32 = e32.decode_init(fan, prompt, P)
+    g32 = e32.prefill(fan, {"tokens": prompt})
+    gap32 = float((g32 - r32).norm() / r32.norm())
+    del e32, fan, r32, g32
+    line = {
+        "phase": "serve-grok", "arch": full.name, "depth": depth,
+        "full_depth": full.n_layers, "mem_available_bytes": avail,
+        "reserve_bytes": GROK_RESERVE,
+        "reduced": f"depth {full.n_layers} -> {depth}: host memory for "
+                   f"the pinned EPS (a {row} B row pins "
+                   f"{2 ** math.ceil(math.log2(depth * row))} B)",
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "experts": [cfg.n_experts, cfg.experts_per_token],
+        "d_ff_expert": cfg.d_ff_expert, "vocab": cfg.vocab_size,
+        "logit_soft_cap": cfg.logit_soft_cap, "layer_row_bytes": row,
+        "init_s": init_s, "batch": B, "prompt": P, "steps": GEN,
+        "tokens": toks.tolist(), "decode_init_s": t_init, "decode_s": t_dec,
+        "tok_per_s": B * GEN / t_dec, "s_per_step": t_dec / GEN,
+        "relay_fetches_per_step": fetches,
+        "relay_bytes_per_step": step_bytes,
+        "relay_GBps": GEN * step_bytes / t_dec / 1e9,
+        "decode_peak_allocated_bytes": decode_peak,
+        "peak_allocated_bytes": peak,
+        "prefill_16_s": t_pf, "prefill_2048_s": t_pf2,
+        "prefill_tok_per_s_2048": 2 * 2048 / t_pf2,
+        "max_abs_logit": max(caps),
+        "rel_l2_prefill_vs_decode_init": {"f32_fan_in_depth1": gap32},
+        "router_calls": len(picks),
+        "router_picks": sorted(set(picks)), "k4_row": k4,
+        "launches": launches}
+    emit(line)
+    assert toks.shape == (B, GEN + 1) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all())
+    assert bool(torch.isfinite(pl).all()) and bool(torch.isfinite(pl2).all())
+    assert max(caps) <= cfg.logit_soft_cap, caps
+    # f32 at fan-in scales: the dense phases' 1e-4
+    assert gap32 <= 1e-4, gap32
+    assert picks and all(p[0] == 2 and p[1] >= 0 and p[2] < cfg.n_experts
+                         and p[3] for p in picks), sorted(set(picks))
+    # one fetch a layer and the prefetch ring's clamped re-fetch
+    assert fetches == depth + 1, fetches
+    del pl, pl2, last, logits
+    free_host(torch)
+    return line, launches, routes
+
+
 def state_tensors(torch, state):
     """Every tensor of a train state on the host: the pinned rows as they
     are (a step never writes its inputs), the device's as copies."""
@@ -3147,6 +3692,9 @@ def main(argv=None):
         r["hgmma"] > 0 and r["spill_store_bytes"] == 0
         and r["spill_load_bytes"] == 0 for r in sm90.values()), sm90
 
+    exec_cfg = ExecutionConfig(weight_stream=True, pack_params=True,
+                               prefetch_depth=1, transport="pallas")
+
     # ----------------------------------------------------------------- init
     full = get_config("granite-3-8b", "full")
     cfg = full.replace(use_pallas=True)
@@ -3159,8 +3707,6 @@ def main(argv=None):
     depth = args.depth or host_depth(layer_bytes, full.n_layers,
                                      reserve=24 * 2 ** 30)
     cfg = cfg.replace(n_layers=depth)
-    exec_cfg = ExecutionConfig(weight_stream=True, pack_params=True,
-                               prefetch_depth=1, transport="pallas")
     eng = engines.create("l2l", cfg, exec_cfg)
     t0 = time.perf_counter()
     params = eng.init_params(torch.Generator(dev).manual_seed(0))
@@ -3237,6 +3783,7 @@ def main(argv=None):
     moe_cfg = get_config(MOE_ARCH, "full")
     hymba = get_config("hymba-1.5b", "full")
     vlm_cfg = get_config(VLM_ARCH, "full")
+    grok = get_config(GROK_ARCH, "full")
     for R, d, dt in ((4, cfg.d_model, torch.bfloat16),
                      (4 * 2048, cfg.d_model, torch.bfloat16),
                      (CROWD["max_batch"] * CROWD["prefill_chunk"],
@@ -3250,7 +3797,9 @@ def main(argv=None):
                      (2 * 2048, hymba.d_model, torch.bfloat16),
                      (4, vlm_cfg.d_model, torch.bfloat16),
                      (2 * (VLM_PREFILL + vlm_cfg.n_patches), vlm_cfg.d_model,
-                      torch.bfloat16)):
+                      torch.bfloat16),
+                     (4, grok.d_model, torch.bfloat16),
+                     (2 * 2048, grok.d_model, torch.bfloat16)):
         scale = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
         wb = scale.to(dt)
         x = torch.randn(R, d, generator=g, device=dev).to(dt)
@@ -3395,6 +3944,11 @@ def main(argv=None):
         (VLM_TRAIN["batch"] // VLM_TRAIN["ub"],
          VLM_TRAIN["seq"] + vlm_cfg.n_patches),
         ("internvl2 prefill", "internvl2 train microbatch"))
+    # grok-1's prefill (2 x 2048, GQA 48 over 8, D 128; served, not
+    # trained), then the f32 routes of K2, K3a and K3b
+    rows += gqa_attention_rows(torch, F, dev, g, fa, kops, ref, grok,
+                               (2, 2048), None, ("grok-1 prefill",))
+    rows += f32_attention_rows(torch, F, dev, g, fa)
     # K4 at the modality families' rows: an internvl2 layer (59.6 MB f32)
     # and whisper's encoder and decoder layers (12.6 / 16.8 MB), each
     # way, against copy_
@@ -3640,18 +4194,8 @@ def main(argv=None):
         rc.FETCH_ROUTE: serve_launches["relay_copy"], "tma_tiles": 0,
         "words": 0}, serve_routes
 
-    # the serving state goes before the next phases pin theirs
-    del eng, params, eps, caches, pl, pl2, last, logits
-    free_host(torch)
-
-    # ---------------------------------------------------------- serve-dense
-    t0 = time.perf_counter()
-    dense, dense_launches, dense_routes = serve_dense_phase(
-        torch, engines, ExecutionConfig, exec_cfg, get_config, LayeredModel,
-        tree_leaves, is_spec, packing, sample_batch, counters, dev)
-    report["serve_dense"] = {"phase": "serve-dense", "models": dense,
-                             "seconds": time.perf_counter() - t0}
-
+    del caches, pl, pl2, last, logits
+    serve_counters = counters
     counters = {"relay_copy": rc.copy_rows,
                 "relay_copy_writeback": rc.writeback_rows,
                 "rmsnorm": rms.rmsnorm_2d,
@@ -3665,12 +4209,34 @@ def main(argv=None):
                        offload_stash=True)
 
     # ----------------------------------------------------- serve-continuous
+    # on the serve phase's pinned EPS (no second init of granite)
     t0 = time.perf_counter()
     report["serve_continuous"], cont_launches, cont_routes = \
-        serve_continuous_phase(torch, np, engines, exec_cfg, cfg,
+        serve_continuous_phase(torch, np, engines, exec_cfg, cfg, params,
                                model_bytes, layer_bytes, packing,
                                ServeConfig, counters, dev)
     report["serve_continuous"]["phase_seconds"] = time.perf_counter() - t0
+
+    # -------------------------------------------------------- dynamic-depth
+    t0 = time.perf_counter()
+    report["dynamic_depth"], dyn_launches, dyn_routes = dynamic_depth_phase(
+        torch, engines, ExecutionConfig, exec_cfg, cfg, params, prompt,
+        report["serve"]["tokens"], packing, sample_batch, bert, slice_knobs,
+        SyntheticLM, DataConfig, adam, make_schedule, counters, dev)
+    report["dynamic_depth"]["phase_seconds"] = time.perf_counter() - t0
+    emit(report["dynamic_depth"])
+
+    # the serving state goes before the next phases pin theirs
+    del eng, params, eps
+    free_host(torch)
+
+    # ---------------------------------------------------------- serve-dense
+    t0 = time.perf_counter()
+    dense, dense_launches, dense_routes = serve_dense_phase(
+        torch, engines, ExecutionConfig, exec_cfg, get_config, LayeredModel,
+        tree_leaves, is_spec, packing, sample_batch, serve_counters, dev)
+    report["serve_dense"] = {"phase": "serve-dense", "models": dense,
+                             "seconds": time.perf_counter() - t0}
 
     def leaves_np(state):
         p, o, _, _ = bridge.train_state_to_numpy(state)
@@ -3757,15 +4323,6 @@ def main(argv=None):
         DataConfig, adam, make_schedule, counters, kops, rms, fa, dev)
     emit(report["train_rmsnorm"])
 
-    # -------------------------------------------------------- dynamic-depth
-    t0 = time.perf_counter()
-    report["dynamic_depth"], dyn_launches, dyn_routes = dynamic_depth_phase(
-        torch, engines, ExecutionConfig, exec_cfg, cfg, prompt,
-        report["serve"]["tokens"], packing, sample_batch, bert, slice_knobs,
-        SyntheticLM, DataConfig, adam, make_schedule, counters, dev)
-    report["dynamic_depth"]["phase_seconds"] = time.perf_counter() - t0
-    emit(report["dynamic_depth"])
-
     # ------------------------------------------------------------ serve-moe
     t0 = time.perf_counter()
     report["serve_moe"], smoe_launches, smoe_routes = serve_moe_phase(
@@ -3841,6 +4398,14 @@ def main(argv=None):
         k: report[k]["phase_seconds"] for k in (
             "serve_vlm", "train_vlm", "serve_audio", "train_audio")}})
 
+    # ----------------------------------------------------------------- tier
+    t0 = time.perf_counter()
+    report["tier"], tier_launches, tier_routes = tier_phase(
+        torch, np, engines, ExecutionConfig, bert, slice_knobs, exec_cfg,
+        get_config, LayeredModel, tree_leaves, is_spec, SyntheticLM,
+        DataConfig, adam, make_schedule, sample_batch, counters, dev)
+    emit({"phase": "tier-seconds", "tier": time.perf_counter() - t0})
+
     # ---------------------------------------------------------------- train
     report["train"], step1, train_keep = train_phase(
         torch, engines, ExecutionConfig, bert, slice_knobs, SyntheticLM,
@@ -3858,6 +4423,7 @@ def main(argv=None):
                              dev)
     report["host_optimizer"]["phase_seconds"] = time.perf_counter() - t0
     del step1
+
 
     # the profiled steps, after every timed phase
     report["train"]["profile"] = profile_step(torch, *train_keep)
@@ -3899,6 +4465,16 @@ def main(argv=None):
             "peak_allocated_bytes": cont["peak_allocated_bytes"]}}
     emit(report["memory_model"])
 
+    # ----------------------------------------------------------- serve-grok
+    # last, when the host holds little else: a grok-1 layer pins 32 GB
+    # (the host hands 64 unpinned GB back only after seconds, which the
+    # phases after it would have to wait for)
+    t0 = time.perf_counter()
+    report["serve_grok"], grok_launches, grok_routes = grok_phase(
+        torch, np, engines, exec_cfg, get_config, LayeredModel, tree_leaves,
+        is_spec, rc, ref, sample_batch, counters, dev)
+    report["serve_grok"]["phase_seconds"] = time.perf_counter() - t0
+
     # ------------------------------------------------------------- launches
     launches = {"serve": serve_launches, "serve-dense": dense_launches,
                 "serve-continuous": cont_launches,
@@ -3906,15 +4482,17 @@ def main(argv=None):
                 "dynamic-depth": dyn_launches,
                 "host-optimizer": host_launches,
                 "serve-moe": smoe_launches, "train-moe": tmoe_launches,
-                **rec_launches, **mod_launches}
+                **rec_launches, **mod_launches, "serve-grok": grok_launches,
+                **tier_launches}
     routes = {"serve": serve_routes, "serve-dense": dense_routes,
               "serve-continuous": cont_routes,
               "train": train_routes, "train-rmsnorm": rms_routes,
               "dynamic-depth": dyn_routes, "host-optimizer": host_routes,
               "serve-moe": smoe_routes, "train-moe": tmoe_routes,
-              **rec_routes, **mod_routes}
+              **rec_routes, **mod_routes, "serve-grok": grok_routes,
+              **tier_routes}
     emit({"launches": launches, "routes": routes})
-    assert len(launches) == 17, sorted(launches)
+    assert len(launches) == 20, sorted(launches)
     for path in [p for p in launches if p != "serve"]:
         got, by = launches[path], routes[path]
         # every bf16 K2, K3a and K3b launch of the path took the wgmma route
@@ -3957,7 +4535,12 @@ def main(argv=None):
                     "train-vlm": train_kernels + ("rmsnorm",),
                     "serve-audio": ("relay_copy",),
                     "train-audio": ("relay_copy", "relay_copy_writeback",
-                                    "fused_adam")}
+                                    "fused_adam"),
+                    "serve-grok": ("relay_copy", "rmsnorm",
+                                   "flash_attention_fwd"),
+                    "tier-train": train_kernels,
+                    "tier-serve": ("relay_copy", "rmsnorm",
+                                   "flash_attention_fwd")}
     for path, names in path_kernels.items():
         assert all(launches[path].get(n, 0) > 0 for n in names), \
             (path, launches[path])

@@ -21,21 +21,31 @@ always with ``host_optimizer``, whose update runs on the host), and
 ``stash``, where the boundary activations rest between the forward and
 the backward (pinned host memory when ``offload_stash``, the paper's
 eq. (4) constant device memory; ``eps.py:174-181`` of the reference).
+
+``disk`` extends the chain one tier further down (``tiers=3``): the
+static ``TierChainSpec`` of the verified segment store, from which the
+Engine builds its ``core.tierstore.TierChain``; None for two tiers.
+With the disk tier the groups' pinned rows are ``owned``: blocks of
+their own (``kernels.host_alloc``) that go back to the system when the
+last view of them dies, where PyTorch's host allocator would keep them
+pinned for reuse, and with them the host memory the tier frees between
+calls.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.tree import tree_map
-from repro_torch.kernels import relay_copy
+from repro_torch.kernels import host_alloc, relay_copy
 
 
 class Placement(NamedTuple):
     host: Callable                           # tree -> tree (resting place)
     dev: Callable                            # tree -> tree (compute device)
     enabled: bool = True
+    owned: bool = False                      # pinned blocks of their own
 
 
 def noop_placement() -> Placement:
@@ -43,7 +53,16 @@ def noop_placement() -> Placement:
     return Placement(ident, ident, enabled=False)
 
 
-def _pin(a):
+def pinned_empty(shape, dtype, owned: bool = False) -> torch.Tensor:
+    """Uninitialized pinned host memory: from PyTorch's caching host
+    allocator, or with ``owned`` a block of its own (``cudaHostAlloc``)
+    freed when its last view dies."""
+    if owned:
+        return host_alloc.empty(shape, dtype, kind="mapped")
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def _pin(a, owned: bool = False):
     if a.device.type == "cpu" and a.is_pinned():
         return a
     # the host allocator may hand out a block that a kernel still reads or
@@ -51,7 +70,7 @@ def _pin(a):
     # allocator records no use of it): wait for the card before the host
     # writes into a fresh block
     torch.cuda.synchronize()
-    out = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+    out = pinned_empty(a.shape, a.dtype, owned)
     if a.device.type != "cuda" or not a.numel():
         return out.copy_(a)
     # a device tensor goes out through K4's write-back (current stream)
@@ -59,22 +78,48 @@ def _pin(a):
     return out
 
 
-def single_device_placement(device, stream: bool) -> Placement:
+def single_device_placement(device, stream: bool,
+                            owned: bool = False) -> Placement:
     """One CUDA device; ``stream`` puts the resting copy in pinned host
-    memory (the EPS), otherwise on the device itself."""
+    memory (the EPS; blocks of its own when ``owned``), otherwise on the
+    device itself."""
     device = torch.device(device)
     dev = lambda t: tree_map(lambda a: a.to(device), t)
-    host = (lambda t: tree_map(_pin, t)) if stream else dev
-    return Placement(host, dev, enabled=stream)
+    host = (lambda t: tree_map(lambda a: _pin(a, owned), t)) if stream \
+        else dev
+    return Placement(host, dev, enabled=stream, owned=stream and owned)
+
+
+class TierChainSpec(NamedTuple):
+    """Static config of the third (disk) tier, HBM <- pinned host <- this:
+    built from an ExecutionConfig by ``tier_spec``; the Engine turns it
+    into a live ``core.tierstore.SegmentStore`` and ``TierChain``.  Host
+    file I/O around each call, so it works on every device."""
+    host_budget: int         # resident stacked-state bytes (0: demote all)
+    directory: str           # segment-store root ("": a fresh temp dir)
+    retries: int             # transient-read retry budget
+    backoff_s: float         # first exponential-backoff delay
+
+
+def tier_spec(exec_cfg) -> Optional[TierChainSpec]:
+    """The disk-tier spec of an ExecutionConfig, or None for the two-tier
+    placement (``tiers=2``)."""
+    if exec_cfg.tiers < 3:
+        return None
+    return TierChainSpec(host_budget=int(exec_cfg.host_budget_bytes),
+                         directory=str(exec_cfg.tier_dir),
+                         retries=int(exec_cfg.tier_retries),
+                         backoff_s=float(exec_cfg.tier_backoff_s))
 
 
 class EPSPlacements(NamedTuple):
     """Per-use-site placements: ``weights[g]`` / ``opts[g]`` for layer
     group g's weights and optimizer slots, ``stash`` for the boundary
-    activations."""
+    activations, ``disk`` the third tier's spec (None: two tiers)."""
     weights: tuple
     opts: tuple
     stash: Placement
+    disk: Optional[TierChainSpec] = None
 
 
 def make_placements(exec_cfg, n_groups: int, device="cpu") -> EPSPlacements:
@@ -82,13 +127,17 @@ def make_placements(exec_cfg, n_groups: int, device="cpu") -> EPSPlacements:
     the identity; on CUDA the groups rest in pinned host memory when
     ``exec_cfg.weight_stream``, their optimizer slots then and whenever
     ``exec_cfg.host_optimizer``, the stash when ``exec_cfg.offload_stash``,
-    else on the device."""
+    else on the device.  ``disk`` is ``tier_spec(exec_cfg)`` on every
+    device; with it the groups' pinned rows are owned."""
     device = torch.device(device)
+    disk = tier_spec(exec_cfg)
     if device.type != "cuda":
         noop = noop_placement()
-        return EPSPlacements((noop,) * n_groups, (noop,) * n_groups, noop)
-    w = single_device_placement(device, exec_cfg.weight_stream)
+        return EPSPlacements((noop,) * n_groups, (noop,) * n_groups, noop,
+                             disk)
+    owned = disk is not None
+    w = single_device_placement(device, exec_cfg.weight_stream, owned)
     o = single_device_placement(device, exec_cfg.weight_stream
-                                or exec_cfg.host_optimizer)
+                                or exec_cfg.host_optimizer, owned)
     s = single_device_placement(device, exec_cfg.offload_stash)
-    return EPSPlacements((w,) * n_groups, (o,) * n_groups, s)
+    return EPSPlacements((w,) * n_groups, (o,) * n_groups, s, disk)

@@ -79,8 +79,10 @@ bitwise); the stash's boundary recompute reads the same memory.  The
 transition's vjp then carries ``dmem`` through ``transition_mem`` into
 the encoder's last output (dx) and ``enc_ln_post``'s gradient.
 
-Not ported (each asserts): ``tiers=3``, and ``dynamic_depth`` over more
-than one group (as the reference).
+The disk tier (``tiers=3``) is invisible here, as in the reference: the
+Engine's ``core.tierstore.TierChain`` re-materializes the demoted rows
+before a step and writes them back after it.  ``dynamic_depth`` over
+more than one group asserts (as the reference).
 """
 from __future__ import annotations
 
@@ -89,7 +91,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import packing
-from repro_torch.core.eps import EPSPlacements, make_placements
+from repro_torch.core.eps import EPSPlacements, make_placements, \
+    pinned_empty
 from repro_torch.core.host_opt import HostOptimizer
 from repro_torch.core.relay import Sink, Stream, depth_window, relay_scan
 from repro_torch.core.schedule import ExecutionConfig
@@ -131,10 +134,13 @@ def _resting(place, like, device, dtype=None, rows=None):
     when given) where ``place`` keeps a sink's rows: pinned host memory
     when the placement is enabled on CUDA, else ``device``."""
     host = device.type == "cuda" and place.enabled
-    return tree_map(lambda a: torch.empty(
-        a.shape if rows is None else (rows,) + tuple(a.shape[1:]),
-        dtype=dtype or a.dtype, pin_memory=host,
-        device="cpu" if host else device), like)
+
+    def empty(a):
+        shape = a.shape if rows is None else (rows,) + tuple(a.shape[1:])
+        if host:
+            return pinned_empty(shape, dtype or a.dtype, place.owned)
+        return torch.empty(shape, dtype=dtype or a.dtype, device=device)
+    return tree_map(empty, like)
 
 
 def _carry_rows(dst, src, n: int):
@@ -226,7 +232,6 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
     and its write-backs on ``writeback_stream`` (each made when not
     given).  ``grad_ring``: gradient rows in flight to the host optimizer
     (Algorithm 4 with ``host_optimizer``)."""
-    assert exec_cfg.tiers == 2, "tiers=3 (the disk tier) is not ported yet"
     groups = model.groups
     device = torch.device(device)
     if placements is None:

@@ -88,7 +88,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 
-from repro_torch.core.eps import Placement
+from repro_torch.core.eps import Placement, pinned_empty
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import relay_copy
 
@@ -125,10 +125,10 @@ class Sink:
         host = on_cuda and self.placement.enabled
         if self.tree is None:
             self.tree = tree_map(
-                lambda a: torch.empty((self.n,) + tuple(a.shape),
-                                      dtype=a.dtype, pin_memory=host,
-                                      device="cpu" if host else a.device),
-                tree)
+                lambda a: pinned_empty((self.n,) + tuple(a.shape), a.dtype,
+                                       self.placement.owned) if host else
+                torch.empty((self.n,) + tuple(a.shape), dtype=a.dtype,
+                            device=a.device), tree)
         if not on_cuda:
             relay_copy.writeback_slot(tree, out=self.tree, row=row)
             return
@@ -150,6 +150,17 @@ def n_stops(n_layers: int, group: int) -> int:
     """Relay stops one pass makes over ``n_layers`` (ceil division)."""
     g = max(1, group)
     return -(-n_layers // g)
+
+
+def stop_bounds(n_layers: int, group: int, start: int = 0) -> tuple:
+    """``(lo, hi)`` layer ranges of each relay stop over ``n_layers``
+    layers beginning at ``start``: G full stops plus the short remainder,
+    ``n_stops(n_layers, group)`` entries.  The chunk schedule the disk
+    tier's read ring shares with the relay (``core.tierstore``): one
+    contiguous read per stop."""
+    g = max(1, group)
+    return tuple((start + lo, start + min(lo + g, n_layers))
+                 for lo in range(0, n_layers, g))
 
 
 def depth_window(dyn: bool, n_active, capacity: int):

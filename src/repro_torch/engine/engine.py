@@ -35,10 +35,25 @@ stream has been ordered behind the step's last fetch and write-back (each
 on its own stream); a host reader of the pinned rows synchronizes first
 (``save`` does).  Snapshots (``checkpoint.io``) are the unpacked per-leaf
 trees of the reference, so the two packages restore each other's.
+
+With ``tiers=3`` the EPS gains the disk tier (``tier``, a
+``core.tierstore.TierChain`` over a verified segment store in
+``tier_dir``, a fresh temporary directory when it is empty): ``init`` and
+``restore`` adopt the state (the cold rows of each group go to the store
+under ``host_budget_bytes``, a ``Demoted`` placeholder keeps the hot
+rows), ``train_step`` stages the demoted rows in before the step and out
+after it, ``save`` stages in and makes its directory the store's rebuild
+source, and ``grads``, ``prefill``, ``decode_init``, ``decode_step`` and
+``serve_session`` read them back read-only (once per staged-out state,
+the weights alone).  The groups' pinned rows are then blocks of their own
+(``core.eps.pinned_empty``), so the host memory a staged-out state frees
+goes back to the system.  Results are the ``tiers=2`` results bit for
+bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -48,7 +63,8 @@ from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import baseline as _baseline
 from repro_torch.core import decode as _decode, l2l as _l2l, packing
-from repro_torch.core.eps import make_placements
+from repro_torch.core import tierstore
+from repro_torch.core.eps import make_placements, pinned_empty
 from repro_torch.core.memory_model import (MemoryReport, estimate,
                                            estimate_serve)
 from repro_torch.core.schedule import ExecutionConfig
@@ -103,6 +119,33 @@ class Engine:
     def _normalize_cfg(self, exec_cfg: ExecutionConfig) -> ExecutionConfig:
         return exec_cfg
 
+    # -- storage tier (ExecutionConfig.tiers = 3) ---------------------------
+    @property
+    def tier(self):
+        """The live disk tier (``core.tierstore.TierChain``), or None with
+        two tiers; built at first use from ``placements.disk``."""
+        spec = self.placements.disk
+        if spec is None:
+            return None
+        if "tier" not in self._fns:
+            root = spec.directory or tempfile.mkdtemp(prefix="eps-tier-")
+            store = tierstore.SegmentStore(root, retries=spec.retries,
+                                           backoff_s=spec.backoff_s)
+            self._fns["tier"] = tierstore.TierChain(
+                store, host_budget=spec.host_budget,
+                layers_per_relay=self.exec_cfg.layers_per_relay,
+                prefetch_depth=self.exec_cfg.prefetch_depth,
+                pin=self.device.type == "cuda")
+        return self._fns["tier"]
+
+    def _materialize(self, state_or_params):
+        """The params (of a TrainState or as given) with the demoted rows
+        read back from the segment store (read-only, cached by the chain
+        per staged-out state)."""
+        params = getattr(state_or_params, "params", state_or_params)
+        tier = self.tier
+        return params if tier is None else tier.materialize_params(params)
+
     # -- parameters ---------------------------------------------------------
     def init_params(self, generator: torch.Generator):
         """Random parameters from ``generator`` (on this engine's device
@@ -116,17 +159,18 @@ class Engine:
         embed, head = m.init_static(generator, dev)
         groups = []
         for gi, g in enumerate(m.groups):
-            pinned = self.placements.weights[gi].enabled
+            place = self.placements.weights[gi]
             dest = None
             for li, layer in enumerate(m.init_layers(gi, generator, dev)):
                 row = packing.pack(layer, stacked=False) \
                     if self.exec_cfg.pack_params else layer
                 if dest is None:
                     dest = tree_map(
-                        lambda a: torch.empty(
+                        lambda a: pinned_empty(
+                            (g.n_layers,) + tuple(a.shape), a.dtype,
+                            place.owned) if place.enabled else torch.empty(
                             (g.n_layers,) + tuple(a.shape), dtype=a.dtype,
-                            device="cpu" if pinned else dev,
-                            pin_memory=pinned), row)
+                            device=dev), row)
                 # K4's write-back, into pinned or device rows
                 relay_copy.writeback_slot(
                     tree_map(lambda a: a.contiguous(), row), out=dest,
@@ -180,8 +224,11 @@ class Engine:
         """Parameters (``init_params``, in the relay layout and place)
         and zeroed optimizer slots beside them."""
         params = self.init_params(generator)
-        return TrainState.from_legacy(
+        state = TrainState.from_legacy(
             params, self._place_opt(self._init_opt_legacy(params), params))
+        if self.tier is not None:
+            state = self.tier.adopt(state, step=0)
+        return state
 
     def _place_state(self, state: TrainState):
         params = self._place_params(state.params)
@@ -229,12 +276,21 @@ class Engine:
         if "train_step" not in self._fns:
             self._fns["train_step"] = self._make_step()
         depth = self._depth(n_layers)
+        tier = self.tier
+        if tier is not None:
+            state = tier.stage_in(state)
         params, opt = self._place_state(state)
+        del state
         with torch.no_grad():
             new_p, new_o, metrics = self._fns["train_step"](
                 params, opt, self._batch(batch), *depth)
         self._end_of_step()
-        return TrainState.from_legacy(new_p, new_o), metrics
+        del params, opt
+        state = TrainState.from_legacy(new_p, new_o)
+        del new_p, new_o
+        if tier is not None:
+            state = tier.stage_out(state)
+        return state, metrics
 
     def grads(self, state_or_params, batch, n_layers=None):
         """(loss, grads) of the schedule, without an update; grads in the
@@ -242,7 +298,7 @@ class Engine:
         if "grads" not in self._fns:
             self._fns["grads"] = self._make_grads()
         depth = self._depth(n_layers)
-        params = getattr(state_or_params, "params", state_or_params)
+        params = self._materialize(state_or_params)
         with torch.no_grad():
             out = self._fns["grads"](self._place_params(params),
                                      self._batch(batch), *depth)
@@ -266,7 +322,12 @@ class Engine:
         unpacked per-leaf layout (packed rows are viewed through their
         PackSpecs), crash-consistently; ``keep_last=N`` prunes all but the
         N newest snapshots.  Waits for the card first: the pinned rows are
-        written by kernels the host does not see."""
+        written by kernels the host does not see.  With the disk tier the
+        state is staged in whole, and ``directory`` becomes the store's
+        rebuild source."""
+        if self.tier is not None:
+            state = self.tier.stage_in(state)
+            self.tier.attach_checkpoints(directory, prefix, self)
         step = int(state.step) if step is None else int(step)
         params, opt = state.params, state.legacy_opt()
         if self.exec_cfg.pack_params:
@@ -304,8 +365,11 @@ class Engine:
             directory, like_p, like_o, step=step, prefix=prefix,
             fingerprint=self.state_fingerprint())
         params = self._place_params(params)
-        return TrainState.from_legacy(params, self._place_opt(opt, params)), \
-            step
+        state = TrainState.from_legacy(params, self._place_opt(opt, params))
+        if self.tier is not None:
+            state = self.tier.adopt(state, step=step)
+            self.tier.attach_checkpoints(directory, prefix, self)
+        return state, step
 
     # -- inference ----------------------------------------------------------
     def prefill(self, params, batch, n_layers=None):
@@ -319,8 +383,8 @@ class Engine:
         depth = self._depth(n_layers)
         with torch.inference_mode():
             batch = tree_map(lambda a: a.to(self.device), batch)
-            return self._fns["prefill"](self._relay_params(params), batch,
-                                        *depth)
+            return self._fns["prefill"](
+                self._relay_params(self._materialize(params)), batch, *depth)
 
     def decode_init(self, params, tokens, live_seq: int, frames=None,
                     n_layers=None):
@@ -330,7 +394,7 @@ class Engine:
         self._depth(n_layers)
         with torch.inference_mode():
             return _decode.prefill(
-                self.model, self._relay_params(params),
+                self.model, self._relay_params(self._materialize(params)),
                 tokens.to(self.device), live_seq, exec_cfg=self.exec_cfg,
                 placements=self.placements, device=self.device,
                 copy_stream=self.copy_stream,
@@ -346,7 +410,8 @@ class Engine:
         depth = self._depth(n_layers)
         with torch.inference_mode():
             return self._fns["decode_step"](
-                self._relay_params(params), caches, token.to(self.device),
+                self._relay_params(self._materialize(params)), caches,
+                token.to(self.device),
                 cur_pos, *depth)
 
 
@@ -362,7 +427,7 @@ class Engine:
             srv.submit(prompt_ids, max_new=32)
             done = srv.run()
         """
-        params = getattr(state_or_params, "params", state_or_params)
+        params = self._materialize(state_or_params)
         if serve_cfg is None:
             serve_cfg = ServeConfig(**kw)
         return ServeEngine(self, params, serve_cfg)

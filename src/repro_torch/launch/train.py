@@ -28,7 +28,11 @@ for bit.
 ``--host-optimizer`` runs the layer updates on the host over the pinned
 rows (the paper's CPU optimizer); ``--dynamic-depth --run-layers N``
 trains the first N layers of the stack (default: all), the rest
-unfetched and unchanged.  The disk tier is not ported: its flags raise.
+unfetched and unchanged.  ``--tiers 3 --host-budget B --tier-dir D`` puts
+the verified disk tier under the EPS: the layer rows past B bytes of
+weights and optimizer slots rest in segment files in D (a fresh temporary
+directory when D is empty) between steps, and the JSON line carries the
+tier's ``tier_metrics``.
 """
 from __future__ import annotations
 
@@ -49,8 +53,6 @@ from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
                                         add_modality_stubs)
 from repro_torch.optim import get_optimizer, make_schedule
 
-# flags of the reference's CLI whose features the port does not have
-NOT_PORTED = ("--tiers", "--host-budget", "--tier-dir")
 PREEMPT_MARKER = "PREEMPTED.json"
 
 
@@ -93,6 +95,18 @@ def main(argv=None):
                          "relay-copy kernel too")
     ap.add_argument("--skip-nonfinite", action="store_true",
                     help="reject a step whose gradients hold inf/nan")
+    ap.add_argument("--tiers", type=int, default=2, choices=[2, 3],
+                    help="2: HBM <- pinned host; 3: and a verified "
+                         "on-disk segment store under it, the cold rows "
+                         "staged around every step (bit for bit the "
+                         "same results)")
+    ap.add_argument("--host-budget", type=int, default=0,
+                    help="with --tiers 3: bytes of stacked weights and "
+                         "optimizer slots resident on the host; the rows "
+                         "past it demote to disk, coldest first (0: all)")
+    ap.add_argument("--tier-dir", default="",
+                    help="with --tiers 3: the segment store's directory "
+                         "(default: a fresh temporary directory)")
     ap.add_argument("--host-optimizer", action="store_true",
                     help="the layer updates run on the host over the "
                          "pinned rows (the paper's CPU optimizer)")
@@ -118,13 +132,7 @@ def main(argv=None):
     ap.add_argument("--step-delay-ms", type=int, default=0,
                     help="sleep after every step (widens the window for "
                          "preemption tests)")
-    for flag in NOT_PORTED:
-        ap.add_argument(flag, default=None, nargs="?", const=True,
-                        help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag}: not ported to the PyTorch package yet")
 
     engine_name = args.engine
     if engine_name == "l2l" and not args.no_eager:
@@ -153,7 +161,8 @@ def main(argv=None):
         stash_every=args.stash_every, weight_stream=args.weight_stream,
         prefetch_depth=args.prefetch, layers_per_relay=args.group,
         pack_params=args.pack, transport=args.transport,
-        host_optimizer=args.host_optimizer,
+        tiers=args.tiers, host_budget_bytes=args.host_budget,
+        tier_dir=args.tier_dir, host_optimizer=args.host_optimizer,
         skip_nonfinite=args.skip_nonfinite,
         dynamic_depth=args.dynamic_depth,
         clip_mode="per_layer" if args.clip > 0 else "none",
@@ -255,7 +264,9 @@ def main(argv=None):
                       "steady_s_per_step": steady,
                       "run_layers": run_layers, "steps": args.steps, "final_step": int(state.step),
                       "resumed_from": resumed_from, "preempted": preempted,
-                      "skipped_steps": skipped, "device": str(dev)}))
+                      "skipped_steps": skipped, "device": str(dev),
+                      "tier_metrics": (eng.tier.metrics
+                                       if eng.tier is not None else None)}))
     return losses
 
 if __name__ == "__main__":

@@ -493,6 +493,219 @@ def test_wkv_scans_against_f64_on_the_port_draw(monkeypatch, capsys):
         <= 0.1 * dists["step"], dists
 
 
+def test_wkv_step_scan_matches_reference_scan_against_f64():
+    """The step scans of both packages on the same inputs: the
+    ``(rh, kh, vh, wh, u, s0)`` that reach the scan in each layer of the
+    port's forward on the port's draw (seed 0: the draw on which the
+    port's f32 model gradients stand 1.89e-3 from its f64 run and the
+    reference's 2.58e-4), and one fixed cotangent.  Each output and each
+    input's vjp, of the port's f32 scan and of the reference's (JAX,
+    ``jax.vjp``), within 1e-6 of the port's f64 scan (largest error over
+    largest value): both at f32 rounding, neither the less accurate.
+    So the model's gap is not the scan's arithmetic: it is how the
+    reference's std-1/sqrt(depth) init amplifies the forward's f32
+    rounding (ROADMAP, "Facts about tolerances")."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import ssm as jssm
+    params = _model(0).init_params(torch.Generator().manual_seed(0))
+    t = torch.randint(0, _cfg("rwkv6-1.6b").vocab_size, (2, 64),
+                      generator=torch.Generator().manual_seed(1))
+    caps, step = [], ssm._wkv_step_scan
+
+    def capture(*a):
+        caps.append([x.detach().clone() for x in a])
+        return step(*a)
+
+    ssm._wkv_step_scan = capture
+    try:
+        with torch.no_grad():
+            _model(0).full_loss(params, {"tokens": t, "targets": t,
+                                         "mask": torch.ones(2, 64)})
+    finally:
+        ssm._wkv_step_scan = step
+    rs = np.random.RandomState(2)
+    ref_scan = jax.jit(lambda *a: jax.vjp(jssm._wkv_step_scan, *a[:6])[1](
+        a[6:]))
+    ref_fwd = jax.jit(jssm._wkv_step_scan)
+    assert len(caps) == _cfg("rwkv6-1.6b").n_layers
+    for ins in caps:
+        cot = [torch.from_numpy(rs.randn(*x.shape).astype(np.float32))
+               for x in (ins[0], ins[5])]
+
+        def port(dt):
+            xs = [x.detach().to(dt).requires_grad_() for x in ins]
+            y, s = step(*xs)
+            return [y, s] + list(torch.autograd.grad(
+                (y, s), xs, [c.to(dt) for c in cot]))
+
+        want, got = port(torch.float64), port(torch.float32)
+        jin = [jnp.asarray(x.numpy()) for x in ins + cot]
+        ref = [np.asarray(a) for a in (*ref_fwd(*jin[:6]), *ref_scan(*jin))]
+        for name, w, g, r in zip(("y", "s", "drh", "dkh", "dvh", "dwh",
+                                  "du", "ds0"), want, got, ref):
+            w = w.detach()
+            top = float(w.abs().max())
+            e_port = float((g.detach().double() - w).abs().max()) / top
+            e_ref = float((torch.from_numpy(r).double() - w).abs().max()) \
+                / top
+            assert e_port <= 1e-6 and e_ref <= 1e-6, (name, e_port, e_ref)
+
+
+class _ScanMix(torch.autograd.Function):
+    """The step scan with its forward values and its gradients each from
+    f32 or f64 arithmetic."""
+
+    @staticmethod
+    def forward(ctx, fwd64, bwd64, *a):
+        ctx.bwd64 = bwd64
+        ctx.save_for_backward(*a)
+        y, s = _STEP(*((x.double() if fwd64 else x) for x in a))
+        return y.float(), s.float()
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        with torch.enable_grad():
+            xs = [(x.double() if ctx.bwd64 else x).detach().requires_grad_()
+                  for x in ctx.saved_tensors]
+            y, s = _STEP(*xs)
+            g = torch.autograd.grad((y, s), xs,
+                                    (dy.to(y.dtype), ds.to(s.dtype)))
+        return (None, None) + tuple(x.float() for x in g)
+
+
+_STEP = ssm._wkv_step_scan
+
+
+class _Swap(torch.autograd.Function):
+    """Given forward values ``(y, s)`` of the step scan of inputs ``a``,
+    with the port's f32 backward."""
+
+    @staticmethod
+    def forward(ctx, y, s, *a):
+        ctx.save_for_backward(*a)
+        return y.clone(), s.clone()
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            g = torch.autograd.grad(_STEP(*xs), xs, (dy, ds))
+        return (None, None) + g
+
+
+def _wkv_step_elementwise(rh, kh, vh, wh, u, s0):
+    """The reference's association with each read-out summed from its
+    elementwise products (another summation order than a matmul's)."""
+    s, outs = s0, []
+    for t in range(rh.shape[2]):
+        kv = kh[:, :, t, :, None] * vh[:, :, t, None, :]
+        outs.append((rh[:, :, t, :, None]
+                     * (s + u[..., :, None] * kv)).sum(-2))
+        s = wh[:, :, t, :, None] * s + kv
+    return torch.stack(outs, 2), s
+
+
+def _reindexed(scan, idx):
+    """``scan`` with the key/head dimension taken in the order ``idx``
+    (the same sums in another order); the state comes back in place."""
+    def run(rh, kh, vh, wh, u, s0):
+        back = torch.argsort(idx)
+        y, s = scan(rh[..., idx], kh[..., idx], vh, wh[..., idx],
+                    u[..., idx], s0[..., idx, :])
+        return y, s[..., back, :]
+    return run
+
+
+def _reversed(scan):
+    hd = _cfg("rwkv6-1.6b").d_model // _cfg("rwkv6-1.6b").n_heads
+    return _reindexed(scan, torch.arange(hd - 1, -1, -1))
+
+
+def _permuted(scan):
+    hd = _cfg("rwkv6-1.6b").d_model // _cfg("rwkv6-1.6b").n_heads
+    return _reindexed(scan, torch.randperm(
+        hd, generator=torch.Generator().manual_seed(5)))
+
+
+def test_wkv_model_amplifies_the_scans_forward_rounding(monkeypatch,
+                                                        capsys):
+    """Where the port's draw loses its f32 accuracy: the scan's forward
+    values, amplified by the rest of the model at the reference's init.
+    The model with the scan's forward in f32 and its backward in f64
+    stands as far from the f64 run as the all-f32 model (1.89e-3); with
+    the forward in f64 and the backward in f32 it stands 2.5e-5.  Random
+    relative noise of the f32 scan's own size (1.5e-7) on an f64 scan's
+    outputs lands within 1e-4: the amplified error is the forward's
+    rounding in its own direction, not its size.  Which direction is a
+    matter of summation order: the same step in f32 with its sums in
+    other orders (elementwise products summed, the head dimension
+    reversed or permuted) stands from 9.3e-5 to 2.5e-3, and the
+    reference's own f32 scan (JAX) as the forward inside the port's model,
+    with an f32 backward, stands 5.8e-4, inside that spread (ROADMAP,
+    "Facts about tolerances", item 10).  Printed: each distance."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import ssm as jssm
+    params = _model(0).init_params(torch.Generator().manual_seed(0))
+    t = torch.randint(0, _cfg("rwkv6-1.6b").vocab_size, (2, 64),
+                      generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": t, "targets": t, "mask": torch.ones(2, 64)}
+
+    def with_scan(scan, f64=False):
+        monkeypatch.setattr(ssm, "_wkv_step_scan", scan)
+        try:
+            return _grads(params, batch, 0, f64=f64)
+        finally:
+            monkeypatch.setattr(ssm, "_wkv_step_scan", _STEP)
+
+    gen = torch.Generator().manual_seed(100)
+
+    def noisy(*a):
+        y, s = _STEP(*(x.double() for x in a))
+        y = y * (1 + 1.5e-7 * torch.randn(y.shape, generator=gen,
+                                          dtype=torch.float64))
+        return y.float(), s.float()
+
+    mix = {f"forward {'f64' if f else 'f32'}, backward "
+           f"{'f64' if b else 'f32'}": with_scan(
+               lambda *a, f=f, b=b: _ScanMix.apply(f, b, *a))
+           for f, b in ((False, True), (True, False))}
+    mix["f64 scan, 1.5e-7 noise"] = with_scan(noisy)
+    ref_fwd = jax.jit(jssm._wkv_step_scan)
+
+    def reference_forward(*a):
+        y, s = ref_fwd(*(jnp.asarray(x.detach().numpy()) for x in a))
+        y, s = torch.from_numpy(np.array(y)), torch.from_numpy(np.array(s))
+        return _Swap.apply(y, s, *a)
+
+    orders = {"port": _STEP, "elementwise": _wkv_step_elementwise,
+              "elementwise, head dim reversed": _reversed(
+                  _wkv_step_elementwise),
+              "head dim permuted": _permuted(_STEP)}
+    orders = {k: with_scan(f) for k, f in orders.items()}
+    mix["reference's f32 scan forward, f32 backward"] = with_scan(
+        reference_forward)
+    to64 = torch.Tensor.float
+    monkeypatch.setattr(torch.Tensor, "float", lambda a: a.double()
+                        if a.is_floating_point() else to64(a))
+    truth = with_scan(lambda *a: _STEP(*(x.double() for x in a)), f64=True)
+    monkeypatch.setattr(torch.Tensor, "float", to64)
+    dists = {k: _dist(v, truth) for k, v in mix.items()}
+    spread = {k: _dist(v, truth) for k, v in orders.items()}
+    with capsys.disabled():
+        print("\nrwkv6 f32 gradients from the port's f64 run:", dists,
+              "\nthe f32 step scan by summation order:", spread)
+    fwd32 = dists["forward f32, backward f64"]
+    fwd64 = dists["forward f64, backward f32"]
+    assert fwd64 <= 1e-4 and fwd32 >= 10 * fwd64, dists
+    assert dists["f64 scan, 1.5e-7 noise"] <= 1e-4, dists
+    lo, hi = min(spread.values()), max(spread.values())
+    assert hi >= 10 * lo, spread
+    assert lo <= dists["reference's f32 scan forward, f32 backward"] <= hi, \
+        (dists, spread)
+
+
 def test_chunked_wkv_nonmultiple_falls_back(ref_params):
     """seq not divisible by chunk: silently use the step scan."""
     m0, m1 = _model(0), _model(16)

@@ -5,6 +5,9 @@ the offloaded stash, the flash kernels — the JAX ones in interpret mode)
 against the JAX engine, then the port against itself: its knob grid
 bit for bit, Alg 3 against Alg 4, the baseline against L2L, the
 non-finite sentinel, and the train CLI."""
+import json
+import os
+
 import numpy as np
 import pytest
 
@@ -319,17 +322,28 @@ def test_sgd_packed_step_is_bitwise_to_unpacked(reference):
     assert all(np.array_equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
 
 
-def test_train_cli_on_cpu(capsys):
-    losses = train_cli.main([
-        "--device", "cpu", "--variant", "smoke", "--steps", "3",
-        "--batch", "4", "--seq", "32", "--ub", "2", "--weight-stream",
-        "--pack", "--prefetch", "1", "--transport", "pallas",
-        "--offload-stash", "--log-every", "1"])
+def test_train_cli_on_cpu(capsys, tmp_path):
+    argv = ["--device", "cpu", "--variant", "smoke", "--steps", "3",
+            "--batch", "4", "--seq", "32", "--ub", "2", "--weight-stream",
+            "--pack", "--prefetch", "1", "--transport", "pallas",
+            "--offload-stash", "--log-every", "1"]
+    losses = train_cli.main(argv)
     assert len(losses) == 3 and all(np.isfinite(losses))
-    assert '"final_step": 3' in capsys.readouterr().out
-    # the disk tier's flags raise (not ported); --resume auto needs a
-    # --ckpt-dir (tests/test_torch_checkpoint.py runs the checkpoints; the
-    # host optimizer and dynamic depth run in their own test files)
-    for flag in (["--tiers", "3"], ["--resume", "auto"]):
-        with pytest.raises(SystemExit):
-            train_cli.main(["--device", "cpu", *flag])
+    out = capsys.readouterr().out
+    assert '"final_step": 3' in out and '"tier_metrics": null' in out
+    # the disk tier: layer 1 of 2 past a budget of one layer's weights
+    # and Adam slots (~1.6 MB) rests in segment files between steps; the
+    # losses are the two-tier run's bit for bit
+    tiered = train_cli.main(argv + ["--tiers", "3", "--host-budget",
+                                    str(2 << 20), "--tier-dir",
+                                    str(tmp_path / "tier")])
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert tiered == losses
+    m = line["tier_metrics"]
+    assert m["demoted_layers"] == 1 and m["reads"] > 0 and m["writes"] > 0
+    assert os.path.isdir(str(tmp_path / "tier" / "g0_w"))
+    # --resume auto needs a --ckpt-dir (tests/test_torch_checkpoint.py runs
+    # the checkpoints; the host optimizer and dynamic depth run in their
+    # own test files)
+    with pytest.raises(SystemExit):
+        train_cli.main(["--device", "cpu", "--resume", "auto"])
