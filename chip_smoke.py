@@ -101,7 +101,7 @@ Phases, one JSON line each:
    checkpoint — bert-large at full width, depth 2, under l2l-p with
               pinned rows: 2 steps, Engine.save, restore into a fresh engine,
               2 more steps, against 4 uninterrupted steps bit for bit;
-   train-rmsnorm — chatglm3-6b at full width, depth 4 (an RMSNorm model,
+   train-rmsnorm — chatglm3-6b at full width, depth 2 (an RMSNorm model,
               GQA 16), l2l-p with the train phase's knobs: 3 steps at B=8,
               S=512, UB=2 with every counter set to 0 just before and read
               just after (K5 under grad: ``rmsnorm_diff``); then Engine.grads
@@ -171,8 +171,8 @@ Phases, one JSON line each:
               against decode_init in f32 at depth 2 and in bf16 at depths
               1, 4 (also at fan-in scales) and full, one layer's scan
               timed;
-   train-recurrent — each at full width under l2l-p (hymba at full
-              depth, rwkv6 at 8 of its 24 layers: its WKV step loop is
+   train-recurrent — each at full width under l2l-p (hymba at 16 of its
+              32 layers, rwkv6 at 8 of its 24: its WKV step loop is
               host-bound) with the train phase's knobs, 3 steps at B=8,
               S=512, UB=2, the
               counters set to 0 just before and read just after; then
@@ -210,7 +210,7 @@ Phases, one JSON line each:
               counted; then the train-vlm checks;
    tier     — the disk tier (``tiers=3``): tier-train, bert-large at
               full width and depth under l2l-p with the train phase's
-              knobs, B=32 x 512, UB=4, 3 steps with 12 of the 24 layers'
+              knobs, B=32 x 512, UB=4, 2 steps with 12 of the 24 layers'
               weights and Adam slots demoted to segment files under
               build/ (counted from the tier engine's init to its last
               step), its state bit for bit a two-tier run's from the same
@@ -249,15 +249,31 @@ Phases, one JSON line each:
               the 2 x 2048 prefill's shape under torch.profiler: device
               time, device operations, wall time;
    recurrent-profile — one train-recurrent step of each family at
-              depth 2 under torch.profiler: the device's idle share and
+              depth 1 under torch.profiler: the device's idle share and
               its time by kernel;
+   train-dp — data parallel over the mesh's data
+              axes, bert-large at full width and depth, B=32 x 512, UB=4,
+              l2l-p through the train CLI's configuration: (a) in this
+              process, NCCL over a world of one (a FileStore under
+              build/) and a (data=1, model=1) mesh, 3 steps counted beside
+              3 meshless steps from the same state, bit for bit (losses,
+              weight and Adam checksums), 24 layer rows + the static tree
+              + 2 scalars all-reduced a step; (b) two gloo ranks on this
+              card through ``python -m torch.distributed.run -m
+              repro_torch.launch.train --mesh data=2``, each rank its own
+              pinned EPS: the ranks' final checksums equal, the losses
+              beside (a)'s meshless ones; then in f32 at depth 2 and
+              fan-in scales from one snapshot, the ranks' final snapshot
+              against one process on the whole batch (losses 1e-5,
+              each leaf's update 1e-3 relative L2); wall time, reduction
+              ms and GB a step for each part;
    memory-model — ``Engine.memory_estimate`` for the train phase's
               bert-large at depths 24 and 12 beside its peaks, and the
               serve estimate beside serve-continuous's peak (printed, not
               tied: the model counts the reference's buffers);
-10. launches — every kernel's count over the twenty main paths
+10. launches — every kernel's count over the twenty-one main paths
               (serve, serve-dense, serve-continuous, train, train-rmsnorm,
-              dynamic-depth, host-optimizer, serve-moe, train-moe,
+              dynamic-depth, host-optimizer, train-dp, serve-moe, train-moe,
               serve-hymba, train-hymba, serve-rwkv6, train-rwkv6,
               serve-vlm, train-vlm, serve-audio, train-audio, serve-grok,
               tier-train, tier-serve; each of a
@@ -497,7 +513,7 @@ def k4_checks(torch, rc, ha, dev):
 
 
 def k4_sweep(torch, rc, ha, build, dev, fetch_bytes, wb_bytes, kinds,
-             fetch_arms, wb_arms, duplex_arms, reps=3):
+             fetch_arms, wb_arms, duplex_arms, reps=2):
     """GB/s of K4's designs on one row pinned host -> HBM (``fetch_bytes``)
     and one row HBM -> pinned host (``wb_bytes``), for every host
     allocation kind in ``kinds`` and every arm (label -> ``Route``), with
@@ -1258,14 +1274,14 @@ def k3_gqa_check(torch, dev, fa, kops, cfg, B, S):
 def train_rmsnorm_phase(torch, engines, ExecutionConfig, knobs, get_config,
                         SyntheticLM, DataConfig, adam, make_schedule,
                         counters, kops, rms, fa, dev):
-    """chatglm3-6b at full width, depth 4, under l2l-p: 3 steps with every
+    """chatglm3-6b at full width, depth 2, under l2l-p: 3 steps with every
     counter set to 0 just before and read just after (K5 under grad); then
     one Engine.grads in f32 against the same call with K5's plain version
     patched in, and K3 at the path's GQA-16 shape."""
     import numpy as np
     from repro_torch.core.tree import tree_leaves_with_path
     from repro_torch.testing import fan_in_params
-    B, S, UB, STEPS, DEPTH = 8, 512, 2, 3, 4
+    B, S, UB, STEPS, DEPTH = 8, 512, 2, 3, 2
     full = get_config("chatglm3-6b", "full")
     cfg = full.replace(n_layers=DEPTH, use_pallas=True)
     opt = adam(schedule=make_schedule(1e-4, warmup=10))
@@ -2020,7 +2036,7 @@ def train_moe_phase(torch, np, engines, ExecutionConfig, knobs, get_config,
 RECURRENT_ARCHS = ("hymba-1.5b", "rwkv6-1.6b")
 # the train phases' depth caps (0: the full depth, host allowing): rwkv6's
 # host-bound WKV loop made its 24-layer step 10-19 s
-TRAIN_DEPTH_CAP = {"rwkv6-1.6b": 8}
+TRAIN_DEPTH_CAP = {"hymba-1.5b": 16, "rwkv6-1.6b": 8}
 # serve-recurrent's crowd: a recurrent family feeds one token a tick (the
 # ServeEngine forces prefill_chunk to 1), so the prompts stay short
 REC_CROWD = dict(max_batch=8, page_size=16, max_seq=48, n_pages=24,
@@ -3008,10 +3024,10 @@ def tier_phase(torch, np, engines, ExecutionConfig, bert, knobs, exec_cfg,
                DataConfig, adam, make_schedule, sample_batch, counters, dev):
     """The disk tier (``tiers=3``) on the card.  train: bert-large at full
     width and depth under l2l-p with the train phase's knobs, B=32 x 512,
-    UB=4, 3 steps, with ``host_budget_bytes`` keeping 12 of the 24 layers'
+    UB=4, 2 steps, with ``host_budget_bytes`` keeping 12 of the 24 layers'
     weights and Adam slots on the host and the other 12 in segment files
     under build/, every counter set to 0 just before the tier engine's
-    init and read after its last step; its state after the 3 steps against
+    init and read after its last step; its state after the 2 steps against
     a two-tier run's from the same init, bit for bit (the two-tier run
     first, not counted), and the host bytes each run holds after its
     steps (the process's resident set, pinned memory included, with
@@ -3030,7 +3046,7 @@ def tier_phase(torch, np, engines, ExecutionConfig, bert, knobs, exec_cfg,
     import shutil
     from repro_torch.core import tierstore
     from repro_torch.kernels import host_alloc
-    B, S, UB, STEPS = 32, 512, 4, 3
+    B, S, UB, STEPS = 32, 512, 4, 2
     cfg = bert.replace(use_pallas=True)
     opt = adam(schedule=make_schedule(1e-4, warmup=10))
     (row,) = group_rows(LayeredModel, tree_leaves, is_spec, cfg)
@@ -3390,6 +3406,227 @@ def grok_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
     return line, launches, routes
 
 
+DP_DIR = ROOT / "build" / "chip_smoke_dp"
+# the train CLI's arguments of both train-dp runs: the train phase's
+# model, batch and knobs (l2l-p; Adam, its schedule and the per-layer
+# clip are the CLI's)
+DP_ARGV = ["--arch", "bert-large", "--variant", "full", "--engine", "l2l-p",
+           "--steps", "3", "--batch", "32", "--seq", "512", "--ub", "4",
+           "--weight-stream", "--pack", "--prefetch", "1",
+           "--transport", "pallas", "--offload-stash", "--use-pallas",
+           "--log-every", "1", "--seed", "0"]
+# the f32 check: depth 2, B=8, UB=2, from a snapshot of fan-in parameters
+DP_F32 = ["--n-layers", "2", "--dtype", "float32", "--batch", "8",
+          "--ub", "2"]
+DP_RANKS = 2
+# bounds of the f32 check against one process on the whole batch (the
+# ranks' microbatches hold other rows: sums in other orders)
+DP_LOSS_REL = 1e-5
+DP_UPDATE_REL = 1e-3
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(argv):
+    """Start ``python -m torch.distributed.run`` of the train CLI on
+    ``DP_RANKS`` gloo ranks on this card -> (process, start time); its
+    output goes to a pipe that ``torchrun_line`` reads."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "GLOO_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "4"}
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc-per-node", str(DP_RANKS), "--master-addr", "127.0.0.1",
+           "--master-port", str(free_port()),
+           "-m", "repro_torch.launch.train", *argv,
+           "--mesh", f"data={DP_RANKS}", "--dist-backend", "gloo"]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            cwd=str(ROOT)), time.perf_counter()
+
+
+def torchrun_line(started, log, timeout):
+    """Wait for a ``torchrun`` -> (rank 0's JSON line, seconds); the whole
+    output goes to chiprun_out/<log>.  A run past ``timeout`` is killed."""
+    proc, t0 = started
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    seconds = time.perf_counter() - t0
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / log).write_text(out)
+    assert proc.returncode == 0, \
+        f"torchrun exited {proc.returncode}:\n{out[-5000:]}"
+    line = json.loads([ln for ln in out.splitlines()
+                       if ln.startswith("{")][-1])
+    return line, seconds
+
+
+def train_dp_phase(torch, np, engines, counters, dev):
+    """Data-parallel l2l-p on the data axes (``--mesh data=N``), two parts.
+
+    (a) In process: NCCL over a world of one (a FileStore under build/),
+    a (data=1, model=1) mesh; bert-large at full width and depth through
+    the train CLI's configuration (``DP_ARGV``): 3 steps on the mesh, the
+    counters set to 0 just before and read just after, beside 3 meshless
+    steps from the same state: losses, weights and Adam slots bit for
+    bit (checksums); 24 layer rows + the static tree + 2 scalars reduced
+    a step; the step times side by side.
+    (b) Two gloo ranks on this card through the train CLI under
+    ``torch.distributed.run`` (each rank its own pinned EPS): the bf16
+    main path, its ranks' final checksums equal, its losses beside (a)'s
+    meshless ones; then the f32 check at fan-in scales, depth 2, from one
+    snapshot: the ranks' final snapshot against one process on the whole
+    batch within ``DP_LOSS_REL`` (losses) and ``DP_UPDATE_REL`` (each
+    leaf's update, rel L2)."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.distributed.data_parallel import tree_checksum
+    from repro_torch.engine.state import TrainState
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import is_spec
+    from repro_torch.testing import fan_in_params
+    from repro_torch.core.tree import tree_leaves
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    out = {"phase": "train-dp", "ranks_b": DP_RANKS}
+
+    def run(eng, state, args, cfg, steps):
+        data = cli.make_data(args, cfg)
+        losses, times = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, m = eng.train_step(state, cli.batch_at(args, cfg, data, i))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return state, losses, times, m
+
+    def sums(state):
+        torch.cuda.synchronize()
+        return [tree_checksum(state.params), tree_checksum(state.opt_state)]
+
+    # ------------------------------------------------------------ (a)
+    t_a = time.perf_counter()
+    ap, args = cli.parse_args(DP_ARGV)
+    name, cfg, opt, exec_cfg = cli.setup(ap, args)
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(DP_DIR / "pg_store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"data": 1, "model": 1}, "cuda")
+        plain = engines.create(name, cfg, exec_cfg, optimizer=opt)
+        meshed = engines.create(name, cfg, exec_cfg, optimizer=opt,
+                                mesh=mesh)
+        st0 = plain.init(torch.Generator(dev).manual_seed(args.seed))
+        meshed.check_replicas(st0)
+        ref_state, ref_losses, ref_times, _ = run(plain, st0, args, cfg, 3)
+        want = sums(ref_state)
+        del ref_state
+        reset_counts(counters.values())
+        got_state, losses, times, m = run(meshed, st0, args, cfg, 3)
+        launches = {n: c.launches for n, c in counters.items()}
+        routes = route_counts(counters)
+        stats = meshed.dp.stats()
+        got = sums(got_state)
+        del got_state, st0, plain, meshed
+    finally:
+        dist.destroy_process_group()
+    free_host(torch)
+    n_red = cfg.n_layers + 1 + 2
+    out["a"] = {
+        "backend": "nccl", "world": 1, "arch": cfg.name,
+        "depth": cfg.n_layers, "batch": args.batch, "seq": args.seq,
+        "microbatches": args.ub, "losses": losses,
+        "meshless_losses": ref_losses, "step_s": times,
+        "meshless_step_s": ref_times, "checksums": got,
+        "meshless_checksums": want,
+        "all_reduces_per_step": m["all_reduces"],
+        "all_reduce_GB_per_step": m["all_reduce_bytes"] / 1e9,
+        "all_reduce_ms_last_step": stats["all_reduce_ms"],
+        "seconds": time.perf_counter() - t_a}
+    emit({"phase": "train-dp-a", **out["a"]})
+    assert losses == ref_losses and got == want, out["a"]
+    assert m["all_reduces"] == n_red, (m["all_reduces"], n_red)
+
+    # ------------------------------------------------------- (b) bf16
+    line, secs = torchrun_line(torchrun(DP_ARGV), "train_dp_bf16.log", 600)
+    rel = [abs(a - b) / abs(b) for a, b in zip(line["losses"], ref_losses)]
+    out["b_bf16"] = {
+        "world": line["world"], "backend": line["backend"],
+        "losses": line["losses"], "one_process_losses": ref_losses,
+        "loss_rel_to_one_process": rel, "step_s": line["step_s"],
+        "rank_checksums": line["rank_checksums"],
+        "one_process_checksums": want,
+        "all_reduces_per_step": line["all_reduces_per_step"],
+        "all_reduce_GB_per_step": line["all_reduce_bytes_per_step"] / 1e9,
+        "all_reduce_ms": line["all_reduce_ms"], "seconds": secs}
+    emit({"phase": "train-dp-b-bf16", **out["b_bf16"]})
+    sums_b = line["rank_checksums"]
+    assert line["world"] == DP_RANKS and len(sums_b) == DP_RANKS and \
+        all(s == sums_b[0] for s in sums_b), sums_b
+    assert line["all_reduces_per_step"] == n_red
+    assert all(np.isfinite(line["losses"])), line["losses"]
+
+    # -------------------------------------------------------- (b) f32
+    t_f = time.perf_counter()
+    argv = DP_ARGV + DP_F32 + ["--resume", str(DP_DIR / "f32"),
+                               "--ckpt-dir", str(DP_DIR / "f32")]
+    ap, args = cli.parse_args(argv)
+    name, cfg, opt, exec_cfg = cli.setup(ap, args)
+    eng = engines.create(name, cfg, exec_cfg, optimizer=opt)
+    g = torch.Generator(dev).manual_seed(11)
+    params = fan_in_params(eng.model.param_specs(), lambda shape: torch.randn(
+        shape, generator=g, device=dev))
+    p = eng._place_params(params)
+    st0 = TrainState.from_legacy(p, eng._place_opt(eng._init_opt_legacy(p),
+                                                   p))
+    eng.save(str(DP_DIR / "f32"), st0, step=0)
+    p0 = [a.float().cpu() for a in tree_leaves(params)]
+    del params, p
+    # the two ranks and the one process at once (a check of values only)
+    started = torchrun(argv)
+    one, one_losses, _, _ = run(eng, st0, args, cfg, args.steps)
+    torch.cuda.synchronize()
+    line, secs = torchrun_line(started, "train_dp_f32.log", 300)
+    dp_state, step = eng.restore(str(DP_DIR / "f32"), step=args.steps)
+    from repro_torch.bridge import train_state_to_numpy
+    got_p = tree_leaves(train_state_to_numpy(dp_state)[0])
+    want_p = tree_leaves(train_state_to_numpy(one)[0])
+    upd = max(float(np.linalg.norm(a - b) / max(
+        np.linalg.norm(b - c.numpy()), 1e-30))
+        for a, b, c in zip(got_p, want_p, p0))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(line["losses"],
+                                                       one_losses))
+    out["b_f32"] = {
+        "depth": cfg.n_layers, "batch": args.batch, "dtype": "float32",
+        "init": "fan-in scales (repro_torch.testing.fan_in_params)",
+        "losses": line["losses"], "one_process_losses": one_losses,
+        "loss_rel_max": loss_rel, "update_rel_l2_max": upd,
+        "bounds": {"loss_rel": DP_LOSS_REL, "update_rel_l2": DP_UPDATE_REL},
+        "rank_checksums": line["rank_checksums"],
+        "all_reduces_per_step": line["all_reduces_per_step"],
+        "all_reduce_GB_per_step": line["all_reduce_bytes_per_step"] / 1e9,
+        "all_reduce_ms": line["all_reduce_ms"], "torchrun_s": secs,
+        "seconds": time.perf_counter() - t_f}
+    del one, dp_state, eng, st0
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    free_host(torch)
+    emit({"phase": "train-dp-b-f32", **out["b_f32"]})
+    sums_f = line["rank_checksums"]
+    assert all(s == sums_f[0] for s in sums_f), sums_f
+    assert step == args.steps and loss_rel <= DP_LOSS_REL and \
+        upd <= DP_UPDATE_REL, out["b_f32"]
+    return out, launches, routes
+
+
 def state_tensors(torch, state):
     """Every tensor of a train state on the host: the pinned rows as they
     are (a step never writes its inputs), the device's as copies."""
@@ -3568,14 +3805,14 @@ def scan_profile(torch, ssm, get_config, dev):
 def recurrent_profiles(torch, engines, ExecutionConfig, knobs, get_config,
                        SyntheticLM, DataConfig, adam, make_schedule, dev):
     """After the timed phases: one l2l-p step of each recurrent family at
-    full width and depth 2, with train-recurrent's knobs and batch, under
+    full width and depth 1, with train-recurrent's knobs and batch, under
     torch.profiler (``profile_step``, after one step unprofiled): the
-    device's idle share of the step and its time by kernel.  (Depth 2: the
+    device's idle share of the step and its time by kernel.  (Depth 1: the
     host's processing of rwkv6's profile, ~8200 launches a layer and
     microbatch, grows with depth.)"""
-    out = {"phase": "recurrent-profile", "depth": 2}
+    out = {"phase": "recurrent-profile", "depth": 1}
     for arch in RECURRENT_ARCHS:
-        cfg = get_config(arch, "full").replace(n_layers=2, use_pallas=True)
+        cfg = get_config(arch, "full").replace(n_layers=1, use_pallas=True)
         eng = engines.create("l2l-p", cfg, ExecutionConfig(
             n_microbatches=2, **knobs), optimizer=adam(
                 schedule=make_schedule(1e-4, warmup=10)))
@@ -4443,6 +4680,16 @@ def main(argv=None):
         SyntheticLM, DataConfig, adam, make_schedule, dev)
     emit(report["recurrent_profile"])
 
+    # ------------------------------------------------------------- train-dp
+    # after the profiled steps: a process group started and destroyed in
+    # this process, and two more processes on the card, come after every
+    # single-process measurement but serve-grok's
+    t0 = time.perf_counter()
+    report["train_dp"], dp_launches, dp_routes = train_dp_phase(
+        torch, np, engines, counters, dev)
+    report["train_dp"]["phase_seconds"] = time.perf_counter() - t0
+    emit(report["train_dp"])
+
     # --------------------------------------------------------- memory-model
     # the analytic model (the reference's buffers, not PyTorch's
     # allocator) beside this run's peaks: printed, not tied
@@ -4480,7 +4727,7 @@ def main(argv=None):
                 "serve-continuous": cont_launches,
                 "train": train_launches, "train-rmsnorm": rms_launches,
                 "dynamic-depth": dyn_launches,
-                "host-optimizer": host_launches,
+                "host-optimizer": host_launches, "train-dp": dp_launches,
                 "serve-moe": smoe_launches, "train-moe": tmoe_launches,
                 **rec_launches, **mod_launches, "serve-grok": grok_launches,
                 **tier_launches}
@@ -4488,11 +4735,12 @@ def main(argv=None):
               "serve-continuous": cont_routes,
               "train": train_routes, "train-rmsnorm": rms_routes,
               "dynamic-depth": dyn_routes, "host-optimizer": host_routes,
+              "train-dp": dp_routes,
               "serve-moe": smoe_routes, "train-moe": tmoe_routes,
               **rec_routes, **mod_routes, "serve-grok": grok_routes,
               **tier_routes}
     emit({"launches": launches, "routes": routes})
-    assert len(launches) == 20, sorted(launches)
+    assert len(launches) == 21, sorted(launches)
     for path in [p for p in launches if p != "serve"]:
         got, by = launches[path], routes[path]
         # every bf16 K2, K3a and K3b launch of the path took the wgmma route
@@ -4521,6 +4769,7 @@ def main(argv=None):
                     "train-rmsnorm": train_kernels + ("rmsnorm",),
                     "dynamic-depth": train_kernels + ("rmsnorm",),
                     "host-optimizer": train_kernels[:-1],
+                    "train-dp": train_kernels,
                     "serve-moe": ("relay_copy", "rmsnorm"),
                     "train-moe": ("relay_copy", "relay_copy_writeback",
                                   "rmsnorm", "fused_adam"),

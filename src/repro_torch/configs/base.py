@@ -192,6 +192,25 @@ def get_config(arch_id: str, variant: str = "full") -> ModelConfig:
     return full_fn() if variant == "full" else smoke_fn()
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's, for the sharding rules' batch specs)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
 def list_archs():
     _load_all()
     return sorted(_REGISTRY.keys())

@@ -18,14 +18,26 @@ from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten_like
 from repro_torch.optim import Optimizer, clip_by_norm, tree_global_norm
 
 
-def make_grads_fn(model, exec_cfg: ExecutionConfig) -> Callable:
+def make_grads_fn(model, exec_cfg: ExecutionConfig, dp=None) -> Callable:
     """(params, batch) -> (loss, grads).  Algorithm 2 when
     n_microbatches > 1 (normalized like the L2L engine: the per-ub
-    loss_sums over the total weight, plus the mean aux)."""
+    loss_sums over the total weight, plus the mean aux).  With ``dp`` (a
+    ``distributed.data_parallel.DataParallel``) the batch is this rank's
+    rows: the loss weight is summed over the data axes first, and the
+    gradients (one flat row) and the loss once, after the backward."""
+    fn = _grads_and_weight(model, exec_cfg, dp)
+    return lambda params, batch: fn(params, batch)[:2]
+
+
+def _grads_and_weight(model, exec_cfg: ExecutionConfig, dp) -> Callable:
+    """(params, batch) -> (loss, grads, the global mask sum)."""
     UB = exec_cfg.n_microbatches
 
     def fn(params, batch):
-        W_total = batch["mask"].sum().clamp_min(1.0)
+        wsum = batch["mask"].sum()
+        if dp is not None:
+            wsum = dp.all_reduce_(wsum)
+        W_total = wsum.clamp_min(1.0)
 
         def ub_grads(b):
             leaves = [a.detach().requires_grad_()
@@ -41,29 +53,35 @@ def make_grads_fn(model, exec_cfg: ExecutionConfig) -> Callable:
                 for a, g in zip(leaves, grads)])
 
         if UB == 1:
-            return ub_grads(batch)
-        batch_ub = tree_map(
-            lambda a: a.reshape(UB, a.shape[0] // UB, *a.shape[1:]), batch)
-        loss = torch.zeros((), dtype=torch.float32, device=W_total.device)
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
-        for u in range(UB):
-            l, g = ub_grads(tree_map(lambda a, _u=u: a[_u], batch_ub))
-            acc = tree_map(lambda a, x: a + x.float(), acc, g)
-            loss = loss + l
-        return loss, acc
+            loss, acc = ub_grads(batch)
+        else:
+            batch_ub = tree_map(
+                lambda a: a.reshape(UB, a.shape[0] // UB, *a.shape[1:]),
+                batch)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=W_total.device)
+            acc = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            for u in range(UB):
+                l, g = ub_grads(tree_map(lambda a, _u=u: a[_u], batch_ub))
+                acc = tree_map(lambda a, x: a + x.float(), acc, g)
+                loss = loss + l
+        if dp is not None:
+            acc = dp.reduce_tree(acc)
+            loss = dp.all_reduce_(loss)
+        return loss, acc, wsum
 
     return fn
 
 
-def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig
-                    ) -> Callable:
+def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
+                    dp=None) -> Callable:
     """Algorithm 1 (UB=1) / Algorithm 2 (UB>1): one update at the end of
-    the minibatch."""
-    grads_fn = make_grads_fn(model, exec_cfg)
+    the minibatch (of the global batch's gradient with ``dp``)."""
+    grads_fn = _grads_and_weight(model, exec_cfg, dp)
 
     def step(params, opt_state, batch):
-        loss, grads = grads_fn(params, batch)
+        loss, grads, wsum = grads_fn(params, batch)
         gnorm = tree_global_norm(grads)
         finite = torch.stack([torch.isfinite(g).all()
                               for g in tree_leaves(grads)]).all()
@@ -76,8 +94,7 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig
             grads, {k: opt_state[k] for k in ("embed", "head", "groups")},
             params, opt_state["step"])
         new_opt = {"step": opt_state["step"] + 1, **new_inner}
-        metrics = {"loss": loss, "grad_norm": gnorm,
-                   "weight_sum": batch["mask"].sum()}
+        metrics = {"loss": loss, "grad_norm": gnorm, "weight_sum": wsum}
         if exec_cfg.skip_nonfinite:
             bad = not bool(finite)
             if bad:

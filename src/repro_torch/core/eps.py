@@ -37,7 +37,9 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import (tree_flatten_up_to, tree_leaves,
+                                   tree_map, tree_unflatten_like)
+from repro_torch.distributed.sharding import P, is_pspec
 from repro_torch.kernels import host_alloc, relay_copy
 
 
@@ -46,6 +48,7 @@ class Placement(NamedTuple):
     dev: Callable                            # tree -> tree (compute device)
     enabled: bool = True
     owned: bool = False                      # pinned blocks of their own
+    pspec: object = None                     # on a mesh: the slot's pspecs
 
 
 def noop_placement() -> Placement:
@@ -122,22 +125,48 @@ class EPSPlacements(NamedTuple):
     disk: Optional[TierChainSpec] = None
 
 
-def make_placements(exec_cfg, n_groups: int, device="cpu") -> EPSPlacements:
-    """Single-device placements (no mesh yet).  On the CPU every move is
-    the identity; on CUDA the groups rest in pinned host memory when
+def pspecs_like(pspec_tree, target_tree):
+    """Broadcast a param-shaped pspec tree onto a state tree whose leaves
+    replace each param leaf with a subtree of same-shaped arrays (Adam's
+    m / v): every array of a param's subtree takes the param's pspec."""
+    flat_p = tree_leaves(pspec_tree, is_leaf=is_pspec)
+    flat_t = tree_flatten_up_to(pspec_tree, target_tree, is_pspec)
+    out = [tree_map(lambda _, _p=p: _p, t) for p, t in zip(flat_p, flat_t)]
+    return tree_unflatten_like(pspec_tree, out, is_leaf=is_pspec)
+
+
+def make_placements(exec_cfg, n_groups: int, device="cpu", mesh=None,
+                    weight_pspecs=None, opt_pspecs=None,
+                    stash_pspec=None) -> EPSPlacements:
+    """Per-device placements.  On the CPU every move is the identity; on
+    CUDA the groups rest in pinned host memory when
     ``exec_cfg.weight_stream``, their optimizer slots then and whenever
     ``exec_cfg.host_optimizer``, the stash when ``exec_cfg.offload_stash``,
     else on the device.  ``disk`` is ``tier_spec(exec_cfg)`` on every
-    device; with it the groups' pinned rows are owned."""
+    device; with it the groups' pinned rows are owned.
+
+    On a mesh each placement also carries the pspecs of what it moves:
+    ``weight_pspecs[g]`` / ``opt_pspecs[g]`` for one relay slot of group g,
+    ``stash_pspec`` for the stash (P() when None).  Each rank moves its
+    own part (its rows of a batch-sharded stash; a replicated slot whole),
+    so the moves are the device's own."""
     device = torch.device(device)
     disk = tier_spec(exec_cfg)
     if device.type != "cuda":
         noop = noop_placement()
-        return EPSPlacements((noop,) * n_groups, (noop,) * n_groups, noop,
-                             disk)
-    owned = disk is not None
-    w = single_device_placement(device, exec_cfg.weight_stream, owned)
-    o = single_device_placement(device, exec_cfg.weight_stream
-                                or exec_cfg.host_optimizer, owned)
-    s = single_device_placement(device, exec_cfg.offload_stash)
-    return EPSPlacements((w,) * n_groups, (o,) * n_groups, s, disk)
+        ws, os_, st = (noop,) * n_groups, (noop,) * n_groups, noop
+    else:
+        owned = disk is not None
+        w = single_device_placement(device, exec_cfg.weight_stream, owned)
+        o = single_device_placement(device, exec_cfg.weight_stream
+                                    or exec_cfg.host_optimizer, owned)
+        st = single_device_placement(device, exec_cfg.offload_stash)
+        ws, os_ = (w,) * n_groups, (o,) * n_groups
+    if mesh is not None:
+        ws = tuple(p._replace(pspec=weight_pspecs[g])
+                   for g, p in enumerate(ws))
+        os_ = tuple(p._replace(pspec=opt_pspecs[g])
+                    for g, p in enumerate(os_))
+        st = st._replace(pspec=stash_pspec if stash_pspec is not None
+                         else P())
+    return EPSPlacements(ws, os_, st, disk)

@@ -14,7 +14,10 @@ step's output rows, while the main thread issues the backward of the
 next layer.  A ring row is written again only after the worker has
 finished reading it.  Under Algorithm 3 the gradients are already in a
 host sink when the backward ends, and ``update_rows`` runs the same
-update over them: nothing is fetched and nothing written back.
+update over them: nothing is fetched and nothing written back.  On a
+data mesh each gradient row is the global one when it reaches the ring
+(``core.l2l`` sums it over the ranks on the device before its
+write-back), so every rank's host update is the same.
 
 Ordering rules: the CPU reads a row that a kernel wrote only after that
 row's event (K4 writes through the SMs, so only the event orders it); it

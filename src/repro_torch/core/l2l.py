@@ -223,7 +223,8 @@ def _make_packed_update(optimizer: Optimizer, run_opt) -> Callable:
 def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                     placements: Optional[EPSPlacements] = None,
                     device="cpu", copy_stream=None,
-                    writeback_stream=None, grad_ring: int = 2) -> Callable:
+                    writeback_stream=None, grad_ring: int = 2,
+                    dp=None) -> Callable:
     """Returns step(params, opt_state, batch[, n_active]) -> (params',
     opt_state', metrics).  ``opt_state`` = {"step": int, "embed", "head",
     "groups" [, "loss_scale"]} — build with ``init_opt_state``.  With
@@ -231,7 +232,16 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
     the capacity).  On CUDA the relay's fetches run on ``copy_stream``
     and its write-backs on ``writeback_stream`` (each made when not
     given).  ``grad_ring``: gradient rows in flight to the host optimizer
-    (Algorithm 4 with ``host_optimizer``)."""
+    (Algorithm 4 with ``host_optimizer``).
+
+    ``dp`` (a ``distributed.data_parallel.DataParallel``): the batch is
+    this rank's rows, and the step sums over the data axes in these places
+    only: the loss weight ``W_total`` before the head's cotangent
+    ``S_loss / W_total`` uses it, each layer's gradient once (its
+    microbatch sum, in one flat f32 row, before the ``/ S_loss``), the
+    static tree's gradient once, and the loss sum for the metric.  The
+    finite flags, clips, norms, updates and shipments that follow all see
+    the global gradient, so the ranks stay bit for bit equal."""
     groups = model.groups
     device = torch.device(device)
     if placements is None:
@@ -312,7 +322,10 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         opt_step = opt_state["step"]
         batch_ub = _reshape_ub(batch, UB)
         ub = [tree_map(lambda a, _u=u: a[_u], batch_ub) for u in range(UB)]
-        W_total = batch["mask"].sum().clamp_min(1.0)
+        W_total = batch["mask"].sum()
+        if dp is not None:
+            W_total = dp.all_reduce_(W_total)
+        W_total = W_total.clamp_min(1.0)
         f32 = dict(dtype=torch.float32, device=W_total.device)
         S_loss = (opt_state["loss_scale"]["scale"] if amp
                   else torch.ones((), **f32))
@@ -433,6 +446,8 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             loss_sum = loss_sum + loss_u
             dx.append(g[-1])
         dx_ub = torch.stack(dx)
+        if dp is not None:
+            loss_sum = dp.all_reduce_(loss_sum)
         loss = loss_sum / W_total + aux_total
 
         # ------------------------------------------------------------
@@ -455,8 +470,14 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             w_tree = packing.unpack(w_dev) if PK else w_dev
             w_leaves = tree_leaves(w_tree)
             nw = len(w_leaves)
-            dw = [torch.zeros(a.shape, dtype=torch.float32, device=a.device)
-                  for a in w_leaves]
+            # the layer's gradient accumulates in one flat f32 row (views
+            # in flatten order), which a data mesh sums in one collective
+            row = torch.zeros(sum(a.numel() for a in w_leaves),
+                              dtype=torch.float32, device=w_leaves[0].device)
+            dw, off = [], 0
+            for a in w_leaves:
+                dw.append(row[off:off + a.numel()].view(a.shape))
+                off += a.numel()
             dxin, dmem = [], []
             for u in range(UB):
                 def layer(ls):
@@ -465,11 +486,14 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                                     ls[nw + 1], _ctx)
                 _, g = _vjp(layer, w_leaves + [stash_l[u]] + (
                     [] if _mem is None else [_mem[u]]), (dx_c[u], d_aux))
-                dw = [a + b.float() for a, b in zip(dw, g[:nw])]
+                for a, b in zip(dw, g[:nw]):
+                    a.add_(b.float())
                 dxin.append(g[nw])
                 dmem.extend(g[nw + 1:])
             if _mem is not None:
                 dmem_c = dmem_c + torch.stack(dmem)
+            if dp is not None:
+                dp.all_reduce_(row)
             dw = tree_unflatten_like(w_tree, [g / S_loss for g in dw])
             finite_l = _finite(dw)
             if CLIP:
@@ -583,6 +607,8 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             _, g = _vjp(prep, s_leaves, dx_ub[u])
             d_static = _tree_add(d_static, tree_unflatten_like(
                 static, [a.float() for a in g]))
+        if dp is not None:
+            d_static = dp.reduce_tree(d_static)
         gnorm_sq = gnorm_sq + tree_global_norm(d_static) ** 2
 
         # ------------------------------------------------------------
@@ -697,13 +723,15 @@ def _row_to_device(tree, row: int, device, copy_stream, writeback_stream):
 # ===========================================================================
 def make_grads_fn(model, exec_cfg: ExecutionConfig,
                   placements: Optional[EPSPlacements] = None, device="cpu",
-                  copy_stream=None, writeback_stream=None) -> Callable:
+                  copy_stream=None, writeback_stream=None,
+                  dp=None) -> Callable:
     """Returns grads(params, batch[, n_active]) -> (loss, grads) computed
     with the L2L schedule (layer-major, recompute, trailing gradient
     shipment): the train step with an 'optimizer' that stores the
     gradient.  Only the schedule and layout knobs carry over (no AMP,
     clip, eager or host update); with ``dynamic_depth`` the rows past
-    ``n_active`` come out zero."""
+    ``n_active`` come out zero.  With ``dp`` the loss and gradients are
+    the global batch's (``make_train_step``)."""
     cfg = ExecutionConfig(
         n_microbatches=exec_cfg.n_microbatches,
         offload_stash=exec_cfg.offload_stash,
@@ -720,7 +748,7 @@ def make_grads_fn(model, exec_cfg: ExecutionConfig,
     if placements is None:
         placements = make_placements(cfg, len(model.groups), device)
     base_step = make_train_step(model, collector, cfg, placements, device,
-                                copy_stream, writeback_stream)
+                                copy_stream, writeback_stream, dp=dp)
 
     def fn(params, batch, n_active=None):
         opt = init_opt_state(collector, params)

@@ -76,16 +76,16 @@ def tree_unflatten_like(tree, leaves, is_leaf=None):
     return tree_map(lambda _: next(it), tree, is_leaf=is_leaf)
 
 
-def tree_flatten_up_to(template, tree) -> list:
+def tree_flatten_up_to(template, tree, is_leaf=None) -> list:
     """The subtrees of ``tree`` at ``template``'s leaf positions, in flatten
     order (``treedef.flatten_up_to``): e.g. the per-leaf ``{"m", "v"}``
     dicts of an optimizer state whose structure extends a parameter
     tree's."""
     if template is None:
         return []
-    if not is_node(template):
+    if (is_leaf is not None and is_leaf(template)) or not is_node(template):
         return [tree]
     out = []
     for t, c in zip(_children(template), _children(tree)):
-        out.extend(tree_flatten_up_to(t, c))
+        out.extend(tree_flatten_up_to(t, c, is_leaf))
     return out

@@ -49,6 +49,22 @@ the weights alone).  The groups' pinned rows are then blocks of their own
 (``core.eps.pinned_empty``), so the host memory a staged-out state frees
 goes back to the system.  Results are the ``tiers=2`` results bit for
 bit.
+
+On a mesh (``mesh=``, a ``torch.distributed.device_mesh.DeviceMesh`` of
+the initialized world, ``launch.mesh``) the Engine runs the mesh's data
+axes ("pod" x "data"), one process a rank: each entry point takes this
+rank's rows of the batch (``distributed.sharding.shard_batch``) and
+returns this rank's outputs.  ``rules`` default to
+``make_rules(cfg, mesh, kind="train")`` and the placements carry their
+pspecs (``engine.placement.placements_for``).  ``train_step`` and
+``grads`` sum over the data axes (``core.l2l``, ``core.baseline``: each
+layer's gradient once, the static tree once, the loss weight and the
+loss), so their loss, grad norm, weight sum and new state are the global
+batch's on every rank; their metrics count the all-reduces and bytes.
+``init`` and ``restore`` check by checksum that every rank holds the same
+state.  ``prefill`` and the decode calls need no collective.  A "model"
+axis over 1, a MoE config on more than one data rank and
+``serve_session`` on more than one data rank raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -64,11 +80,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import baseline as _baseline
 from repro_torch.core import decode as _decode, l2l as _l2l, packing
 from repro_torch.core import tierstore
-from repro_torch.core.eps import make_placements, pinned_empty
+from repro_torch.core.eps import pinned_empty
 from repro_torch.core.memory_model import (MemoryReport, estimate,
                                            estimate_serve)
 from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.core.tree import tree_map
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.data_parallel import DataParallel
+from repro_torch.engine.placement import placements_for
 from repro_torch.engine.registry import register
 from repro_torch.engine.state import TrainState
 from repro_torch.kernels import relay_copy
@@ -88,6 +107,24 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _check_mesh(cfg, mesh):
+    """The mesh axes this port runs: the data axes ("pod", "data"), with
+    the model axis of size 1."""
+    if shd.model_size(mesh) > 1:
+        raise NotImplementedError(
+            f"a 'model' mesh axis of size {shd.model_size(mesh)}: tensor "
+            "parallel leaves, the seq-sharded decode cache and expert "
+            "parallelism are not supported yet; an Engine runs the data "
+            "axes with model=1")
+    if cfg.n_experts and shd.data_size(mesh) > 1:
+        raise NotImplementedError(
+            f"{cfg.name} (n_experts={cfg.n_experts}) on {shd.data_size(mesh)} "
+            "data ranks: the router's load-balance loss is formed over the "
+            "whole batch, and a per-rank capacity dispatch equals it only "
+            "under the grouped (expert-parallel) dispatch of the model "
+            "axis, which is not supported yet")
+
+
 class Engine:
     """Lifecycle facade over a schedule's relay functions."""
     name = "base"
@@ -97,15 +134,24 @@ class Engine:
 
     def __init__(self, model, exec_cfg: Optional[ExecutionConfig] = None, *,
                  optimizer: Optional[Optimizer] = None, device="cuda",
-                 placements=None):
+                 mesh=None, rules=None, placements=None):
         if isinstance(model, ModelConfig):
             model = LayeredModel(model)
         self.model = model
         self.optimizer = optimizer or adam()
         self.device = resolve_device(device)
         self.exec_cfg = self._normalize_cfg(exec_cfg or ExecutionConfig())
-        self.placements = placements or make_placements(
-            self.exec_cfg, len(model.groups), self.device)
+        self.mesh = mesh
+        self.rules = rules
+        self.dp = None
+        if mesh is not None:
+            _check_mesh(model.cfg, mesh)
+            if rules is None:
+                self.rules = shd.make_rules(model.cfg, mesh, kind="train")
+            self.dp = DataParallel(mesh)
+        self.placements = placements or placements_for(
+            model, self.exec_cfg, mesh, self.rules, self.optimizer,
+            self.device)
         # one copy stream for every relay pass of this engine, so freed
         # slots are reused instead of allocated anew on a fresh stream; the
         # training passes' write-backs run beside it on a stream of their
@@ -226,9 +272,21 @@ class Engine:
         params = self.init_params(generator)
         state = TrainState.from_legacy(
             params, self._place_opt(self._init_opt_legacy(params), params))
+        self.check_replicas(state)
         if self.tier is not None:
             state = self.tier.adopt(state, step=0)
         return state
+
+    def check_replicas(self, state: TrainState):
+        """On a mesh: raise unless every data rank holds this state bit for
+        bit (weights, optimizer slots), checked by checksum; returns this
+        rank's ``(weights, slots)`` checksums.  None without a mesh."""
+        if self.dp is None:
+            return None
+        if self.device.type == "cuda":
+            # the pinned rows were written by kernels the host did not see
+            torch.cuda.synchronize(self.device)
+        return self.dp.check_replicas(state.params, state.opt_state)
 
     def _place_state(self, state: TrainState):
         params = self._place_params(state.params)
@@ -243,12 +301,12 @@ class Engine:
                                     self.exec_cfg, self.placements,
                                     self.device, self.copy_stream,
                                     self.writeback_stream,
-                                    grad_ring=self.grad_ring)
+                                    grad_ring=self.grad_ring, dp=self.dp)
 
     def _make_grads(self):
         return _l2l.make_grads_fn(self.model, self.exec_cfg, self.placements,
                                   self.device, self.copy_stream,
-                                  self.writeback_stream)
+                                  self.writeback_stream, dp=self.dp)
 
     def _end_of_step(self):
         if self.copy_stream is not None:
@@ -281,10 +339,15 @@ class Engine:
             state = tier.stage_in(state)
         params, opt = self._place_state(state)
         del state
+        if self.dp is not None:
+            self.dp.begin()
         with torch.no_grad():
             new_p, new_o, metrics = self._fns["train_step"](
                 params, opt, self._batch(batch), *depth)
         self._end_of_step()
+        if self.dp is not None:
+            metrics["all_reduces"] = self.dp.calls
+            metrics["all_reduce_bytes"] = self.dp.bytes
         del params, opt
         state = TrainState.from_legacy(new_p, new_o)
         del new_p, new_o
@@ -299,6 +362,8 @@ class Engine:
             self._fns["grads"] = self._make_grads()
         depth = self._depth(n_layers)
         params = self._materialize(state_or_params)
+        if self.dp is not None:
+            self.dp.begin()
         with torch.no_grad():
             out = self._fns["grads"](self._place_params(params),
                                      self._batch(batch), *depth)
@@ -366,6 +431,7 @@ class Engine:
             fingerprint=self.state_fingerprint())
         params = self._place_params(params)
         state = TrainState.from_legacy(params, self._place_opt(opt, params))
+        self.check_replicas(state)
         if self.tier is not None:
             state = self.tier.adopt(state, step=step)
             self.tier.attach_checkpoints(directory, prefix, self)
@@ -427,6 +493,12 @@ class Engine:
             srv.submit(prompt_ids, max_new=32)
             done = srv.run()
         """
+        if shd.data_size(self.mesh) > 1:
+            # the reference's serve package reads no mesh
+            raise NotImplementedError(
+                f"serve_session on {shd.data_size(self.mesh)} data ranks: "
+                "continuous batching runs on one rank (prefill, decode_init "
+                "and decode_step run each rank's rows)")
         params = self._materialize(state_or_params)
         if serve_cfg is None:
             serve_cfg = ServeConfig(**kw)
@@ -492,10 +564,11 @@ class BaselineEngine(Engine):
 
     def _make_step(self):
         return _baseline.make_train_step(self.model, self.optimizer,
-                                         self.exec_cfg)
+                                         self.exec_cfg, dp=self.dp)
 
     def _make_grads(self):
-        return _baseline.make_grads_fn(self.model, self.exec_cfg)
+        return _baseline.make_grads_fn(self.model, self.exec_cfg,
+                                       dp=self.dp)
 
 
 @register("l2l")

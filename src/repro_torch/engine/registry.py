@@ -49,8 +49,8 @@ def create(name: str, model, exec_cfg=None, *,
     ``model`` is a ModelConfig or a built LayeredModel.  ``exec_overrides``
     patches fields onto ``exec_cfg`` (or the default config), e.g.
     ``{"prefetch_depth": 2}``.  Keyword args go to the engine constructor
-    (``optimizer=``, ``device=``, ``placements=``); the device defaults to
-    ``"cuda"``, the optimizer to ``adam()``.
+    (``optimizer=``, ``device=``, ``mesh=``, ``rules=``, ``placements=``);
+    the device defaults to ``"cuda"``, the optimizer to ``adam()``.
     """
     if exec_overrides:
         from repro_torch.core.schedule import ExecutionConfig

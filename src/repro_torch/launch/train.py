@@ -33,13 +33,35 @@ the verified disk tier under the EPS: the layer rows past B bytes of
 weights and optimizer slots rest in segment files in D (a fresh temporary
 directory when D is empty) between steps, and the JSON line carries the
 tier's ``tier_metrics``.
+
+Data parallel over the mesh's data axes, one process a rank, launched by
+``torch.distributed.run`` (which sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK`` and the rendezvous address)::
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --mesh data=2 ... --batch 32
+
+``--mesh data=N[,model=1]`` needs a world of N ranks (a single process
+with ``--mesh data=1`` runs a world of one over a file store); a process
+group that does not start raises.  ``--batch`` is the global batch: each
+rank trains on its rows of ``data.batch(i)`` (``distributed.sharding.
+shard_batch``), and the layer relay sums each layer's gradient over the
+ranks once (``core.l2l``), so every rank ends each step with the same
+state.  ``--dist-backend`` is nccl on the card, gloo with ``--device
+cpu``.  Only rank 0 prints, writes snapshots and ``PREEMPTED.json``;
+every rank restores.  The JSON line adds the world, the backend, the
+all-reduces, bytes and milliseconds a step, and every rank's final
+checksums of the weights and the optimizer slots (the run fails if the
+ranks differ).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import signal
+import tempfile
 import time
 
 import numpy as np
@@ -51,12 +73,15 @@ from repro_torch.configs.base import get_config
 from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
                                         add_modality_stubs)
+from repro_torch.distributed.sharding import shard_batch
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.optim import get_optimizer, make_schedule
 
 PREEMPT_MARKER = "PREEMPTED.json"
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """-> (parser, args) of the command line."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="bert-large")
     ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
@@ -120,6 +145,19 @@ def main(argv=None):
     ap.add_argument("--d-model", type=int, default=0)
     ap.add_argument("--n-layers", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--use-pallas", action="store_true",
+                    help="attention through the flash kernels (K2, K3) "
+                         "where the model tiles by them")
+    ap.add_argument("--dtype", default="",
+                    choices=["", "float32", "bfloat16"],
+                    help="compute dtype (default: the config's)")
+    ap.add_argument("--mesh", default="",
+                    help="data=N[,model=1]: data parallel over N ranks "
+                         "(launch with torch.distributed.run)")
+    ap.add_argument("--dist-backend", default="",
+                    choices=["", "nccl", "gloo"],
+                    help="the process group's backend (default: nccl on "
+                         "the card, gloo with --device cpu)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--keep-last", type=int, default=0,
@@ -132,8 +170,12 @@ def main(argv=None):
     ap.add_argument("--step-delay-ms", type=int, default=0,
                     help="sleep after every step (widens the window for "
                          "preemption tests)")
-    args = ap.parse_args(argv)
+    return ap, ap.parse_args(argv)
 
+
+def setup(ap, args):
+    """-> (engine name, model config, optimizer, ExecutionConfig) of the
+    command line: what a one-process run of it trains with."""
     engine_name = args.engine
     if engine_name == "l2l" and not args.no_eager:
         engine_name = "l2l-p"
@@ -150,8 +192,11 @@ def main(argv=None):
                                           args.d_model // 64)))
     if args.n_layers:
         over["n_layers"] = args.n_layers
+    if args.dtype:
+        over["dtype"] = args.dtype
+    if args.use_pallas:
+        over["use_pallas"] = True
     cfg = cfg.replace(**over)
-
     opt = get_optimizer(
         args.optimizer,
         schedule=make_schedule(args.lr, warmup=args.warmup,
@@ -167,15 +212,42 @@ def main(argv=None):
         dynamic_depth=args.dynamic_depth,
         clip_mode="per_layer" if args.clip > 0 else "none",
         clip_norm=args.clip)
+    return engine_name, cfg, opt, exec_cfg
+
+
+def batch_at(args, cfg, data, i) -> dict:
+    """The global batch of step i: ``data.batch(i)`` and its modality
+    stubs are functions of i alone, so a resumed run replays the data."""
+    rng = np.random.default_rng((args.seed, i))
+    return {k: torch.from_numpy(v) for k, v in
+            add_modality_stubs(data.batch(i), cfg, rng).items()}
+
+
+def make_data(args, cfg) -> SyntheticLM:
+    return SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=args.seq, global_batch=args.batch,
+                                  seed=args.seed))
+
+
+def main(argv=None):
+    ap, args = parse_args(argv)
+    engine_name, cfg, opt, exec_cfg = setup(ap, args)
+    mesh, backend = _init_mesh(args, ap)
+    rank = 0 if mesh is None else torch.distributed.get_rank()
+    say = print if rank == 0 else (lambda *a, **k: None)
+    if exec_cfg.tier_dir and _world(mesh) > 1:
+        # each rank's segment store in a directory of its own
+        exec_cfg = dataclasses.replace(exec_cfg, tier_dir=os.path.join(
+            exec_cfg.tier_dir, f"rank{rank}"))
     if args.run_layers and not args.dynamic_depth:
         ap.error("--run-layers needs --dynamic-depth")
     run_layers = ((args.run_layers or cfg.n_layers)
                   if args.dynamic_depth else None)
     eng = engines.create(engine_name, cfg, exec_cfg, optimizer=opt,
-                         device=args.device)
+                         device=args.device, mesh=mesh)
     dev = eng.device
-    print(f"arch={cfg.name} engine={eng.name} layers={cfg.n_layers} "
-          f"d={cfg.d_model} device={dev}", flush=True)
+    say(f"arch={cfg.name} engine={eng.name} layers={cfg.n_layers} "
+        f"d={cfg.d_model} device={dev} world={_world(mesh)}", flush=True)
     start_step, resumed_from = 0, None
     state = None
     if args.resume:
@@ -187,7 +259,7 @@ def main(argv=None):
         if good is not None:
             state, start_step = eng.restore(resume_dir, step=good)
             resumed_from = good
-            print(f"resumed from {resume_dir} at step {start_step} "
+            say(f"resumed from {resume_dir} at step {start_step} "
                   f"(verified snapshot)", flush=True)
         elif args.resume != "auto":
             raise SystemExit(
@@ -205,22 +277,23 @@ def main(argv=None):
                     for s in (signal.SIGTERM, signal.SIGINT)}
 
     def save_snapshot(step):
-        eng.save(args.ckpt_dir, state, step=step, keep_last=args.keep_last)
+        # one writer; the other ranks wait until the snapshot is whole
+        if rank == 0:
+            eng.save(args.ckpt_dir, state, step=step,
+                     keep_last=args.keep_last)
+        if mesh is not None:
+            torch.distributed.barrier()
         return step
 
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=args.seq, global_batch=args.batch,
-                                  seed=args.seed))
-    losses, times = [], []
+    data = make_data(args, cfg)
+    losses, times, reduces = [], [], []
     skipped = 0
     preempted = False
     last_saved = start_step if resumed_from is not None else None
     for i in range(start_step, args.steps):
-        # batch(i) and its stubs are functions of i alone: a resumed run
-        # replays the data
-        rng = np.random.default_rng((args.seed, i))
-        batch = {k: torch.from_numpy(v) for k, v in
-                 add_modality_stubs(data.batch(i), cfg, rng).items()}
+        batch = batch_at(args, cfg, data, i)
+        if mesh is not None:
+            batch = shard_batch(batch, mesh, eng.rules)
         t0 = time.perf_counter()
         state, metrics = eng.train_step(state, batch, n_layers=run_layers)
         loss = float(metrics["loss"])          # waits for the step
@@ -228,9 +301,11 @@ def main(argv=None):
             torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
         losses.append(loss)
+        if eng.dp is not None:
+            reduces.append(eng.dp.stats())
         skipped += int(metrics.get("skipped_steps", 0))
         if (i - start_step) % args.log_every == 0 or i == args.steps - 1:
-            print(f"step {i:5d}  loss {loss:8.4f}  gnorm "
+            say(f"step {i:5d}  loss {loss:8.4f}  gnorm "
                   f"{float(metrics['grad_norm']):8.3f}  {times[-1]:.3f}s",
                   flush=True)
         if args.step_delay_ms:
@@ -238,15 +313,17 @@ def main(argv=None):
         if args.ckpt_dir and args.ckpt_every and \
                 (i + 1) % args.ckpt_every == 0:
             last_saved = save_snapshot(i + 1)
-        if stop["sig"] is not None:
+        if _agree_stop(stop["sig"], mesh, dev):
             preempted = True
             if args.ckpt_dir:
                 if last_saved != i + 1:
                     last_saved = save_snapshot(i + 1)
-                with open(os.path.join(args.ckpt_dir, PREEMPT_MARKER),
-                          "w") as f:
-                    json.dump({"step": i + 1, "signal": int(stop["sig"]),
-                               "total_steps": args.steps}, f)
+                if rank == 0:
+                    with open(os.path.join(args.ckpt_dir, PREEMPT_MARKER),
+                              "w") as f:
+                        json.dump({"step": i + 1,
+                                   "signal": int(stop["sig"] or 0),
+                                   "total_steps": args.steps}, f)
             break
     for s, h in old_handlers.items():
         signal.signal(s, h)
@@ -255,10 +332,22 @@ def main(argv=None):
         if last_saved != args.steps:
             last_saved = save_snapshot(args.steps)
         marker = os.path.join(args.ckpt_dir, PREEMPT_MARKER)
-        if os.path.exists(marker):
+        if rank == 0 and os.path.exists(marker):
             os.remove(marker)
     steady = (float(np.mean(times[1:])) if len(times) > 1 else None)
-    print(json.dumps({"final_loss": losses[-1] if losses else None,
+    dist_line = {"world": _world(mesh), "backend": backend}
+    if mesh is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        sums = eng.dp.gather_checksums(state.params, state.opt_state)
+        dist_line.update(
+            mesh=args.mesh, rank_checksums=sums,
+            all_reduces_per_step=(reduces[-1]["all_reduces"] if reduces
+                                  else None),
+            all_reduce_bytes_per_step=(reduces[-1]["all_reduce_bytes"]
+                                       if reduces else None),
+            all_reduce_ms=[r["all_reduce_ms"] for r in reduces])
+    say(json.dumps({"final_loss": losses[-1] if losses else None,
                       "initial_loss": losses[0] if losses else None,
                       "first_step_s": times[0] if times else None,
                       "steady_s_per_step": steady,
@@ -266,8 +355,62 @@ def main(argv=None):
                       "resumed_from": resumed_from, "preempted": preempted,
                       "skipped_steps": skipped, "device": str(dev),
                       "tier_metrics": (eng.tier.metrics
-                                       if eng.tier is not None else None)}))
+                                       if eng.tier is not None else None),
+                      "losses": losses, "step_s": times, **dist_line}),
+        flush=True)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+        if any(row != sums[0] for row in sums):
+            raise SystemExit(f"the data-parallel ranks ended apart: {sums}")
     return losses
+
+
+def _world(mesh) -> int:
+    return 1 if mesh is None else torch.distributed.get_world_size()
+
+
+def _init_mesh(args, ap):
+    """The process group and data mesh of ``--mesh`` (None, None without
+    it): the world from ``torch.distributed.run``'s environment; a
+    single process with no rendezvous address runs a world of one over a
+    file store.  A group that does not start raises."""
+    if not args.mesh:
+        return None, None
+    shape = {}
+    for part in args.mesh.split(","):
+        k, _, v = part.partition("=")
+        if k not in ("pod", "data", "model") or not v.isdigit():
+            ap.error(f"--mesh {args.mesh!r}: expected data=N[,model=M]")
+        shape[k] = int(v)
+    shape.setdefault("model", 1)
+    cuda = torch.device(args.device).type == "cuda"
+    backend = args.dist_backend or ("nccl" if cuda else "gloo")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    if cuda and torch.cuda.is_available():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                              % torch.cuda.device_count())
+    init = "env://"
+    if "MASTER_ADDR" not in os.environ:
+        if world != 1:
+            ap.error(f"a world of {world} needs torch.distributed.run's "
+                     "rendezvous (MASTER_ADDR / MASTER_PORT)")
+        init = "file://" + tempfile.mktemp(prefix="train-pg-")
+    torch.distributed.init_process_group(backend, init_method=init,
+                                         rank=rank, world_size=world)
+    return make_mesh(shape, "cuda" if cuda else "cpu"), backend
+
+
+def _agree_stop(sig, mesh, dev) -> bool:
+    """Whether any rank was signalled to stop (every rank stops after the
+    same step)."""
+    if mesh is None:
+        return sig is not None
+    nccl = torch.distributed.get_backend() == "nccl"
+    flag = torch.tensor([int(sig is not None)],
+                        device=dev if nccl else "cpu")
+    torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+    return bool(flag.item())
 
 if __name__ == "__main__":
     main()

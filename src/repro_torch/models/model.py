@@ -296,3 +296,37 @@ class LayeredModel:
     def cache_specs(self, batch: int, live_seq: int):
         return tuple(stack_specs(g.cache_spec(batch, live_seq), g.n_layers)
                      for g in self.decode_groups())
+
+
+# ---------------------------------------------------------------------------
+# Batch specs (the sharding rules' view of an input batch)
+# ---------------------------------------------------------------------------
+def batch_spec(cfg: ModelConfig, shape) -> dict:
+    """ParamSpecs of the input batch dict at an ``InputShape``: its leaves'
+    shapes and logical axes, as the reference's."""
+    B, S = shape.global_batch, shape.seq_len
+    S_tok = S if not cfg.is_vlm else S - cfg.n_patches
+    if shape.kind == "decode":
+        return {"token": ParamSpec((B, 1), ("batch", None), "zeros")}
+    frames = ParamSpec((B, cfg.n_frames, cfg.d_model),
+                       ("batch", "seq", "d_model"), "zeros")
+    patches = ParamSpec((B, cfg.n_patches, cfg.vit_dim),
+                        ("batch", "seq", "d_model"), "zeros")
+    if shape.kind == "prefill":
+        spec = {"tokens": ParamSpec((B, S_tok), ("batch", "seq"), "zeros")}
+        if cfg.family == "audio":
+            spec["frames"] = frames
+        if cfg.is_vlm:
+            spec["patches"] = patches
+        return spec
+    if cfg.family == "audio":
+        return {"frames": frames,
+                "tokens": ParamSpec((B, S), ("batch", "seq"), "zeros"),
+                "targets": ParamSpec((B, S), ("batch", "seq"), "zeros"),
+                "mask": ParamSpec((B, S), ("batch", "seq"), "ones")}
+    spec = {"tokens": ParamSpec((B, S_tok), ("batch", "seq"), "zeros"),
+            "targets": ParamSpec((B, S_tok), ("batch", "seq"), "zeros"),
+            "mask": ParamSpec((B, S_tok), ("batch", "seq"), "ones")}
+    if cfg.is_vlm:
+        spec["patches"] = patches
+    return spec

@@ -2,6 +2,7 @@
 reference."""
 from __future__ import annotations
 
+import dataclasses
 import math
 
 
@@ -42,3 +43,31 @@ def fan_in_params(tree, randn):
             return 0.02 * x
         return x / math.sqrt(fan[0] * (fan[1] if name == "wo" else 1))
     return draw(tree)
+
+
+def init_numpy(cfg, seed: int, dtype=None):
+    """Parameters of a model config (the port's ``ModelConfig`` or one
+    with the same fields, the reference's) at the model's own init — the
+    reference's distribution, every stacked matrix at std 1/sqrt(n_layers)
+    — drawn by the port's init on the CPU from a seeded torch generator,
+    as numpy arrays (bf16 as ``ml_dtypes.bfloat16``).  A reference test
+    takes these where it needs the init's scales, not its values: no JAX
+    compile per leaf shape."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.model import LayeredModel
+    port_cfg = ModelConfig(**{f.name: getattr(cfg, f.name)
+                              for f in dataclasses.fields(ModelConfig)})
+    if dtype is not None:
+        dtype = getattr(torch, str(dtype))
+    params = bridge.params_to_numpy(LayeredModel(port_cfg).init_params(
+        torch.Generator().manual_seed(seed), "cpu", dtype))
+
+    def bits(a):
+        if a.dtype.name == "uint16":
+            import ml_dtypes
+            return a.view(ml_dtypes.bfloat16)
+        return a
+    from repro_torch.core.tree import tree_map
+    return tree_map(bits, params)

@@ -44,7 +44,7 @@ from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.data.synthetic import add_modality_stubs  # noqa: E402
 from repro_torch.models.common import is_spec  # noqa: E402
 from repro_torch.models.model import LayeredModel  # noqa: E402
-from repro_torch.testing import fan_in_params  # noqa: E402
+from repro_torch.testing import fan_in_params, init_numpy  # noqa: E402,E501
 
 ARCH = "whisper-base"
 SLICE = dict(weight_stream=True, pack_params=True, prefetch_depth=1,
@@ -396,7 +396,7 @@ def test_decode_with_frames_matches_jax(drawn):
 
 def test_decode_matches_the_full_forward_at_the_reference_init():
     """tests/test_decode_consistency.py for whisper, in the port: at the
-    reference's own init (PRNGKey 0), 12 tokens fed one by one after the
+    reference's init scales (the port's init, seed 0), 12 tokens fed one by one after the
     encoder's pass give the full forward's last logits (the reference's
     bound, 2e-3 relative max), and the JAX decode.prefill's (1e-3)."""
     import jax
@@ -404,7 +404,7 @@ def test_decode_matches_the_full_forward_at_the_reference_init():
     from repro.core import decode as jdec
     from repro.models.model import LayeredModel as JModel
     jmodel = JModel(_jcfg())
-    params = jmodel.init_params(jax.random.PRNGKey(0))
+    params = jax.tree.map(jnp.asarray, init_numpy(_jcfg(), 0))
     toks = np.array(jax.random.randint(jax.random.PRNGKey(1), (2, 12), 0,
                                          _jcfg().vocab_size))
     frames = np.array(jax.random.normal(

@@ -14,8 +14,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import get_config as jget_config  # noqa: E402
-from repro.models.model import LayeredModel as JModel  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch.testing import init_numpy  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -28,9 +28,7 @@ def _bits(a):
 @pytest.mark.parametrize("arch", ["granite-3-8b", "bert-large"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_round_trip_is_bit_exact(arch, dtype):
-    params = JModel(jget_config(arch, "smoke")).init_params(
-        jax.random.PRNGKey(1), dtype=jnp.dtype(dtype))
-    tree = jax.tree.map(np.asarray, params)
+    tree = init_numpy(jget_config(arch, "smoke"), 1, dtype)
     t = bridge.params_from_numpy(tree)
     assert isinstance(t["groups"], tuple)
     assert t["embed"]["tok"].dtype == getattr(torch, dtype)
@@ -54,7 +52,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    [*(ROOT / "src" / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+    [*(ROOT / "src" / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+     ROOT / "tests" / "torch_dp_worker.py"]))
 def test_port_imports_neither_jax_nor_the_reference(path):
     for mod in _imports(ROOT / path):
         top = mod.split(".")[0]

@@ -6,7 +6,7 @@ On the CPU: snapshots interchange with the JAX package both ways — its
 engine writes and the port's restores, the port's writes and
 ``repro.checkpoint.io.verify`` and the JAX engine's ``restore`` read —
 packed and unpacked, with f32 and bf16 masters and a loss scale, byte for
-byte, and a two-group packed deepseek-v2-lite state (MLA, experts); corruption (``repro.testing.faults.corrupt_snapshot``) falls back to
+byte, and a two-group packed deepseek-v2-lite state (MLA, experts); corruption (``repro_torch.testing.faults.corrupt_snapshot``) falls back to
 the previous good snapshot; a fingerprint mismatch is refused; ``prune``
 sweeps staging debris; one SIGTERM kill of ``python -m
 repro_torch.launch.train --device cpu`` resumes to the final snapshot of
@@ -18,8 +18,6 @@ a restore into a fresh engine continue training bit for bit.
 import json
 import os
 import signal
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -34,9 +32,8 @@ from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.schedule import ExecutionConfig  # noqa: E402
 from repro_torch.core.tree import tree_leaves  # noqa: E402
+from repro_torch.testing import init_numpy  # noqa: E402
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "src")
 ARCH = "bert-large"
 
 
@@ -82,13 +79,12 @@ def _same_bytes(got, want):
 
 @pytest.fixture(scope="module")
 def jax_side():
-    """The JAX engine per (pack, param dtype), and its own init params as
+    """The JAX engine per (pack, param dtype), and params at its init scales as
     numpy (unpacked)."""
     jax = pytest.importorskip("jax")
     from repro import engine as jengines
     from repro.configs.base import get_config as jget_config
     from repro.core.schedule import ExecutionConfig as JExec
-    from repro.models.model import LayeredModel as JModel
     engs = {}
 
     def get(pack, pdt, arch=ARCH):
@@ -96,9 +92,7 @@ def jax_side():
             cfg = jget_config(arch, "smoke").replace(param_dtype=pdt)
             eng = jengines.create("l2l-p", cfg, JExec(**_exec(pack)),
                                   donate=False)
-            params = JModel(cfg).init_params(
-                jax.random.PRNGKey(1), dtype=jax.numpy.dtype(pdt))
-            engs[pack, pdt, arch] = (eng, jax.tree.map(np.asarray, params))
+            engs[pack, pdt, arch] = (eng, init_numpy(cfg, 1, pdt))
         return engs[pack, pdt, arch]
     return get
 
@@ -228,8 +222,7 @@ def _saved_engine(tmp_path, steps=(2, 4)):
                                          ("bitflip", "manifest"),
                                          ("truncate", "manifest")])
 def test_corrupt_newest_snapshot_falls_back(tmp_path, mode, target):
-    pytest.importorskip("jax")
-    from repro.testing import faults
+    from repro_torch.testing import faults
     eng, state, d = _saved_engine(tmp_path)
     faults.corrupt_snapshot(ckpt.snapshot_path(d, 4), mode=mode,
                             target=target, seed=3)
@@ -239,6 +232,43 @@ def test_corrupt_newest_snapshot_falls_back(tmp_path, mode, target):
     assert step == 2
     _same_bytes(bridge.train_state_to_numpy(restored)[0],
                 bridge.train_state_to_numpy(state)[0])
+
+
+@pytest.mark.parametrize("injector,seed", [("bitflip", 0), ("bitflip", 7),
+                                           ("truncate", 3), ("poison", 0),
+                                           ("poison", 11), ("checksums", 0)])
+def test_seeded_injectors_match_the_reference(tmp_path, injector, seed):
+    """The port's fault injectors do, byte for byte, what the reference's
+    do from the same seed: the same flipped bit or cut length, the same
+    planted NaN, the same per-array crc32 list of a snapshot."""
+    pytest.importorskip("jax")
+    from repro.testing import faults as jfaults
+    from repro_torch.testing import faults
+    if injector in ("bitflip", "truncate"):
+        data = np.random.RandomState(seed).bytes(4096)
+        paths = [str(tmp_path / n) for n in ("port", "ref")]
+        for path in paths:
+            with open(path, "wb") as f:
+                f.write(data)
+        faults.corrupt_file(paths[0], mode=injector, seed=seed)
+        jfaults.corrupt_file(paths[1], mode=injector, seed=seed)
+        got, want = (open(path, "rb").read() for path in paths)
+        assert got == want != data
+    elif injector == "poison":
+        rs = np.random.RandomState(seed)
+        batch = {"tokens": rs.randint(0, 9, (4, 8)).astype(np.int32),
+                 "mask": rs.rand(4, 8).astype(np.float32)}
+        got = faults.poison_batch(batch, seed=seed)
+        want = jfaults.poison_batch(batch, seed=seed)
+        assert np.isnan(got["mask"]).sum() == 1
+        for k in batch:
+            assert got[k].tobytes() == want[k].tobytes()
+        assert not np.isnan(batch["mask"]).any()
+    else:
+        _, _, d = _saved_engine(tmp_path, steps=(2, 4))
+        for step in (None, 2):
+            assert faults.snapshot_checksums(d, step=step) == \
+                jfaults.snapshot_checksums(d, step=step)
 
 
 def test_fingerprint_mismatch_is_refused(tmp_path):
@@ -277,35 +307,25 @@ TINY = ["--arch", "bert-large", "--variant", "smoke",
 
 def _launch(argv):
     """``python -m repro_torch.launch.train`` as a subprocess, its output
-    line by line (``repro.testing.faults.launch_train`` starts the
-    reference's CLI)."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = _SRC + (os.pathsep + env["PYTHONPATH"]
-                                if env.get("PYTHONPATH") else "")
-    # one intra-op thread, as tests/torch_threads.py gives the test
-    # process: beside the suite's busy workers an OpenMP team of one
-    # thread a core waits on the others
-    env["OMP_NUM_THREADS"] = "1"
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", *argv],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        bufsize=1, env=env)
+    line by line (``repro_torch.testing.faults.launch_train``), with one
+    intra-op thread, as tests/torch_threads.py gives the test process:
+    beside the suite's busy workers an OpenMP team of one thread a core
+    waits on the others."""
+    from repro_torch.testing import faults
+    return faults.launch_train(argv, env={"OMP_NUM_THREADS": "1"})
 
 
 def _run(argv):
-    proc = _launch(argv)
-    out = proc.stdout.read()
-    proc.stdout.close()
-    assert proc.wait(timeout=300) == 0, out
-    return out
+    from repro_torch.testing import faults
+    return faults.run_train(argv, timeout=300,
+                            env={"OMP_NUM_THREADS": "1"})
 
 
 def test_sigterm_resume_matches_an_uninterrupted_run(tmp_path):
     """SIGTERM at step 2: the CLI finishes the step, saves, writes
     PREEMPTED.json and exits 0; ``--resume auto`` replays the rest to a
     final snapshot whose per-array crc32s equal an uninterrupted run's."""
-    pytest.importorskip("jax")
-    from repro.testing import faults
+    from repro_torch.testing import faults
     ref = str(tmp_path / "ref")
     out = _run(TINY + ["--ckpt-dir", ref])
     assert json.loads(out.strip().splitlines()[-1])["resumed_from"] is None

@@ -27,7 +27,7 @@ from repro_torch.core.schedule import ExecutionConfig  # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import relay_copy  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.testing import fan_in_params  # noqa: E402
+from repro_torch.testing import fan_in_params, init_numpy  # noqa: E402,E501
 
 CAP, N_RUN = 4, 3
 B, S = 4, 16
@@ -209,7 +209,7 @@ def serve_reference():
     cfg = jget_config("granite-3-8b", "smoke").replace(
         dtype="float32", use_pallas=True, n_layers=SCAP)
     eng = jengines.create("l2l", cfg, JExec(**SERVE), donate=False)
-    params = eng.model.init_params(jax.random.PRNGKey(0))
+    params = jax.tree.map(jnp.asarray, init_numpy(cfg, 0))
     prompt = np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(2, PROMPT)).astype(np.int32)
     prev = jcommon.use_pallas_rmsnorm(True)

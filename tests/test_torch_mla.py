@@ -26,7 +26,7 @@ from repro_torch.core import decode  # noqa: E402
 from repro_torch.core.decode import init_caches  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models.model import LayeredModel  # noqa: E402
-from repro_torch.testing import fan_in_params  # noqa: E402
+from repro_torch.testing import fan_in_params, init_numpy  # noqa: E402,E501
 
 ARCH = "deepseek-v2-lite-16b"
 
@@ -149,8 +149,7 @@ def test_absorbed_decode_matches_full_sequence():
     decode logits against the JAX decode's (1e-5 relative L2)."""
     cfg, jcfg = _cfgs(capacity_factor=100.0)
     jmodel = JModel(jcfg)
-    params = jax.tree.map(np.asarray, jmodel.init_params(
-        jax.random.PRNGKey(0)))
+    params = init_numpy(jcfg, 0)
     B, S = 2, 10
     toks = np.random.RandomState(4).randint(0, cfg.vocab_size, (B, S)) \
         .astype(np.int32)

@@ -24,6 +24,7 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import blocks as tblocks  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models.model import LayeredModel  # noqa: E402
+from repro_torch.testing import init_numpy  # noqa: E402
 
 
 # the dense configurations the port runs; the last three add qkv biases
@@ -154,8 +155,7 @@ def test_dense_decode_matches_reference(per_row):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_pack_params_rows_byte_identical(arch, dtype):
     cfg = jget_config(arch, "smoke")
-    params = JModel(cfg).init_params(jax.random.PRNGKey(0),
-                                     dtype=jnp.dtype(dtype))
+    params = jax.tree.map(jnp.asarray, init_numpy(cfg, 0, dtype))
     ref = jpacking.pack_params(params)["groups"][0]
     got = packing.pack_params(bridge.params_from_numpy(_np(params)))
     got = got["groups"][0]

@@ -45,7 +45,7 @@ from repro_torch.core.schedule import ExecutionConfig  # noqa: E402
 from repro_torch.core.tree import tree_leaves  # noqa: E402
 from repro_torch.models.common import is_spec  # noqa: E402
 from repro_torch.models.model import LayeredModel  # noqa: E402
-from repro_torch.testing import fan_in_params  # noqa: E402
+from repro_torch.testing import fan_in_params, init_numpy  # noqa: E402,E501
 
 ARCHS = ["deepseek-v2-lite-16b", "grok-1-314b"]
 SLICE = dict(weight_stream=True, pack_params=True, prefetch_depth=1,
@@ -314,10 +314,11 @@ def test_l2lp_matches_baseline(drawn):
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module", params=ARCHS)
 def served(request):
-    """The JAX engine's greedy run and prefill logits at its own init."""
+    """The JAX engine's greedy run and prefill logits at the reference's
+    init scales (the port's init, seed 0)."""
     cfg = _jcfg(request.param)
     eng = jengines.create("l2l", cfg, JExec(), donate=False)
-    params = eng.model.init_params(jax.random.PRNGKey(0))
+    params = jax.tree.map(jnp.asarray, init_numpy(cfg, 0))
     prompt = np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(2, PROMPT)).astype(np.int32)
     caches, last = eng.decode_init(params, jnp.asarray(prompt),

@@ -20,6 +20,7 @@ from repro.configs.base import get_config as jget_config  # noqa: E402
 from repro.core.schedule import ExecutionConfig as JExec  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch.testing import init_numpy  # noqa: E402
 from repro_torch import engine as engines  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.schedule import ExecutionConfig  # noqa: E402
@@ -42,7 +43,7 @@ def reference(request):
     cfg = jget_config(request.param, "smoke").replace(dtype="float32",
                                                       use_pallas=True)
     eng = jengines.create("l2l", cfg, JExec(**SLICE), donate=False)
-    params = eng.model.init_params(jax.random.PRNGKey(0))
+    params = jax.tree.map(jnp.asarray, init_numpy(cfg, 0))
     prompt = np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(B, PROMPT)).astype(np.int32)
     prev = jcommon.use_pallas_rmsnorm(True)
@@ -200,7 +201,7 @@ def test_decode_window_ring_matches_jax_engine(grouped):
     jcfg = jget_config("granite-3-8b", "smoke").replace(
         dtype="float32", grouped_decode_attn=grouped)
     jeng = jengines.create("l2l", jcfg, JExec(decode_window=W), donate=False)
-    params = jeng.model.init_params(jax.random.PRNGKey(3))
+    params = jax.tree.map(jnp.asarray, init_numpy(jcfg, 3))
     prompt = np.random.RandomState(3).randint(
         0, jcfg.vocab_size, size=(B, P_LEN)).astype(np.int32)
     caches, last = jeng.decode_init(params, jnp.asarray(prompt), W)

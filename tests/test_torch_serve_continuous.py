@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch import bridge  # noqa: E402
+from repro_torch.testing import init_numpy  # noqa: E402
 from repro_torch import engine as engines  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.schedule import ExecutionConfig  # noqa: E402
@@ -76,6 +77,7 @@ def _serve(eng, params, scfg, prompts, news):
 @pytest.mark.parametrize("arch,exec_kw,max_seq,chunk", CASES, ids=CASE_IDS)
 def test_greedy_tokens_match_jax_serve_engine(arch, exec_kw, max_seq, chunk):
     import jax
+    import jax.numpy as jnp
     from repro import engine as jengines
     from repro.configs.base import get_config as jget_config
     from repro.core.schedule import ExecutionConfig as JExec
@@ -83,7 +85,7 @@ def test_greedy_tokens_match_jax_serve_engine(arch, exec_kw, max_seq, chunk):
 
     jcfg = jget_config(arch, "smoke").replace(dtype="float32")
     jeng = jengines.create("l2l", jcfg, JExec(**exec_kw), donate=False)
-    params = jeng.model.init_params(jax.random.PRNGKey(0))
+    params = jax.tree.map(jnp.asarray, init_numpy(jcfg, 0))
     prompts = _prompts(jcfg.vocab_size)
     scfg = _scfg(max_seq, chunk)
     jsrv = jeng.serve_session(params, JServeConfig(**scfg))

@@ -2,7 +2,8 @@
 
 Mirrors the reference's tests/test_tierstore.py and the tier tests of
 tests/test_faults.py, with the reference's own fault injectors
-(``repro.testing.faults``) applied to the port's store:
+(``repro_torch.testing.faults``, the port of ``repro.testing.faults``)
+applied to the port's store:
 
 * the SegmentStore: round trip (f32 and bf16), atomic put, torn write
   and rot caught at open and at read, transient EIO retried then
@@ -28,7 +29,7 @@ torch = pytest.importorskip("torch")
 
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
-from repro.testing import faults  # noqa: E402
+from repro_torch.testing import faults  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import engine as engines  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402

@@ -29,7 +29,7 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.schedule import ExecutionConfig  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
-from repro_torch.testing import fan_in_params  # noqa: E402
+from repro_torch.testing import fan_in_params, init_numpy  # noqa: E402,E501
 
 SLICE = dict(weight_stream=True, pack_params=True, prefetch_depth=1,
              transport="pallas", offload_stash=True, n_microbatches=2)
@@ -92,13 +92,12 @@ def _drawn_reference(arch):
     eng = _jax_engine(arch)
     batch = _batch(eng.model.cfg.vocab_size)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    own = eng.init(jax.random.PRNGKey(0))
-    params = _draw_params(_np(jpacking.unpack_params(own.params)))
+    params = _draw_params(eng.model.param_specs())
     packed = eng._relay_params(jax.tree.map(jnp.asarray, params))
     state = JState.from_legacy(packed, eng._init_opt_legacy(packed))
     opt = jpacking.unpack_opt_state(state.legacy_opt(), state.params)
     new, metrics, new_opt, grads = _jax_step(eng, state, jb)
-    return dict(arch=arch, eng=eng, own=own, jb=jb,
+    return dict(arch=arch, eng=eng, jb=jb,
                 params=params, opt={k: _np(opt[k]) for k in
                                     ("embed", "head", "groups")},
                 batch=batch, new_params=_np(jpacking.unpack_params(
@@ -109,14 +108,17 @@ def _drawn_reference(arch):
 
 @pytest.fixture(scope="module")
 def reference():
-    """bert-large's: the step from numpy parameters, and from the JAX
-    engine's own init."""
+    """bert-large's: the step from numpy parameters, and from parameters
+    at the reference's init scales (the port's init, seed 0)."""
     ref = _drawn_reference("bert-large")
-    _, own_metrics, _, own_grads = _jax_step(ref["eng"], ref["own"],
-                                             ref["jb"])
-    return dict(ref, own_params=_np(jpacking.unpack_params(
-        ref["own"].params)), own_loss=float(own_metrics["loss"]),
-        own_grads=own_grads)
+    from repro.engine.state import TrainState as JState
+    eng = ref["eng"]
+    own_params = init_numpy(eng.model.cfg, 0)
+    packed = eng._relay_params(jax.tree.map(jnp.asarray, own_params))
+    own = JState.from_legacy(packed, eng._init_opt_legacy(packed))
+    _, own_metrics, _, own_grads = _jax_step(eng, own, ref["jb"])
+    return dict(ref, own_params=own_params,
+                own_loss=float(own_metrics["loss"]), own_grads=own_grads)
 
 
 # bert-large (slice 2) and the dense configs the port's blocks cover:
@@ -209,7 +211,9 @@ def test_grads_match_jax(reference):
 
 
 def test_grads_at_reference_init(reference):
-    """At the reference's own init the backward amplifies f32 rounding:
+    """At the reference's init scales (every stacked matrix at std
+    1/sqrt(n_layers); drawn by the port's init) the backward amplifies f32
+    rounding:
     measured on the CPU, each package's f32 gradients stand 1e-4 to 3e-4
     (relative L2 per leaf) from the port's gradients with f64 activations
     (its norms and loss reductions stay f32), JAX's as far as the port's.
