@@ -102,7 +102,7 @@ Phases, one JSON line each:
               pinned rows: 2 steps, Engine.save, restore into a fresh engine,
               2 more steps, against 4 uninterrupted steps bit for bit;
    train-rmsnorm — chatglm3-6b at full width, depth 2 (an RMSNorm model,
-              GQA 16), l2l-p with the train phase's knobs: 3 steps at B=8,
+              GQA 16), l2l-p with the train phase's knobs: 2 steps at B=8,
               S=512, UB=2 with every counter set to 0 just before and read
               just after (K5 under grad: ``rmsnorm_diff``); then Engine.grads
               in f32 against the same call with K5's plain version patched
@@ -138,7 +138,7 @@ Phases, one JSON line each:
               fetch of each row kind;
    train-moe — deepseek-v2-lite-16b at full width and depth 3 (the dense
               layer 0 + 2 MoE layers), l2l-p with the train phase's knobs,
-              3 steps at B=8, S=512, UB=2, the counters set to 0 just
+              2 steps at B=8, S=512, UB=2, the counters set to 0 just
               before and read just after; then Engine.grads in f32 at depth
               2 against the baseline engine at fan-in scales, and one step
               at depth 2 run twice from the same state, bitwise;
@@ -209,8 +209,8 @@ Phases, one JSON line each:
               B=8 x 448 target tokens with 1500 frames, UB=2, 3 steps,
               counted; then the train-vlm checks;
    tier     — the disk tier (``tiers=3``): tier-train, bert-large at
-              full width and depth under l2l-p with the train phase's
-              knobs, B=32 x 512, UB=4, 2 steps with 12 of the 24 layers'
+              full width and 12 of its 24 layers under l2l-p with the train
+              phase's knobs, B=32 x 512, UB=4, 2 steps with 6 of the 12 layers'
               weights and Adam slots demoted to segment files under
               build/ (counted from the tier engine's init to its last
               step), its state bit for bit a two-tier run's from the same
@@ -230,11 +230,11 @@ Phases, one JSON line each:
               repeated synthetic batch, every kernel counter set to 0
               just before and read just after (step 1's rows kept for the
               next phase);
-   host-optimizer — the train phase's engine with ``host_optimizer``, 5
-              steps on the same batch, the counters set to 0 just before
+   host-optimizer — the train phase's engine with ``host_optimizer``, 3
+              steps on the same batch (5 before PR 24), the counters set to 0 just before
               and read just after: step 1's rows held to the train phase's
               (max abs 1e-6, an equal loss; whether bitwise is printed,
-              and when bitwise the five losses equal the train phase's),
+              and when bitwise the three losses equal the train phase's first),
               and the square root of layer 0's second moment on the
               card against PyTorch's CPU kernel and ``sqrt_rn`` (which
               must agree with the card);
@@ -252,13 +252,14 @@ Phases, one JSON line each:
               depth 1 under torch.profiler: the device's idle share and
               its time by kernel;
    train-dp — data parallel over the mesh's data
-              axes, bert-large at full width and depth, B=32 x 512, UB=4,
+              axes, bert-large at full width and 12 of its 24 layers,
+              B=32 x 512, UB=4,
               l2l-p through the train CLI's configuration: (a) in this
               process, NCCL over a world of one (a FileStore under
               build/) and a (data=1, model=1) mesh, 3 steps counted beside
               3 meshless steps from the same state, bit for bit (losses,
               weight and Adam checksums), 24 layer rows + the static tree
-              + 2 scalars all-reduced a step; (b) two gloo ranks on this
+              + 2 scalars all-reduced a step (12 + 3); (b) two gloo ranks on this
               card through ``python -m torch.distributed.run -m
               repro_torch.launch.train --mesh data=2``, each rank its own
               pinned EPS: the ranks' final checksums equal, the losses
@@ -267,16 +268,37 @@ Phases, one JSON line each:
               against one process on the whole batch (losses 1e-5,
               each leaf's update 1e-3 relative L2); wall time, reduction
               ms and GB a step for each part;
+   tp       — the mesh's model axis: two gloo ranks on this card through
+              ``python -m torch.distributed.run chip_smoke.py --tp-rank``
+              on a (data=1, model=2) mesh.  train-tp: bert-large at full
+              width (8 of 16 heads, 2048 of 4096 ffn columns, 15261 of
+              30522 vocabulary rows a rank), depth 4, B=32 x 512, UB=4,
+              l2l-p unpacked through the train CLI's configuration, 3
+              steps counted (each rank's weights the slices of the
+              one-process draw by checksum, the ranks' replicated leaves
+              and Adam slots equal, the losses within 1e-3 of one
+              process), then in f32 at depth 2 and fan-in scales from one
+              snapshot against one process (losses 1e-5, updates 1e-3);
+              serve-tp: granite-3-8b at full width (16 of 32 q heads, 4 of
+              8 kv heads, 6400 of 12800 ffn columns, the 49155-row
+              vocabulary whole), depth 4, weight_stream unpacked, counted:
+              decode_init on 4 prompts of 16, 4 greedy steps, prefill
+              (within the serve phase's 0.35 of decode_init, top-1 on 3 of
+              4 rows), bf16 logits within 0.35 of one process on the same
+              weights, in f32 at fan-in scales tokens equal and logits
+              within 1e-4; model-group collectives, bytes and ms a step,
+              K2/K3a/K3b/K4 launches a step, tok/s, K4 GB a step a rank;
    memory-model — ``Engine.memory_estimate`` for the train phase's
               bert-large at depths 24 and 12 beside its peaks, and the
               serve estimate beside serve-continuous's peak (printed, not
               tied: the model counts the reference's buffers);
-10. launches — every kernel's count over the twenty-one main paths
+10. launches — every kernel's count over the twenty-three main paths
               (serve, serve-dense, serve-continuous, train, train-rmsnorm,
               dynamic-depth, host-optimizer, train-dp, serve-moe, train-moe,
               serve-hymba, train-hymba, serve-rwkv6, train-rwkv6,
               serve-vlm, train-vlm, serve-audio, train-audio, serve-grok,
-              tier-train, tier-serve; each of a
+              tier-train, tier-serve, train-tp, serve-tp (summed over
+              the two ranks); each of a
               path's kernels > 0, K1 0 on host-optimizer, K2 and K3 0 on
               the two MoE paths, K2, K3 and K5 0 on the rwkv6 and whisper
               paths),
@@ -1274,14 +1296,14 @@ def k3_gqa_check(torch, dev, fa, kops, cfg, B, S):
 def train_rmsnorm_phase(torch, engines, ExecutionConfig, knobs, get_config,
                         SyntheticLM, DataConfig, adam, make_schedule,
                         counters, kops, rms, fa, dev):
-    """chatglm3-6b at full width, depth 2, under l2l-p: 3 steps with every
+    """chatglm3-6b at full width, depth 2, under l2l-p: 2 steps with every
     counter set to 0 just before and read just after (K5 under grad); then
     one Engine.grads in f32 against the same call with K5's plain version
     patched in, and K3 at the path's GQA-16 shape."""
     import numpy as np
     from repro_torch.core.tree import tree_leaves_with_path
     from repro_torch.testing import fan_in_params
-    B, S, UB, STEPS, DEPTH = 8, 512, 2, 3, 2
+    B, S, UB, STEPS, DEPTH = 8, 512, 2, 2, 2
     full = get_config("chatglm3-6b", "full")
     cfg = full.replace(n_layers=DEPTH, use_pallas=True)
     opt = adam(schedule=make_schedule(1e-4, warmup=10))
@@ -1574,7 +1596,7 @@ def host_optimizer_phase(torch, engines, ExecutionConfig, bert, knobs,
                          SyntheticLM, DataConfig, adam, make_schedule,
                          counters, step1, train_losses, dev):
     """bert-large at full width and depth with the train phase's engine
-    plus ``host_optimizer``: 5 steps on the train phase's batch, every
+    plus ``host_optimizer``: 3 steps on the train phase's batch, every
     counter set to 0 just before and read just after.  Step 1's rows are
     held to the train phase's step-1 rows (``step1``: the reference's bar,
     max abs 1e-6 and an equal loss); when they are bitwise the five losses
@@ -1582,7 +1604,7 @@ def host_optimizer_phase(torch, engines, ExecutionConfig, bert, knobs,
     state, batch)): the profiled step comes after the timed phases."""
     import numpy as np
     from repro_torch.kernels.ref import sqrt_rn
-    B, S, UB, STEPS = 32, 512, 4, 5
+    B, S, UB, STEPS = 32, 512, 4, 3
     cfg = bert.replace(use_pallas=True)
     opt = adam(schedule=make_schedule(1e-4, warmup=10))
     eng = engines.create("l2l-p", cfg, ExecutionConfig(
@@ -1654,7 +1676,7 @@ def host_optimizer_phase(torch, engines, ExecutionConfig, bert, knobs,
            "step1_loss": steps[0]["loss"],
            "step1_loss_device_optimizer": step1["loss"],
            "losses_equal_train_phase":
-               [s["loss"] for s in steps] == train_losses,
+               [s["loss"] for s in steps] == train_losses[:STEPS],
            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
            "torch_threads": torch.get_num_threads()}
     assert all(s["k1_launches"] == 0 for s in steps), steps
@@ -1905,14 +1927,14 @@ def train_moe_phase(torch, np, engines, ExecutionConfig, knobs, get_config,
                     DataConfig, adam, make_schedule, counters, dev):
     """deepseek-v2-lite-16b at full width and depth 3 (the dense layer 0 +
     2 MoE layers) under l2l-p with the train phase's knobs, B=8 x S=512,
-    UB=2, 3 steps, every counter set to 0 just before and read just
+    UB=2, 2 steps, every counter set to 0 just before and read just
     after.  Then, not counted: Engine.grads in f32 at depth 2 under l2l-p
     against the baseline engine on the same batch at fan-in scales
     (tests/test_equivalence.py's bound), and one l2l-p step at depth 2 run
     twice from the same state: bitwise (no float atomics in the MoE's
     dispatch, combine and router).  -> (line, launches, routes)."""
     from repro_torch.testing import fan_in_params
-    B, S, UB, STEPS = 8, 512, 2, 3
+    B, S, UB, STEPS = 8, 512, 2, 2
     full = get_config(MOE_ARCH, "full")
     rows = group_rows(LayeredModel, tree_leaves, is_spec, full)
     # w, m and v, twice at the step's peak (the step is functional)
@@ -2435,66 +2457,73 @@ def modality_k4_rows(torch, dev, g, rc, ref, get_config, LayeredModel,
                      tree_leaves, is_spec):
     """K4 at the modality families' layer rows, f32, each way: an
     internvl2 layer (14.9 M elements) and whisper's encoder and decoder
-    layers (3.15 M, 4.20 M), pinned host -> HBM by the relay's route and
-    back by its write-back route, against ``copy_`` in turns on the same
-    buffers, each bit for bit against its plain version."""
-    rows = []
+    layers (3.15 M, 4.20 M) (``k4_rows``)."""
+    cells = []
     for arch in (VLM_ARCH, AUDIO_ARCH):
         full = get_config(arch, "full")
-        for gname, nbytes in zip(
-                [gr.name for gr in LayeredModel(full).groups],
-                group_rows(LayeredModel, tree_leaves, is_spec, full)):
-            n = nbytes // 4
-            cell = f"{full.name} {gname} row"
-            host = torch.empty(2, n, dtype=torch.float32, pin_memory=True)
-            host.copy_(torch.randn(2, n, generator=g, device=dev).cpu())
-            slot = torch.empty(1, n, dtype=torch.float32, device=dev)
-            got = rc.copy_rows(host, 1, size=1, device=dev, out=slot)
-            plain = ref.ref_copy_rows(host, 1, 1, device=dev)
-            torch.cuda.synchronize()
-            assert torch.equal(got, plain), ("relay_copy", cell)
-            ms, lib_ms = rotation(torch, (
-                lambda: rc.copy_rows(host, 1, size=1, device=dev, out=slot),
-                lambda: slot.copy_(host[1:2], non_blocking=True)), 5,
-                timer=time_ms)
-            common = {"route": "cuda",
-                      "source": "src/repro_torch/kernels/csrc/relay_copy.cu",
-                      "cell": cell, "shape": [1, n], "dtype": "float32",
-                      "host_alloc": "pinned (torch.empty(pin_memory=True))",
-                      "grid_blocks": rc.LINE_BLOCKS,
-                      "timing": "ms, library_ms (copy_): back-to-back "
-                                "calls, in turns on the same buffers; "
-                                "plain_ms: eager calls",
-                      "bound_ms": nbytes / PCIE5_X16_BPS * 1e3,
-                      "bound_by": "bytes"}
-            rows.append({
-                "name": "relay_copy", **common,
-                "kernel_route": rc.FETCH_ROUTE,
-                "replaces": "src/repro/kernels/relay_copy.py:58",
-                "max_abs_err": 0.0, "ms": ms, "library_ms": lib_ms,
-                "plain_ms": time_ms(torch, lambda: ref.ref_copy_rows(
-                    host, 1, 1, device=dev), 5),
-                "achieved_GBps": nbytes / ms / 1e6,
-                "library_GBps": nbytes / lib_ms / 1e6})
-            src = slot[0].clone()
-            host[0].zero_()
-            rc.writeback_rows(src, host, 0)
-            torch.cuda.synchronize()
-            assert torch.equal(host[0], src.cpu()), ("write-back", cell)
-            ms, lib_ms = rotation(torch, (
-                lambda: rc.writeback_rows(src, host, 0),
-                lambda: host[0].copy_(src, non_blocking=True)), 5,
-                timer=time_ms)
-            rows.append({
-                "name": "relay_copy_writeback", **common,
-                "kernel_route": rc.WRITEBACK_ROUTE,
-                "replaces": "src/repro/kernels/relay_copy.py:128",
-                "max_abs_err": 0.0, "ms": ms, "library_ms": lib_ms,
-                "plain_ms": time_ms(torch, lambda: rc.writeback_rows_plain(
-                    src, host, 0), 5),
-                "achieved_GBps": nbytes / ms / 1e6,
-                "library_GBps": nbytes / lib_ms / 1e6})
-            del host, slot, got, plain, src
+        cells += [(f"{full.name} {gname} row", nbytes) for gname, nbytes in
+                  zip([gr.name for gr in LayeredModel(full).groups],
+                      group_rows(LayeredModel, tree_leaves, is_spec, full))]
+    return k4_rows(torch, dev, g, rc, ref, cells)
+
+
+def k4_rows(torch, dev, g, rc, ref, cells):
+    """K4 at each ``(cell, bytes)`` row, f32, each way: pinned host -> HBM
+    by the relay's route and back by its write-back route, against
+    ``copy_`` in turns on the same buffers, each bit for bit against its
+    plain version."""
+    rows = []
+    for cell, nbytes in cells:
+        n = nbytes // 4
+        host = torch.empty(2, n, dtype=torch.float32, pin_memory=True)
+        host.copy_(torch.randn(2, n, generator=g, device=dev).cpu())
+        slot = torch.empty(1, n, dtype=torch.float32, device=dev)
+        got = rc.copy_rows(host, 1, size=1, device=dev, out=slot)
+        plain = ref.ref_copy_rows(host, 1, 1, device=dev)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain), ("relay_copy", cell)
+        ms, lib_ms = rotation(torch, (
+            lambda: rc.copy_rows(host, 1, size=1, device=dev, out=slot),
+            lambda: slot.copy_(host[1:2], non_blocking=True)), 5,
+            timer=time_ms)
+        common = {"route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/relay_copy.cu",
+                  "cell": cell, "shape": [1, n], "dtype": "float32",
+                  "host_alloc": "pinned (torch.empty(pin_memory=True))",
+                  "grid_blocks": rc.LINE_BLOCKS,
+                  "timing": "ms, library_ms (copy_): back-to-back "
+                            "calls, in turns on the same buffers; "
+                            "plain_ms: eager calls",
+                  "bound_ms": nbytes / PCIE5_X16_BPS * 1e3,
+                  "bound_by": "bytes"}
+        rows.append({
+            "name": "relay_copy", **common,
+            "kernel_route": rc.FETCH_ROUTE,
+            "replaces": "src/repro/kernels/relay_copy.py:58",
+            "max_abs_err": 0.0, "ms": ms, "library_ms": lib_ms,
+            "plain_ms": time_ms(torch, lambda: ref.ref_copy_rows(
+                host, 1, 1, device=dev), 5),
+            "achieved_GBps": nbytes / ms / 1e6,
+            "library_GBps": nbytes / lib_ms / 1e6})
+        src = slot[0].clone()
+        host[0].zero_()
+        rc.writeback_rows(src, host, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(host[0], src.cpu()), ("write-back", cell)
+        ms, lib_ms = rotation(torch, (
+            lambda: rc.writeback_rows(src, host, 0),
+            lambda: host[0].copy_(src, non_blocking=True)), 5,
+            timer=time_ms)
+        rows.append({
+            "name": "relay_copy_writeback", **common,
+            "kernel_route": rc.WRITEBACK_ROUTE,
+            "replaces": "src/repro/kernels/relay_copy.py:128",
+            "max_abs_err": 0.0, "ms": ms, "library_ms": lib_ms,
+            "plain_ms": time_ms(torch, lambda: rc.writeback_rows_plain(
+                src, host, 0), 5),
+            "achieved_GBps": nbytes / ms / 1e6,
+            "library_GBps": nbytes / lib_ms / 1e6})
+        del host, slot, got, plain, src
     return rows
 
 
@@ -3016,16 +3045,19 @@ def fs_type(path) -> tuple:
 
 
 TIER_DIR = ROOT / "build" / "chip_smoke_tier"
-TIER_HOT = 12          # of 24 layers kept on the host in the tier phase
+TIER_HOT = 12          # of internvl2's 24 layers kept on the host (serve)
+# tier-train: 12 of bert-large's 24 layers, 6 of them kept on the host
+TIER_TRAIN_DEPTH, TIER_TRAIN_HOT = 12, 6
 
 
 def tier_phase(torch, np, engines, ExecutionConfig, bert, knobs, exec_cfg,
                get_config, LayeredModel, tree_leaves, is_spec, SyntheticLM,
                DataConfig, adam, make_schedule, sample_batch, counters, dev):
     """The disk tier (``tiers=3``) on the card.  train: bert-large at full
-    width and depth under l2l-p with the train phase's knobs, B=32 x 512,
-    UB=4, 2 steps, with ``host_budget_bytes`` keeping 12 of the 24 layers'
-    weights and Adam slots on the host and the other 12 in segment files
+    width and ``TIER_TRAIN_DEPTH`` (12) of its 24 layers under l2l-p with
+    the train phase's knobs, B=32 x 512, UB=4, 2 steps, with
+    ``host_budget_bytes`` keeping 6 of the 12 layers' weights and Adam
+    slots on the host and the other 6 in segment files
     under build/, every counter set to 0 just before the tier engine's
     init and read after its last step; its state after the 2 steps against
     a two-tier run's from the same init, bit for bit (the two-tier run
@@ -3047,7 +3079,7 @@ def tier_phase(torch, np, engines, ExecutionConfig, bert, knobs, exec_cfg,
     from repro_torch.core import tierstore
     from repro_torch.kernels import host_alloc
     B, S, UB, STEPS = 32, 512, 4, 2
-    cfg = bert.replace(use_pallas=True)
+    cfg = bert.replace(use_pallas=True, n_layers=TIER_TRAIN_DEPTH)
     opt = adam(schedule=make_schedule(1e-4, warmup=10))
     (row,) = group_rows(LayeredModel, tree_leaves, is_spec, cfg)
     per_layer = 3 * row                     # weights, Adam m and v
@@ -3061,7 +3093,7 @@ def tier_phase(torch, np, engines, ExecutionConfig, bert, knobs, exec_cfg,
     def make(tiers, sub):
         return engines.create("l2l-p", cfg, ExecutionConfig(
             n_microbatches=UB, tiers=tiers,
-            host_budget_bytes=TIER_HOT * per_layer,
+            host_budget_bytes=TIER_TRAIN_HOT * per_layer,
             tier_dir=str(TIER_DIR / sub), **knobs), optimizer=opt)
 
     def steps(eng, state):
@@ -3102,7 +3134,7 @@ def tier_phase(torch, np, engines, ExecutionConfig, bert, knobs, exec_cfg,
     routes = {"tier-train": route_counts(counters)}
     owned = host_alloc.live()["bytes"]
     held3 = resident() - base3
-    demoted_bytes = (cfg.n_layers - TIER_HOT) * per_layer
+    demoted_bytes = (cfg.n_layers - TIER_TRAIN_HOT) * per_layer
     m = e3.tier.metrics
     demoted = [tierstore.is_demoted(g) for g in
                s3.params["groups"] + s3.opt_state["groups"]]
@@ -3118,7 +3150,7 @@ def tier_phase(torch, np, engines, ExecutionConfig, bert, knobs, exec_cfg,
     train = {
         "phase": "tier-train", "arch": cfg.name, "depth": cfg.n_layers,
         "batch": B, "seq": S, "microbatches": UB, "knobs": knobs,
-        "host_budget_bytes": TIER_HOT * per_layer,
+        "host_budget_bytes": TIER_TRAIN_HOT * per_layer,
         "layer_state_bytes": per_layer,
         "tier_dir": str(TIER_DIR), "tier_mount": mount, "tier_fs": fstype,
         "tier_fs_note": ("tmpfs: the segment files are in RAM, not on a "
@@ -3143,7 +3175,7 @@ def tier_phase(torch, np, engines, ExecutionConfig, bert, knobs, exec_cfg,
         "bitwise_two_tiers": bitwise, "launches": launches["tier-train"]}
     emit(train)
     assert bitwise, "tiers=3 state differs from tiers=2"
-    assert m["demoted_layers"] == cfg.n_layers - TIER_HOT, m
+    assert m["demoted_layers"] == cfg.n_layers - TIER_TRAIN_HOT, m
     assert est.demoted_layers == m["demoted_layers"], est.demoted_layers
     assert m["async_stage_hits"] > 0 and m["async_stage_misses"] == 0, m
     assert all(demoted) and m["quarantined"] == 0 and m["retries"] == 0, m
@@ -3407,17 +3439,21 @@ def grok_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
 
 
 DP_DIR = ROOT / "build" / "chip_smoke_dp"
+# 12 of bert-large's 24 layers (the chip time of the model axis's phase)
+DP_DEPTH = 12
 # the train CLI's arguments of both train-dp runs: the train phase's
 # model, batch and knobs (l2l-p; Adam, its schedule and the per-layer
 # clip are the CLI's)
 DP_ARGV = ["--arch", "bert-large", "--variant", "full", "--engine", "l2l-p",
+           "--n-layers", str(DP_DEPTH),
            "--steps", "3", "--batch", "32", "--seq", "512", "--ub", "4",
            "--weight-stream", "--pack", "--prefetch", "1",
            "--transport", "pallas", "--offload-stash", "--use-pallas",
            "--log-every", "1", "--seed", "0"]
-# the f32 check: depth 2, B=8, UB=2, from a snapshot of fan-in parameters
+# the f32 check: depth 2, B=8, UB=2, 2 steps, from a snapshot of fan-in
+# parameters
 DP_F32 = ["--n-layers", "2", "--dtype", "float32", "--batch", "8",
-          "--ub", "2"]
+          "--ub", "2", "--steps", "2"]
 DP_RANKS = 2
 # bounds of the f32 check against one process on the whole batch (the
 # ranks' microbatches hold other rows: sums in other orders)
@@ -3432,17 +3468,21 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def torchrun(argv):
-    """Start ``python -m torch.distributed.run`` of the train CLI on
-    ``DP_RANKS`` gloo ranks on this card -> (process, start time); its
-    output goes to a pipe that ``torchrun_line`` reads."""
+def torchrun(tail, ranks=None):
+    """Start ``python -m torch.distributed.run`` on ``ranks`` gloo ranks on
+    this card -> (process, start time): of ``tail``, a script and its
+    arguments, or by default of the train CLI with the arguments ``tail``
+    on ``DP_RANKS`` data ranks.  Its output goes to a pipe that
+    ``torchrun_line`` reads."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "GLOO_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "4"}
+    if ranks is None:
+        ranks = DP_RANKS
+        tail = ["-m", "repro_torch.launch.train", *tail,
+                "--mesh", f"data={DP_RANKS}", "--dist-backend", "gloo"]
     cmd = [sys.executable, "-m", "torch.distributed.run",
-           "--nproc-per-node", str(DP_RANKS), "--master-addr", "127.0.0.1",
-           "--master-port", str(free_port()),
-           "-m", "repro_torch.launch.train", *argv,
-           "--mesh", f"data={DP_RANKS}", "--dist-backend", "gloo"]
+           "--nproc-per-node", str(ranks), "--master-addr", "127.0.0.1",
+           "--master-port", str(free_port()), *tail]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, env=env,
                             cwd=str(ROOT)), time.perf_counter()
@@ -3472,12 +3512,13 @@ def train_dp_phase(torch, np, engines, counters, dev):
     """Data-parallel l2l-p on the data axes (``--mesh data=N``), two parts.
 
     (a) In process: NCCL over a world of one (a FileStore under build/),
-    a (data=1, model=1) mesh; bert-large at full width and depth through
-    the train CLI's configuration (``DP_ARGV``): 3 steps on the mesh, the
-    counters set to 0 just before and read just after, beside 3 meshless
-    steps from the same state: losses, weights and Adam slots bit for
-    bit (checksums); 24 layer rows + the static tree + 2 scalars reduced
-    a step; the step times side by side.
+    a (data=1, model=1) mesh; bert-large at full width and ``DP_DEPTH``
+    (12) of its 24 layers through the train CLI's configuration
+    (``DP_ARGV``): 3 steps on the mesh, the counters set to 0 just before
+    and read just after, beside 3 meshless steps from the same state:
+    losses, weights and Adam slots bit for bit (checksums); 12 layer rows
+    + the static tree + 2 scalars reduced a step; the step times side by
+    side.
     (b) Two gloo ranks on this card through the train CLI under
     ``torch.distributed.run`` (each rank its own pinned EPS): the bf16
     main path, its ranks' final checksums equal, its losses beside (a)'s
@@ -3627,6 +3668,398 @@ def train_dp_phase(torch, np, engines, counters, dev):
     return out, launches, routes
 
 
+TP_RANKS = 2
+TP_DIR = ROOT / "build" / "chip_smoke_tp"
+# train-tp: bert-large at full width (16 heads, d_ff 4096, vocab 30522:
+# 8 heads, 2048 columns and 15261 rows a rank), depth 4, the train
+# phase's batch, l2l-p unpacked (the sharded relay) through the train
+# CLI's configuration
+TP_ARGV = ["--arch", "bert-large", "--variant", "full", "--engine", "l2l-p",
+           "--n-layers", "4", "--steps", "3", "--batch", "32", "--seq", "512",
+           "--ub", "4", "--weight-stream", "--prefetch", "1",
+           "--transport", "pallas", "--offload-stash", "--use-pallas",
+           "--log-every", "1", "--seed", "0", "--mesh", f"model={TP_RANKS}"]
+# its f32 check, from one snapshot of fan-in parameters (train-dp's)
+TP_F32 = DP_F32
+# the bf16 losses against one process at the same depth and batch
+TP_LOSS_REL_BF16 = 1e-3
+# serve-tp: granite-3-8b at full width (32 heads over 8 kv: 16 over 4 a
+# rank; d_ff 12800: 6400; vocab 49155 does not split: whole on both),
+# depth 4, weight_stream unpacked
+TP_SERVE_DEPTH = 4
+TP_SERVE = dict(batch=4, prompt=16, gen=4)
+# the serve phase's bound of prefill against decode_init in bf16 (granite
+# at the reference's init: one process at depth 4 stands 0.062 apart)
+TP_SERVE_BF16 = 0.35
+TP_SERVE_F32 = 1e-4
+TP_K3_CELL = "bert-large train microbatch per model rank"
+
+
+def tp_layer_bytes(cfg, ranks, LayeredModel, tree_leaves, is_spec) -> int:
+    """One layer's f32 bytes on a rank of a model axis of ``ranks``: its
+    blocks of the split leaves, the other leaves whole."""
+    from types import SimpleNamespace
+    from repro_torch.distributed import sharding as shd
+    mesh = SimpleNamespace(shape={"data": 1, "model": ranks})
+    rules = shd.make_rules(cfg, mesh)
+    return 4 * sum(math.prod(shd.local_shape(
+        s.shape, shd.spec_to_pspec(s.axes, rules, s.shape, mesh), mesh))
+        for s in tree_leaves(LayeredModel(cfg).groups[0].spec,
+                             is_leaf=is_spec))
+
+
+def tp_phase(torch, counters):
+    """The mesh's model axis: ``TP_RANKS`` gloo ranks on this card, one
+    ``torch.distributed.run`` of this script with ``--tp-rank``
+    (``tp_rank``): train-tp, then serve-tp, each rank's log under
+    chiprun_out/.  -> ({"train-tp": line, "serve-tp": line}, launches,
+    routes), the launches summed over the ranks."""
+    t0 = time.perf_counter()
+    line, secs = torchrun_line(torchrun([str(ROOT / "chip_smoke.py"),
+                                         "--tp-rank"], TP_RANKS),
+                               "tp_ranks.log", 900)
+    ranks = line["tp_ranks"]
+    out, launches, routes = {}, {}, {}
+    for key in ("train-tp", "serve-tp"):
+        got = [r[key] for r in ranks]
+        launches[key] = {n: sum(g["launches"][n] for g in got)
+                         for n in counters}
+        routes[key] = {n: {k: sum(g["routes"][n][k] for g in got)
+                           for k in got[0]["routes"][n]}
+                       for n in got[0]["routes"]}
+        out[key] = {"phase": key, "ranks": len(got), **got[0],
+                    "launches": launches[key],
+                    "rank1": {k: got[1][k] for k in got[1]
+                              if k not in ("launches", "routes")}}
+        emit(out[key])
+    out["torchrun_s"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches, routes
+
+
+def tp_rank(np, torch):
+    """One rank of ``tp_phase`` (run by ``torch.distributed.run`` with
+    ``--tp-rank``): a (data=1, model=TP_RANKS) mesh over gloo on this
+    card.
+
+    train-tp: bert-large through the train CLI's configuration
+    (``TP_ARGV``): the rank's weights checked against the slices of the
+    one-process draw (checksums), 3 steps with every counter set to 0 just
+    before and read just after, the ranks' checksums of the leaves no
+    pspec splits (and their Adam slots) equal; rank 0 then runs one
+    process from the same seed and holds the losses within
+    ``TP_LOSS_REL_BF16``; then in f32 at depth 2 and fan-in scales from
+    one snapshot, the gathered state against one process within
+    ``DP_LOSS_REL`` (losses) and ``DP_UPDATE_REL`` (each leaf's update).
+
+    serve-tp: granite-3-8b at depth ``TP_SERVE_DEPTH``, weight_stream
+    unpacked: decode_init on 4 prompts of 16 tokens, 4 greedy steps and
+    prefill, counted; prefill against decode_init within
+    ``TP_SERVE_BF16``; rank 0 holds decode_init's and prefill's logits to
+    one process on the same weights (bf16: ``TP_SERVE_BF16``); then in
+    f32 at fan-in scales, tokens equal and every step's logits within
+    ``TP_SERVE_F32`` of one process.  Rank 0 prints every rank's results
+    as one JSON line."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch import engine as engines
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.schedule import ExecutionConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed.data_parallel import tree_checksum
+    from repro_torch.distributed.sharding import shard_batch
+    from repro_torch.engine.state import TrainState
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_adam as fadam
+    from repro_torch.kernels import relay_copy as rc
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.sampling import sample_batch
+    from repro_torch.testing import fan_in_params
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    mesh = make_mesh({"data": 1, "model": TP_RANKS}, "cuda")
+    counters = {"relay_copy": rc.copy_rows,
+                "relay_copy_writeback": rc.writeback_rows,
+                "rmsnorm": rms.rmsnorm_2d,
+                "flash_attention_fwd": fa.flash_attention_fwd_bhsd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "fused_adam": fadam.fused_adam_flat}
+    mine, fails = {}, []
+
+    def check(ok, what):
+        """A failed check fails the rank after every result is printed."""
+        if not ok:
+            fails.append(what)
+
+    def done(key, line):
+        mine[key] = line
+        print(json.dumps({"tp_rank": rank, "phase": key, **line},
+                         default=str), flush=True)
+
+    def sync_sums(*trees):
+        torch.cuda.synchronize()
+        return [tree_checksum(t) for t in trees]
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    # ------------------------------------------------------------ train-tp
+    t_phase = time.perf_counter()
+    ap, args = cli.parse_args(TP_ARGV)
+    name, cfg, opt, exec_cfg = cli.setup(ap, args)
+    assert not exec_cfg.pack_params
+    eng = engines.create(name, cfg, exec_cfg, optimizer=opt, mesh=mesh)
+    one = engines.create(name, cfg, exec_cfg, optimizer=opt)
+    st0 = eng.init(torch.Generator(dev).manual_seed(args.seed))
+    whole = one.init(torch.Generator(dev).manual_seed(args.seed))
+    slices = sync_sums(st0.params)[0] == sync_sums(
+        eng.tp.shard(whole.params))[0]
+    data = cli.make_data(args, cfg)
+    batches = [shard_batch(cli.batch_at(args, cfg, data, i), mesh, eng.rules)
+               for i in range(args.steps)]
+    torch.cuda.synchronize()
+    st, losses, times, colls = st0, [], [], []
+    reset_counts(counters.values())
+    for b in batches:
+        t0 = time.perf_counter()
+        st, m = eng.train_step(st, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        colls.append(eng.tp.stats())
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    torch.cuda.synchronize()
+    whole_sums = eng.tp.gather_checksums(
+        eng.tp.whole_leaves(st.params), eng.tp.whole_leaves(st.legacy_opt()))
+    line = {"arch": cfg.name, "depth": cfg.n_layers, "batch": args.batch,
+            "seq": args.seq, "microbatches": args.ub, "dtype": cfg.dtype,
+            "heads_per_rank": cfg.n_heads // TP_RANKS,
+            "d_ff_per_rank": cfg.d_ff // TP_RANKS,
+            "vocab_per_rank": (cfg.vocab_size // TP_RANKS if eng.tp.vocab
+                               else cfg.vocab_size),
+            "weights_are_slices_of_one_process": slices,
+            "losses": losses, "step_s": times,
+            "model_collectives_per_step": colls[-1]["model_collectives"],
+            "model_collective_GB_per_step":
+                colls[-1]["model_collective_bytes"] / 1e9,
+            "model_collective_ms": [c["model_collective_ms"]
+                                    for c in colls],
+            "launches_per_step": {n: v / args.steps
+                                  for n, v in launches.items()},
+            "whole_leaf_checksums": whole_sums, "launches": launches,
+            "routes": routes}
+    del st, st0, eng
+    check(slices, "train-tp: the weights are not the one-process slices")
+    check(all(r == whole_sums[0] for r in whole_sums),
+          "train-tp: the replicated leaves differ")
+    check(all(np.isfinite(losses)), "train-tp: a loss is not finite")
+    if rank == 0:
+        ref, ref_times = whole, []
+        ref_losses = []
+        for b in batches:
+            t0 = time.perf_counter()
+            ref, m = one.train_step(ref, b)
+            ref_losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ref_times.append(time.perf_counter() - t0)
+        line["one_process_losses"] = ref_losses
+        line["one_process_step_s"] = ref_times
+        line["loss_rel_to_one_process"] = [
+            abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        del ref
+        check(max(line["loss_rel_to_one_process"]) <= TP_LOSS_REL_BF16,
+              "train-tp: bf16 losses apart from one process")
+    del whole, one
+    free_host(torch)
+    dist.barrier()
+
+    # the f32 check: depth 2 at fan-in scales, one snapshot for both
+    t0 = time.perf_counter()
+    ap, args = cli.parse_args(TP_ARGV + TP_F32)
+    name, cfg, opt, exec_cfg = cli.setup(ap, args)
+    one = engines.create(name, cfg, exec_cfg, optimizer=opt)
+    snap = TP_DIR / "f32"
+    if rank == 0:
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+        g = torch.Generator(dev).manual_seed(11)
+        params = fan_in_params(one.model.param_specs(), lambda shape:
+                               torch.randn(shape, generator=g, device=dev))
+        p = one._place_params(params)
+        one.save(str(snap), TrainState.from_legacy(
+            p, one._place_opt(one._init_opt_legacy(p), p)), step=0)
+        del params, p
+    dist.barrier()
+    eng = engines.create(name, cfg, exec_cfg, optimizer=opt, mesh=mesh)
+    data = cli.make_data(args, cfg)
+    batches = [cli.batch_at(args, cfg, data, i) for i in range(args.steps)]
+    st, _ = eng.restore(str(snap), step=0)
+    f32_losses = []
+    for b in batches:
+        st, m = eng.train_step(st, b)
+        f32_losses.append(float(m["loss"]))
+    got = bridge.gather_train_state(st, eng.tp)[0]
+    del st, eng
+    if rank == 0:
+        ref, _ = one.restore(str(snap), step=0)
+        p0 = tree_leaves(bridge.train_state_to_numpy(ref)[0])
+        one_losses = []
+        for b in batches:
+            ref, m = one.train_step(ref, b)
+            one_losses.append(float(m["loss"]))
+        want = bridge.train_state_to_numpy(ref)[0]
+        upd = max(float(np.linalg.norm(a - b) / max(
+            np.linalg.norm(b - c), 1e-30))
+            for a, b, c in zip(tree_leaves(got), tree_leaves(want), p0))
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(f32_losses, one_losses))
+        line["f32"] = {"depth": cfg.n_layers, "batch": args.batch,
+                       "init": "fan-in scales (repro_torch.testing."
+                               "fan_in_params)",
+                       "losses": f32_losses,
+                       "one_process_losses": one_losses,
+                       "loss_rel_max": loss_rel, "update_rel_l2_max": upd,
+                       "bounds": {"loss_rel": DP_LOSS_REL,
+                                  "update_rel_l2": DP_UPDATE_REL},
+                       "seconds": time.perf_counter() - t0}
+        del ref
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+        check(loss_rel <= DP_LOSS_REL and upd <= DP_UPDATE_REL,
+              "train-tp: f32 apart from one process")
+    del one, got
+    free_host(torch)
+    line["seconds"] = time.perf_counter() - t_phase
+    done("train-tp", line)
+    dist.barrier()
+
+    # ------------------------------------------------------------ serve-tp
+    t_phase = time.perf_counter()
+    full = get_config("granite-3-8b", "full")
+    cfg = full.replace(use_pallas=True, n_layers=TP_SERVE_DEPTH)
+    ex = ExecutionConfig(weight_stream=True, pack_params=False,
+                         prefetch_depth=1, transport="pallas")
+    B, P, GEN = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["gen"]
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+
+    def greedy(e, params, steps):
+        """decode_init, ``steps`` greedy steps, prefill -> (tokens, the
+        logits of decode_init and each step, prefill's, and the decode
+        steps' seconds, K4 fetches and last step's model collectives)."""
+        t0 = time.perf_counter()
+        caches, last = e.decode_init(params, prompt, P + steps)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        tok = sample_batch(last)[:, None]
+        toks, logits, step = [tok], [last], {"init_s": t_init}
+        f0 = rc.copy_rows.launches
+        t0 = time.perf_counter()
+        for i in range(steps):
+            lg, caches = e.decode_step(params, caches, tok, P + i)
+            tok = sample_batch(lg[:, -1])[:, None]
+            toks.append(tok)
+            logits.append(lg[:, -1])
+        torch.cuda.synchronize()
+        step.update(decode_s=time.perf_counter() - t0,
+                    fetches=rc.copy_rows.launches - f0,
+                    collectives=e.tp.stats() if e.tp else None)
+        pl = e.prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        return torch.cat(toks, 1), logits, pl, step
+
+    eng = engines.create("l2l", cfg, ex, mesh=mesh)
+    t0 = time.perf_counter()
+    reset_counts(counters.values())
+    params = eng.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks, logits, pl, step = greedy(eng, params, GEN)
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    layer_bytes = sum(a[0].numel() * a.element_size()
+                      for a in tree_leaves(params["groups"]))
+    # one K4 launch a leaf a layer fetch (the unpacked relay)
+    fetches = step["fetches"] / len(tree_leaves(params["groups"]))
+    gap = rel(pl, logits[0])
+    agree = int((pl.argmax(-1) == logits[0].argmax(-1)).sum())
+    line = {"arch": full.name, "depth": cfg.n_layers, "batch": B,
+            "prompt": P, "steps": GEN,
+            "heads_per_rank": [eng.tp.n_heads // TP_RANKS,
+                               eng.tp.local_kv_heads()],
+            "d_ff_per_rank": cfg.d_ff // TP_RANKS,
+            "vocab_split": eng.tp.vocab, "init_s": init_s,
+            "tokens": toks.tolist(), "decode_init_s": step["init_s"],
+            "decode_s": step["decode_s"],
+            "tok_per_s": B * GEN / step["decode_s"],
+            "layer_bytes_per_rank": layer_bytes,
+            "layer_fetches_per_step": fetches / GEN,
+            "k4_GB_per_step": fetches / GEN * layer_bytes / 1e9,
+            "rel_l2_prefill_vs_decode_init": gap, "argmax_agree": agree,
+            "model_collectives_last_step": step["collectives"],
+            "launches": launches, "routes": routes}
+    check(gap <= TP_SERVE_BF16 and agree >= B - 1,
+          "serve-tp: prefill apart from decode_init")
+    check(bool(torch.isfinite(pl).all()) and pl.shape == (B, cfg.vocab_size),
+          "serve-tp: prefill's logits")
+    if rank == 0:
+        # one process on the same weights (the same seed: the whole draw)
+        one = engines.create("l2l", cfg, ex)
+        wparams = one.init_params(torch.Generator(dev).manual_seed(0))
+        line["weights_are_slices_of_one_process"] = sync_sums(params)[0] == \
+            sync_sums(eng.tp.shard(wparams))[0]
+        _, o_logits, o_pl, _ = greedy(one, wparams, 0)
+        line["bf16_rel_l2_to_one_process"] = {
+            "decode_init": rel(logits[0], o_logits[0]),
+            "prefill": rel(pl, o_pl)}
+        line["one_process_rel_l2_prefill_vs_decode_init"] = rel(
+            o_pl, o_logits[0])
+        del one, wparams
+        check(line["weights_are_slices_of_one_process"],
+              "serve-tp: the weights are not the one-process slices")
+        check(max(line["bf16_rel_l2_to_one_process"].values())
+              <= TP_SERVE_BF16, "serve-tp: bf16 apart from one process")
+    del params, eng
+    free_host(torch)
+    dist.barrier()
+    # f32 at fan-in scales: tokens equal, logits within TP_SERVE_F32
+    c32 = cfg.replace(dtype="float32")
+    eng = engines.create("l2l", c32, ex, mesh=mesh)
+    g = torch.Generator(dev).manual_seed(5)
+    wparams = fan_in_params(eng.model.param_specs(), lambda shape:
+                            torch.randn(shape, generator=g, device=dev))
+    toks32, logits32, pl32, _ = greedy(eng, eng.tp.shard(wparams), GEN)
+    del eng
+    if rank == 0:
+        one = engines.create("l2l", c32, ex)
+        o_toks, o_logits, o_pl, _ = greedy(one, wparams, GEN)
+        worst = max([rel(a, b) for a, b in zip(logits32, o_logits)]
+                    + [rel(pl32, o_pl)])
+        line["f32"] = {"init": "fan-in scales", "tokens": toks32.tolist(),
+                       "tokens_equal": bool(torch.equal(toks32, o_toks)),
+                       "logits_rel_l2_max": worst, "bound": TP_SERVE_F32}
+        del one
+        check(line["f32"]["tokens_equal"] and worst <= TP_SERVE_F32,
+              "serve-tp: f32 apart from one process")
+    del wparams
+    free_host(torch)
+    line["seconds"] = time.perf_counter() - t_phase
+    done("serve-tp", line)
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if rank == 0:
+        print(json.dumps({"tp_ranks": every}), flush=True)
+    dist.destroy_process_group()
+    assert not fails, fails
+
+
 def state_tensors(torch, state):
     """Every tensor of a train state on the host: the pinned rows as they
     are (a step never writes its inputs), the device's as copies."""
@@ -3757,7 +4190,8 @@ def backward_device_ms(torch, F, dev, fa, rows, gqa):
     # so SDPA's causal mask is the same mask) and internvl2's (GQA 14 over
     # 2, S = 768)
     for cell, key in (("hymba train microbatch", "hymba"),
-                      ("internvl2 train microbatch", "internvl2")):
+                      ("internvl2 train microbatch", "internvl2"),
+                      (TP_K3_CELL, "bert_large_per_model_rank")):
         cr = [r for r in k3 if r.get("cell") == cell]
         B, S, H, D = cr[0]["shape"]
         assert cr[0]["window"] == 0 or cr[0]["window"] >= S
@@ -3871,6 +4305,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--depth", type=int, default=0,
                     help="layers to serve (0 = all that the host can pin)")
+    ap.add_argument("--tp-rank", action="store_true",
+                    help="run one rank of the tp phase (started by the "
+                         "phase itself under torch.distributed.run)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3879,6 +4316,8 @@ def main(argv=None):
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.tp_rank:
+        return tp_rank(np, torch)
     import torch.nn.functional as F
 
     from repro_torch import bridge
@@ -4185,12 +4624,33 @@ def main(argv=None):
     # trained), then the f32 routes of K2, K3a and K3b
     rows += gqa_attention_rows(torch, F, dev, g, fa, kops, ref, grok,
                                (2, 2048), None, ("grok-1 prefill",))
+    # the model axis's per-rank shapes (tp phase): bert-large's training
+    # microbatch over 8 of its 16 heads, granite-3-8b's prompts over 16 of
+    # its 32 q heads and 4 of its 8 kv heads
+    bert_full = get_config("bert-large", "full")
+    rows += gqa_attention_rows(
+        torch, F, dev, g, fa, kops, ref,
+        bert_full.replace(n_heads=bert_full.n_heads // TP_RANKS,
+                          n_kv_heads=bert_full.n_kv_heads // TP_RANKS),
+        (8, 512), (8, 512), ("bert-large microbatch per model rank",
+                             TP_K3_CELL))
+    rows += gqa_attention_rows(
+        torch, F, dev, g, fa, kops, ref,
+        full.replace(n_heads=full.n_heads // TP_RANKS,
+                     n_kv_heads=full.n_kv_heads // TP_RANKS),
+        (TP_SERVE["batch"], TP_SERVE["prompt"]), None,
+        ("granite-3-8b prompts per model rank",))
     rows += f32_attention_rows(torch, F, dev, g, fa)
     # K4 at the modality families' rows: an internvl2 layer (59.6 MB f32)
     # and whisper's encoder and decoder layers (12.6 / 16.8 MB), each
     # way, against copy_
     rows += modality_k4_rows(torch, dev, g, rc, ref, get_config,
                              LayeredModel, tree_leaves, is_spec)
+    # K4 at one model rank's layer rows: bert-large's and granite-3-8b's
+    rows += k4_rows(torch, dev, g, rc, ref, [
+        (f"{c.name} layer per model rank", tp_layer_bytes(
+            c, TP_RANKS, LayeredModel, tree_leaves, is_spec))
+        for c in (bert_full, full)])
     torch.cuda.empty_cache()
     report["kernels"] = {"phase": "kernels", "rows": rows}
     emit(report["kernels"])
@@ -4690,6 +5150,12 @@ def main(argv=None):
     report["train_dp"]["phase_seconds"] = time.perf_counter() - t0
     emit(report["train_dp"])
 
+    # ------------------------------------------------------------------- tp
+    # the model axis: two more processes on the card, beside train-dp's
+    report["tp"], tp_launches, tp_routes = tp_phase(torch, counters)
+    emit({"phase": "tp-seconds", "torchrun": report["tp"]["torchrun_s"],
+          "tp": report["tp"]["seconds"]})
+
     # --------------------------------------------------------- memory-model
     # the analytic model (the reference's buffers, not PyTorch's
     # allocator) beside this run's peaks: printed, not tied
@@ -4730,7 +5196,7 @@ def main(argv=None):
                 "host-optimizer": host_launches, "train-dp": dp_launches,
                 "serve-moe": smoe_launches, "train-moe": tmoe_launches,
                 **rec_launches, **mod_launches, "serve-grok": grok_launches,
-                **tier_launches}
+                **tier_launches, **tp_launches}
     routes = {"serve": serve_routes, "serve-dense": dense_routes,
               "serve-continuous": cont_routes,
               "train": train_routes, "train-rmsnorm": rms_routes,
@@ -4738,9 +5204,9 @@ def main(argv=None):
               "train-dp": dp_routes,
               "serve-moe": smoe_routes, "train-moe": tmoe_routes,
               **rec_routes, **mod_routes, "serve-grok": grok_routes,
-              **tier_routes}
+              **tier_routes, **tp_routes}
     emit({"launches": launches, "routes": routes})
-    assert len(launches) == 21, sorted(launches)
+    assert len(launches) == 23, sorted(launches)
     for path in [p for p in launches if p != "serve"]:
         got, by = launches[path], routes[path]
         # every bf16 K2, K3a and K3b launch of the path took the wgmma route
@@ -4789,7 +5255,11 @@ def main(argv=None):
                                    "flash_attention_fwd"),
                     "tier-train": train_kernels,
                     "tier-serve": ("relay_copy", "rmsnorm",
-                                   "flash_attention_fwd")}
+                                   "flash_attention_fwd"),
+                    # unpacked: no K1 (the fused update takes packed rows)
+                    "train-tp": train_kernels[:-1],
+                    "serve-tp": ("relay_copy", "rmsnorm",
+                                 "flash_attention_fwd")}
     for path, names in path_kernels.items():
         assert all(launches[path].get(n, 0) > 0 for n in names), \
             (path, launches[path])

@@ -78,3 +78,44 @@ def train_state_to_numpy(state):
     return (params_to_numpy(params), params_to_numpy(opt), int(state.step),
             None if state.loss_scale is None
             else params_to_numpy(state.loss_scale))
+
+
+def params_to_rank(tree, tp, device="cpu"):
+    """The reference's whole numpy parameters -> this model rank's blocks
+    (``distributed.tensor_parallel.TensorParallel.shard``) as tensors on
+    ``device``."""
+    return tp.shard(params_from_numpy(tree, device))
+
+
+def train_state_to_rank(params, opt_state, step, tp, loss_scale=None, *,
+                        device="cpu"):
+    """numpy trees of a whole reference TrainState (unpacked) -> this
+    model rank's ``TrainState``: the blocks of every split leaf and of its
+    optimizer slots, the other leaves whole."""
+    from repro_torch.engine.state import TrainState
+    return TrainState(
+        params=params_to_rank(params, tp, device),
+        opt_state=tp.shard(params_from_numpy(opt_state, device)),
+        step=int(step), loss_scale=None if loss_scale is None
+        else params_from_numpy(loss_scale, device))
+
+
+def gather_params(tree, tp):
+    """This model rank's blocks -> the whole parameters (or gradients) as
+    numpy trees, gathered over the model group (every rank calls it)."""
+    from repro_torch.core import packing
+    return params_to_numpy(tp.gather(packing.unpack_params(tree)))
+
+
+def gather_train_state(state, tp):
+    """``train_state_to_numpy`` of the whole state a model rank's blocks
+    belong to (every rank calls it: one gather per split leaf)."""
+    from repro_torch.core import packing
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    opt = packing.unpack_opt_state(dict(state.opt_state), state.params)
+    params = packing.unpack_params(state.params)
+    return (params_to_numpy(tp.gather(params)),
+            params_to_numpy(tp.gather(opt)), int(state.step),
+            None if state.loss_scale is None
+            else params_to_numpy(state.loss_scale))

@@ -75,21 +75,29 @@ def _grads_and_weight(model, exec_cfg: ExecutionConfig, dp) -> Callable:
 
 
 def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
-                    dp=None) -> Callable:
+                    dp=None, tp=None) -> Callable:
     """Algorithm 1 (UB=1) / Algorithm 2 (UB>1): one update at the end of
-    the minibatch (of the global batch's gradient with ``dp``)."""
+    the minibatch (of the global batch's gradient with ``dp``).  With
+    ``tp`` (the model axis) the params are this rank's blocks; the model's
+    autograd reduces over the model group, the grad norm and the clips
+    sum the split leaves' squares over it and the finite flag is agreed
+    over it."""
     grads_fn = _grads_and_weight(model, exec_cfg, dp)
+    ps = None if tp is None else tp.param_pspecs
 
     def step(params, opt_state, batch):
         loss, grads, wsum = grads_fn(params, batch)
-        gnorm = tree_global_norm(grads)
+        gnorm = tree_global_norm(grads, tp, ps)
         finite = torch.stack([torch.isfinite(g).all()
                               for g in tree_leaves(grads)]).all()
+        if tp is not None:
+            finite = tp.all_true(finite)
         if exec_cfg.clip_mode == "per_layer":
             # the reference clips each stacked group tree as a whole
             grads = {**grads, "groups": tuple(
-                clip_by_norm(g, exec_cfg.clip_norm)[0]
-                for g in grads["groups"])}
+                clip_by_norm(g, exec_cfg.clip_norm, tp,
+                             None if tp is None else ps["groups"][gi])[0]
+                for gi, g in enumerate(grads["groups"]))}
         new_params, new_inner = optimizer.update(
             grads, {k: opt_state[k] for k in ("embed", "head", "groups")},
             params, opt_state["step"])

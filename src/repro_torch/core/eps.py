@@ -148,8 +148,9 @@ def make_placements(exec_cfg, n_groups: int, device="cpu", mesh=None,
     On a mesh each placement also carries the pspecs of what it moves:
     ``weight_pspecs[g]`` / ``opt_pspecs[g]`` for one relay slot of group g,
     ``stash_pspec`` for the stash (P() when None).  Each rank moves its
-    own part (its rows of a batch-sharded stash; a replicated slot whole),
-    so the moves are the device's own."""
+    own part (its rows of a batch-sharded stash, its blocks of the leaves
+    a pspec splits over "model"; a replicated slot whole), so the moves
+    are the device's own."""
     device = torch.device(device)
     disk = tier_spec(exec_cfg)
     if device.type != "cuda":

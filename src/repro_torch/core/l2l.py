@@ -97,6 +97,7 @@ from repro_torch.core.host_opt import HostOptimizer
 from repro_torch.core.relay import Sink, Stream, depth_window, relay_scan
 from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten_like
+from repro_torch.distributed.sharding import is_pspec, is_split_over
 from repro_torch.kernels import relay_copy
 from repro_torch.optim import Optimizer, clip_by_norm, tree_global_norm
 
@@ -180,9 +181,15 @@ def _vjp(fn, inputs: list, cotangent, zeros: bool = True):
     return out, list(grads)
 
 
-def _finite(tree) -> torch.Tensor:
-    return torch.stack([torch.isfinite(g).all()
+def _finite(tree, tp=None, pspecs=None) -> torch.Tensor:
+    """Whether every leaf is finite; on the model axis agreed over the
+    group when a pspec splits a leaf (each rank sees its block)."""
+    flag = torch.stack([torch.isfinite(g).all()
                         for g in tree_leaves(tree)]).all()
+    if tp is not None and any(map(is_split_over, tree_leaves(
+            pspecs, is_leaf=is_pspec))):
+        flag = tp.all_true(flag)
+    return flag
 
 
 def _where(flag, new, old):
@@ -224,7 +231,7 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                     placements: Optional[EPSPlacements] = None,
                     device="cpu", copy_stream=None,
                     writeback_stream=None, grad_ring: int = 2,
-                    dp=None) -> Callable:
+                    dp=None, tp=None) -> Callable:
     """Returns step(params, opt_state, batch[, n_active]) -> (params',
     opt_state', metrics).  ``opt_state`` = {"step": int, "embed", "head",
     "groups" [, "loss_scale"]} — build with ``init_opt_state``.  With
@@ -241,7 +248,14 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
     microbatch sum, in one flat f32 row, before the ``/ S_loss``), the
     static tree's gradient once, and the loss sum for the metric.  The
     finite flags, clips, norms, updates and shipments that follow all see
-    the global gradient, so the ranks stay bit for bit equal."""
+    the global gradient, so the ranks stay bit for bit equal.
+
+    ``tp`` (a ``distributed.tensor_parallel.TensorParallel``): the model's
+    layers compute on this rank's blocks and reduce over the model group
+    inside their own autograd (the per-layer vjp needs nothing more); the
+    finite flags are agreed over the group and the norms (clips, the
+    grad norm) sum the squares of the split leaves over it, each whole
+    leaf once."""
     groups = model.groups
     device = torch.device(device)
     if placements is None:
@@ -458,7 +472,7 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
         # loss adds each layer's aux summed over microbatches over UB
         d_aux = S_loss / UB
 
-        def bwd_body(core, slots, stash_l, _g, _ctx, _mem):
+        def bwd_body(core, slots, stash_l, _g, _ctx, _mem, _gi):
             """Recompute-vjp microbatch loop (+ eager update) of one
             layer.  With pack_params the vjp differentiates the UNPACKED
             views and every gradient-side reduction stays on the tree.
@@ -495,11 +509,12 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             if dp is not None:
                 dp.all_reduce_(row)
             dw = tree_unflatten_like(w_tree, [g / S_loss for g in dw])
-            finite_l = _finite(dw)
+            ps = None if tp is None else tp.layer_pspecs[_gi]
+            finite_l = _finite(dw, tp, ps)
             if CLIP:
-                dw, _ = clip_by_norm(dw, exec_cfg.clip_norm)
-            gn_c = gn_c + torch.where(finite_l, tree_global_norm(dw) ** 2,
-                                      0.0)
+                dw, _ = clip_by_norm(dw, exec_cfg.clip_norm, tp, ps)
+            gn_c = gn_c + torch.where(
+                finite_l, tree_global_norm(dw, tp, ps) ** 2, 0.0)
             nf_c = nf_c + torch.where(finite_l, 0, 1)
             # the gradient as it travels: one flat f32 row aligned to the
             # weight layout when packed
@@ -534,8 +549,8 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
             # the group's dmem starts at zero and sums over its layers
             core = (core[0], None if mem is None else torch.zeros_like(mem),
                     ) + core[2:]
-            body = (lambda c, sl, x, _g=group, _ctx=ctxs[gi], _m=mem:
-                    bwd_body(c, sl, x, _g, _ctx, _m))
+            body = (lambda c, sl, x, _g=group, _ctx=ctxs[gi], _m=mem, _i=gi:
+                    bwd_body(c, sl, x, _g, _ctx, _m, _i))
             if SE == 1:
                 streams = [Stream(wp, W)] + \
                     ([Stream(op, O)] if with_opt else [])
@@ -609,16 +624,17 @@ def make_train_step(model, optimizer: Optimizer, exec_cfg: ExecutionConfig,
                 static, [a.float() for a in g]))
         if dp is not None:
             d_static = dp.reduce_tree(d_static)
-        gnorm_sq = gnorm_sq + tree_global_norm(d_static) ** 2
+        sps = None if tp is None else tp.static_pspecs
+        gnorm_sq = gnorm_sq + tree_global_norm(d_static, tp, sps) ** 2
 
         # ------------------------------------------------------------
         # UPDATES: static params; layer params here if not eager (Alg 3)
         # ------------------------------------------------------------
         d_static = tree_map(lambda g: g / S_loss, d_static)
-        finite_s = _finite(d_static)
+        finite_s = _finite(d_static, tp, sps)
         nonfinite = nonfinite + torch.where(finite_s, 0, 1)
         if CLIP:
-            d_static, _ = clip_by_norm(d_static, exec_cfg.clip_norm)
+            d_static, _ = clip_by_norm(d_static, exec_cfg.clip_norm, tp, sps)
         static_opt = {"embed": opt_state["embed"], "head": opt_state["head"]}
         new_static, new_static_opt = optimizer.update(
             d_static, static_opt, static, opt_step)
@@ -724,14 +740,15 @@ def _row_to_device(tree, row: int, device, copy_stream, writeback_stream):
 def make_grads_fn(model, exec_cfg: ExecutionConfig,
                   placements: Optional[EPSPlacements] = None, device="cpu",
                   copy_stream=None, writeback_stream=None,
-                  dp=None) -> Callable:
+                  dp=None, tp=None) -> Callable:
     """Returns grads(params, batch[, n_active]) -> (loss, grads) computed
     with the L2L schedule (layer-major, recompute, trailing gradient
     shipment): the train step with an 'optimizer' that stores the
     gradient.  Only the schedule and layout knobs carry over (no AMP,
     clip, eager or host update); with ``dynamic_depth`` the rows past
     ``n_active`` come out zero.  With ``dp`` the loss and gradients are
-    the global batch's (``make_train_step``)."""
+    the global batch's, with ``tp`` this rank's blocks of them
+    (``make_train_step``)."""
     cfg = ExecutionConfig(
         n_microbatches=exec_cfg.n_microbatches,
         offload_stash=exec_cfg.offload_stash,
@@ -748,7 +765,7 @@ def make_grads_fn(model, exec_cfg: ExecutionConfig,
     if placements is None:
         placements = make_placements(cfg, len(model.groups), device)
     base_step = make_train_step(model, collector, cfg, placements, device,
-                                copy_stream, writeback_stream, dp=dp)
+                                copy_stream, writeback_stream, dp=dp, tp=tp)
 
     def fn(params, batch, n_active=None):
         opt = init_opt_state(collector, params)

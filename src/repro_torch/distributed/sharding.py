@@ -30,7 +30,9 @@ it equals the JAX ``PartitionSpec`` with the same entries as a tuple.
 (``Shard(i)`` / ``Replicate()`` per mesh dimension) and its resting
 place; ``shard_batch`` cuts a global batch to one rank's rows, as a
 ``NamedSharding`` with ``P("data")`` lays them out (contiguous blocks in
-rank order).
+rank order), and ``local_shape`` / ``shard_leaf`` cut a whole leaf to one
+rank's block under its pspec the same way (``distributed.
+tensor_parallel`` gathers the blocks back over the model group).
 """
 from __future__ import annotations
 
@@ -238,18 +240,74 @@ def layer_slice_pspecs(model, mesh, rules):
     return tuple(pspec_tree(g.spec, rules) for g in model.groups)
 
 
-def data_index(mesh) -> int:
-    """This rank's index along the data axes (pod major, data minor), from
-    a DeviceMesh's coordinate or a stand-in's ``coordinate`` mapping."""
+def _coordinate(mesh) -> dict:
+    """``{axis name: this rank's index}`` from a DeviceMesh's coordinate or
+    a stand-in's ``coordinate`` mapping."""
     shape = mesh_shape(mesh)
     if hasattr(mesh, "get_coordinate"):
-        coord = dict(zip(shape, mesh.get_coordinate()))
-    else:
-        coord = dict(mesh.coordinate)
+        return dict(zip(shape, mesh.get_coordinate()))
+    return dict(mesh.coordinate)
+
+
+def _axes_index(mesh, axes) -> int:
+    """This rank's index along ``axes`` (the first major)."""
+    shape, coord = mesh_shape(mesh), _coordinate(mesh)
     idx = 0
-    for ax in _data_axes(mesh) or ():
+    for ax in axes or ():
         idx = idx * shape[ax] + int(coord[ax])
     return idx
+
+
+def data_index(mesh) -> int:
+    """This rank's index along the data axes (pod major, data minor)."""
+    return _axes_index(mesh, _data_axes(mesh))
+
+
+def model_index(mesh) -> int:
+    """This rank's index along the "model" axis (0 without one)."""
+    if mesh is None or "model" not in mesh_shape(mesh):
+        return 0
+    return _axes_index(mesh, ("model",))
+
+
+def _names(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def local_shape(shape, pspec: P, mesh) -> tuple:
+    """The shape of one rank's block of a leaf of ``shape`` laid out as
+    ``pspec``: each dim a pspec entry names is split by its axes' size."""
+    out = list(shape)
+    for i, entry in enumerate(pspec):
+        if entry is not None:
+            n = _axis_size(mesh, entry)
+            assert out[i] % n == 0, (tuple(shape), pspec, n)
+            out[i] //= n
+    return tuple(out)
+
+
+def shard_leaf(a, pspec: P, mesh):
+    """This rank's contiguous block of the whole leaf ``a`` under
+    ``pspec`` (a view): along each split dim the block at the rank's index
+    over that entry's axes, as a ``NamedSharding`` lays blocks out."""
+    for i, entry in enumerate(pspec):
+        if entry is None:
+            continue
+        n = _axis_size(mesh, entry)
+        per = a.shape[i] // n
+        a = a.narrow(i, _axes_index(mesh, _names(entry)) * per, per)
+    return a
+
+
+def stacked_pspec(pspec: P) -> P:
+    """The pspec of a stacked ``(N, ...)`` leaf from its one-layer pspec
+    (the relay axis is never split)."""
+    return P(None, *pspec) if len(pspec) else P()
+
+
+def is_split_over(pspec: P, axis: str = "model") -> bool:
+    """Whether ``pspec`` splits some dim over ``axis``."""
+    return any(e is not None and axis in _names(e) for e in pspec)
 
 
 def shard_batch(batch: dict, mesh, rules: dict) -> dict:

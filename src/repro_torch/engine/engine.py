@@ -62,9 +62,22 @@ layer's gradient once, the static tree once, the loss weight and the
 loss), so their loss, grad norm, weight sum and new state are the global
 batch's on every rank; their metrics count the all-reduces and bytes.
 ``init`` and ``restore`` check by checksum that every rank holds the same
-state.  ``prefill`` and the decode calls need no collective.  A "model"
-axis over 1, a MoE config on more than one data rank and
-``serve_session`` on more than one data rank raise NotImplementedError.
+state.
+
+A "model" axis over 1 runs the dense family tensor parallel
+(``distributed.tensor_parallel``): each rank holds and relays its blocks
+of the heads, ffn columns and (where it divides) vocabulary, the model's
+own autograd sums over the model group, the norms and finite flags agree
+over it, ``prefill`` and the decode calls return the whole logits, and the
+decode caches hold the rank's kv heads.  ``init`` draws every leaf whole
+and keeps the rank's block; ``init`` and ``restore`` also check that the
+leaves no pspec splits agree over the model group; ``save`` gathers and
+rank 0 writes the meshless snapshot; ``restore`` slices.  With
+``pack_params`` the packed rows stay whole on every model rank (the
+reference's placements) and only the embedding and head split.  Metrics
+count the model group's collectives.  MoE and the other families on a
+model axis, a MoE config on more than one data rank and ``serve_session``
+on a mesh of more than one rank raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -87,6 +100,7 @@ from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.data_parallel import DataParallel
+from repro_torch.distributed.tensor_parallel import TensorParallel
 from repro_torch.engine.placement import placements_for
 from repro_torch.engine.registry import register
 from repro_torch.engine.state import TrainState
@@ -108,14 +122,20 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_mesh(cfg, mesh):
-    """The mesh axes this port runs: the data axes ("pod", "data"), with
-    the model axis of size 1."""
-    if shd.model_size(mesh) > 1:
+    """The mesh axes this port runs: the data axes ("pod", "data") for
+    every family but MoE, and the model axis for the dense family."""
+    m = shd.model_size(mesh)
+    if m > 1 and cfg.n_experts:
         raise NotImplementedError(
-            f"a 'model' mesh axis of size {shd.model_size(mesh)}: tensor "
-            "parallel leaves, the seq-sharded decode cache and expert "
-            "parallelism are not supported yet; an Engine runs the data "
-            "axes with model=1")
+            f"{cfg.name} (n_experts={cfg.n_experts}) on a 'model' axis of "
+            f"{m}: expert parallelism over 'model', the router's batch "
+            "statistics over 'data' and the grouped dispatch come with the "
+            "next slice")
+    if m > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family}) on a 'model' axis of {m}: "
+            "the model axis runs the dense family; the hybrid, SSM, VLM "
+            "and audio families on it come with the next slice")
     if cfg.n_experts and shd.data_size(mesh) > 1:
         raise NotImplementedError(
             f"{cfg.name} (n_experts={cfg.n_experts}) on {shd.data_size(mesh)} "
@@ -144,11 +164,19 @@ class Engine:
         self.mesh = mesh
         self.rules = rules
         self.dp = None
+        self.tp = None
         if mesh is not None:
             _check_mesh(model.cfg, mesh)
             if rules is None:
                 self.rules = shd.make_rules(model.cfg, mesh, kind="train")
             self.dp = DataParallel(mesh)
+            if shd.model_size(mesh) > 1:
+                # packed rows are replicated over "model": the layers run
+                # whole on every model rank
+                self.tp = TensorParallel(
+                    mesh, model.cfg, model.param_specs(), self.rules,
+                    shard_layers=not self.exec_cfg.pack_params)
+                self.model = model = LayeredModel(model.cfg, tp=self.tp)
         self.placements = placements or placements_for(
             model, self.exec_cfg, mesh, self.rules, self.optimizer,
             self.device)
@@ -200,14 +228,21 @@ class Engine:
         and written into its resting place — pinned host memory when
         ``weight_stream`` on CUDA, packed rows when ``pack_params`` — so a
         model larger than the card initializes without ever being whole on
-        it.  The values equal ``model.init_params`` from the same seed."""
-        m, dev = self.model, self.device
+        it.  The values equal ``model.init_params`` from the same seed; on
+        the model axis every leaf is drawn whole and the rank keeps its
+        block (``TensorParallel.shard``), the slice of the one-process
+        draw."""
+        m, dev, tp = self.model, self.device, self.tp
         embed, head = m.init_static(generator, dev)
+        if tp is not None:
+            embed, head = tp.shard_static(embed, head)
         groups = []
         for gi, g in enumerate(m.groups):
             place = self.placements.weights[gi]
             dest = None
             for li, layer in enumerate(m.init_layers(gi, generator, dev)):
+                if tp is not None:
+                    layer = tp.shard_layer(gi, layer)
                 row = packing.pack(layer, stacked=False) \
                     if self.exec_cfg.pack_params else layer
                 if dest is None:
@@ -232,6 +267,8 @@ class Engine:
         ``pack_params`` the stacked groups as per-dtype flat rows; the
         groups in their resting place (pinned host when streaming), the
         embedding and head on the device.  Idempotent."""
+        if self.tp is not None:
+            self.tp.check_local(params, self.model.param_specs())
         p = packing.pack_params(params) if self.exec_cfg.pack_params \
             else params
         return {"embed": self._to_dev(p["embed"]),
@@ -279,14 +316,23 @@ class Engine:
 
     def check_replicas(self, state: TrainState):
         """On a mesh: raise unless every data rank holds this state bit for
-        bit (weights, optimizer slots), checked by checksum; returns this
-        rank's ``(weights, slots)`` checksums.  None without a mesh."""
+        bit (weights, optimizer slots: each rank's blocks) and every model
+        rank the same leaves where no pspec splits them, checked by
+        checksum; returns this rank's ``(weights, slots)`` checksums over
+        the data group.  None without a mesh."""
         if self.dp is None:
             return None
         if self.device.type == "cuda":
             # the pinned rows were written by kernels the host did not see
             torch.cuda.synchronize(self.device)
+        if self.tp is not None:
+            self.tp.check_replicas(state.params, state.legacy_opt())
         return self.dp.check_replicas(state.params, state.opt_state)
+
+    def _begin(self):
+        for group in (self.dp, self.tp):
+            if group is not None:
+                group.begin()
 
     def _place_state(self, state: TrainState):
         params = self._place_params(state.params)
@@ -301,12 +347,14 @@ class Engine:
                                     self.exec_cfg, self.placements,
                                     self.device, self.copy_stream,
                                     self.writeback_stream,
-                                    grad_ring=self.grad_ring, dp=self.dp)
+                                    grad_ring=self.grad_ring, dp=self.dp,
+                                    tp=self.tp)
 
     def _make_grads(self):
         return _l2l.make_grads_fn(self.model, self.exec_cfg, self.placements,
                                   self.device, self.copy_stream,
-                                  self.writeback_stream, dp=self.dp)
+                                  self.writeback_stream, dp=self.dp,
+                                  tp=self.tp)
 
     def _end_of_step(self):
         if self.copy_stream is not None:
@@ -339,8 +387,7 @@ class Engine:
             state = tier.stage_in(state)
         params, opt = self._place_state(state)
         del state
-        if self.dp is not None:
-            self.dp.begin()
+        self._begin()
         with torch.no_grad():
             new_p, new_o, metrics = self._fns["train_step"](
                 params, opt, self._batch(batch), *depth)
@@ -348,6 +395,9 @@ class Engine:
         if self.dp is not None:
             metrics["all_reduces"] = self.dp.calls
             metrics["all_reduce_bytes"] = self.dp.bytes
+        if self.tp is not None:
+            metrics["model_collectives"] = dict(self.tp.calls)
+            metrics["model_collective_bytes"] = sum(self.tp.bytes.values())
         del params, opt
         state = TrainState.from_legacy(new_p, new_o)
         del new_p, new_o
@@ -362,8 +412,7 @@ class Engine:
             self._fns["grads"] = self._make_grads()
         depth = self._depth(n_layers)
         params = self._materialize(state_or_params)
-        if self.dp is not None:
-            self.dp.begin()
+        self._begin()
         with torch.no_grad():
             out = self._fns["grads"](self._place_params(params),
                                      self._batch(batch), *depth)
@@ -389,7 +438,12 @@ class Engine:
         N newest snapshots.  Waits for the card first: the pinned rows are
         written by kernels the host does not see.  With the disk tier the
         state is staged in whole, and ``directory`` becomes the store's
-        rebuild source."""
+        rebuild source.
+
+        On a mesh every rank calls it: the split leaves are gathered over
+        the model group, and rank 0 alone writes the meshless snapshot of
+        the whole state (the same bytes a meshless engine writes); the
+        other ranks return its path."""
         if self.tier is not None:
             state = self.tier.stage_in(state)
             self.tier.attach_checkpoints(directory, prefix, self)
@@ -398,9 +452,13 @@ class Engine:
         if self.exec_cfg.pack_params:
             opt = packing.unpack_opt_state(opt, params)
             params = packing.unpack_params(params)
-        opt["step"] = np.asarray(opt["step"], np.int32)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.tp is not None:
+            params, opt = self.tp.gather(params), self.tp.gather(opt)
+        opt["step"] = np.asarray(opt["step"], np.int32)
+        if self.mesh is not None and torch.distributed.get_rank() != 0:
+            return ckpt_io.snapshot_path(directory, step, prefix)
         return ckpt_io.save_train_state(
             directory, params, opt, step, prefix=prefix,
             keep_last=keep_last, fingerprint=self.state_fingerprint())
@@ -424,11 +482,14 @@ class Engine:
         falls back to the previous good one.  The groups go straight from
         the host copy into their resting place (pinned rows when
         streaming, packed when ``pack_params``); only the embedding and
-        head reach the device whole."""
+        head reach the device whole.  On the model axis each rank reads the
+        whole snapshot and keeps its blocks."""
         like_p, like_o = self._snapshot_like()
         params, opt, step = ckpt_io.restore_train_state(
             directory, like_p, like_o, step=step, prefix=prefix,
             fingerprint=self.state_fingerprint())
+        if self.tp is not None:
+            params, opt = self.tp.shard(params), self.tp.shard(opt)
         params = self._place_params(params)
         state = TrainState.from_legacy(params, self._place_opt(opt, params))
         self.check_replicas(state)
@@ -447,6 +508,7 @@ class Engine:
                 self.model, self.exec_cfg, self.placements, self.device,
                 self.copy_stream)
         depth = self._depth(n_layers)
+        self._begin()
         with torch.inference_mode():
             batch = tree_map(lambda a: a.to(self.device), batch)
             return self._fns["prefill"](
@@ -458,6 +520,7 @@ class Engine:
         (whisper: ``frames`` (B, n_frames, d) go through the encoder
         first).  Returns (caches, last_logits)."""
         self._depth(n_layers)
+        self._begin()
         with torch.inference_mode():
             return _decode.prefill(
                 self.model, self._relay_params(self._materialize(params)),
@@ -474,6 +537,7 @@ class Engine:
                 self.model, self.exec_cfg, self.placements, self.device,
                 self.copy_stream)
         depth = self._depth(n_layers)
+        self._begin()
         with torch.inference_mode():
             return self._fns["decode_step"](
                 self._relay_params(self._materialize(params)), caches,
@@ -493,12 +557,12 @@ class Engine:
             srv.submit(prompt_ids, max_new=32)
             done = srv.run()
         """
-        if shd.data_size(self.mesh) > 1:
+        if shd.data_size(self.mesh) > 1 or shd.model_size(self.mesh) > 1:
             # the reference's serve package reads no mesh
             raise NotImplementedError(
-                f"serve_session on {shd.data_size(self.mesh)} data ranks: "
+                f"serve_session on a mesh of {shd.mesh_shape(self.mesh)}: "
                 "continuous batching runs on one rank (prefill, decode_init "
-                "and decode_step run each rank's rows)")
+                "and decode_step run each rank's rows and heads)")
         params = self._materialize(state_or_params)
         if serve_cfg is None:
             serve_cfg = ServeConfig(**kw)
@@ -557,14 +621,16 @@ class BaselineEngine(Engine):
                                    host_optimizer=False)
 
     def init_params(self, generator: torch.Generator):
-        return self.model.init_params(generator, self.device)
+        params = self.model.init_params(generator, self.device)
+        return params if self.tp is None else self.tp.shard(params)
 
     def _init_opt_legacy(self, params):
         return _baseline.init_opt_state(self.optimizer, params)
 
     def _make_step(self):
         return _baseline.make_train_step(self.model, self.optimizer,
-                                         self.exec_cfg, dp=self.dp)
+                                         self.exec_cfg, dp=self.dp,
+                                         tp=self.tp)
 
     def _make_grads(self):
         return _baseline.make_grads_fn(self.model, self.exec_cfg,

@@ -30,7 +30,10 @@ def placements_for(model, exec_cfg, mesh=None, rules=None, optimizer=None,
     With ``exec_cfg.pack_params`` the relayed trees are ``packing.Packed``
     flat rows, which cannot take the per-leaf tensor-parallel specs: the
     packed rows are replicated (P()), and the stash is split over the
-    batch axes (P(None, batch)) as it is unpacked.
+    batch axes (P(None, batch)) as it is unpacked.  Unpacked, each model
+    rank's rows are its blocks of the leaves these pspecs split (its
+    pinned EPS holds 1/M of their bytes, the other leaves whole), and K4
+    fetches and writes back those rows.
     """
     n = len(model.groups)
     if mesh is None:

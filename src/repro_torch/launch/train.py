@@ -41,18 +41,25 @@ Data parallel over the mesh's data axes, one process a rank, launched by
     python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.train --mesh data=2 ... --batch 32
 
-``--mesh data=N[,model=1]`` needs a world of N ranks (a single process
-with ``--mesh data=1`` runs a world of one over a file store); a process
-group that does not start raises.  ``--batch`` is the global batch: each
-rank trains on its rows of ``data.batch(i)`` (``distributed.sharding.
-shard_batch``), and the layer relay sums each layer's gradient over the
-ranks once (``core.l2l``), so every rank ends each step with the same
-state.  ``--dist-backend`` is nccl on the card, gloo with ``--device
-cpu``.  Only rank 0 prints, writes snapshots and ``PREEMPTED.json``;
-every rank restores.  The JSON line adds the world, the backend, the
-all-reduces, bytes and milliseconds a step, and every rank's final
-checksums of the weights and the optimizer slots (the run fails if the
-ranks differ).
+``--mesh data=N[,model=M]`` needs a world of N·M ranks (a single
+process with ``--mesh data=1`` runs a world of one over a file store); a
+process group that does not start raises.  ``--batch`` is the global
+batch: each rank trains on its data rows of ``data.batch(i)``
+(``distributed.sharding.shard_batch``), and the layer relay sums each
+layer's gradient over the data ranks once (``core.l2l``), so the ranks
+of a data group end each step with the same state.  ``model=M`` > 1
+(the dense family) splits the heads, the ffn columns and a vocabulary
+that divides over M ranks (``distributed.tensor_parallel``): each rank
+holds and relays its blocks.  ``--dist-backend`` is nccl on the card,
+gloo with ``--device cpu``.  Only rank 0 prints, writes snapshots and
+``PREEMPTED.json`` (every rank takes part in a save: the split leaves
+are gathered first); every rank restores.  The JSON line adds the
+world, the backend, the all-reduces, bytes and milliseconds a step, and
+every rank's final checksums of the weights and the optimizer slots (its
+blocks; the run fails if the ranks of a data group differ); on a model
+axis also the model group's collectives, bytes and milliseconds a step
+and every rank's checksums of the leaves no pspec splits (the run fails
+if the model ranks differ).
 """
 from __future__ import annotations
 
@@ -152,8 +159,9 @@ def parse_args(argv=None):
                     choices=["", "float32", "bfloat16"],
                     help="compute dtype (default: the config's)")
     ap.add_argument("--mesh", default="",
-                    help="data=N[,model=1]: data parallel over N ranks "
-                         "(launch with torch.distributed.run)")
+                    help="data=N[,model=M]: data parallel over N ranks, "
+                         "tensor parallel over M (launch N*M ranks with "
+                         "torch.distributed.run)")
     ap.add_argument("--dist-backend", default="",
                     choices=["", "nccl", "gloo"],
                     help="the process group's backend (default: nccl on "
@@ -277,10 +285,9 @@ def main(argv=None):
                     for s in (signal.SIGTERM, signal.SIGINT)}
 
     def save_snapshot(step):
-        # one writer; the other ranks wait until the snapshot is whole
-        if rank == 0:
-            eng.save(args.ckpt_dir, state, step=step,
-                     keep_last=args.keep_last)
+        # every rank gathers, rank 0 writes; the others wait until the
+        # snapshot is whole
+        eng.save(args.ckpt_dir, state, step=step, keep_last=args.keep_last)
         if mesh is not None:
             torch.distributed.barrier()
         return step
@@ -303,6 +310,8 @@ def main(argv=None):
         losses.append(loss)
         if eng.dp is not None:
             reduces.append(eng.dp.stats())
+        if eng.tp is not None:
+            reduces[-1].update(eng.tp.stats())
         skipped += int(metrics.get("skipped_steps", 0))
         if (i - start_step) % args.log_every == 0 or i == args.steps - 1:
             say(f"step {i:5d}  loss {loss:8.4f}  gnorm "
@@ -347,6 +356,19 @@ def main(argv=None):
             all_reduce_bytes_per_step=(reduces[-1]["all_reduce_bytes"]
                                        if reduces else None),
             all_reduce_ms=[r["all_reduce_ms"] for r in reduces])
+        if eng.tp is not None:
+            whole = eng.tp.gather_checksums(
+                eng.tp.whole_leaves(state.params),
+                eng.tp.whole_leaves(state.legacy_opt()))
+            dist_line.update(
+                model_checksums=whole,
+                model_collectives_per_step=(
+                    reduces[-1]["model_collectives"] if reduces else None),
+                model_collective_bytes_per_step=(
+                    reduces[-1]["model_collective_bytes"] if reduces
+                    else None),
+                model_collective_ms=[r["model_collective_ms"]
+                                     for r in reduces])
     say(json.dumps({"final_loss": losses[-1] if losses else None,
                       "initial_loss": losses[0] if losses else None,
                       "first_step_s": times[0] if times else None,
@@ -362,6 +384,9 @@ def main(argv=None):
         torch.distributed.destroy_process_group()
         if any(row != sums[0] for row in sums):
             raise SystemExit(f"the data-parallel ranks ended apart: {sums}")
+        if eng.tp is not None and any(row != whole[0] for row in whole):
+            raise SystemExit(
+                f"the model ranks' replicated leaves ended apart: {whole}")
     return losses
 
 

@@ -164,23 +164,50 @@ def _proj(x, w):
     return (x @ w.to(x.dtype).reshape(d, Hn * E)).unflatten(-1, (Hn, E))
 
 
-def qkv_project(w, x, cfg, positions, *, rope: bool = True):
+def _heads_split(tp) -> bool:
+    return tp is not None and tp.heads
+
+
+def _kv_leaves(w, tp):
+    """(wk, wv, bk, bv) as this rank computes with them: as given when
+    they are split over the model axis (or nothing is), else the whole
+    leaves' kv heads of ``tp.kv_block()``, through ``copy_in`` so their
+    gradients (each rank's part) are summed over the group."""
+    kv = [w["wk"], w["wv"], w.get("bk"), w.get("bv")]
+    if not _heads_split(tp) or tp.kv:
+        return kv
+    lo, hi = tp.kv_block()
+    return [None if a is None else tp.copy_in(a)[..., lo:hi, :]
+            for a in kv]
+
+
+def qkv_project(w, x, cfg, positions, *, rope: bool = True, tp=None):
+    """q, k, v of x.  With the heads split over the model axis
+    (``tp.heads``) this rank's q heads and the kv heads they read; x's
+    cotangent is summed over the group."""
     dt = x.dtype
-    q, k, v = _proj(x, w["wq"]), _proj(x, w["wk"]), _proj(x, w["wv"])
+    wk, wv, bk, bv = _kv_leaves(w, tp)
+    if _heads_split(tp):
+        x = tp.copy_in(x)
+    q, k, v = _proj(x, w["wq"]), _proj(x, wk), _proj(x, wv)
     if "bq" in w:
         q = q + w["bq"].to(dt)
-        k = k + w["bk"].to(dt)
-        v = v + w["bv"].to(dt)
+        k = k + bk.to(dt)
+        v = v + bv.to(dt)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     return q, k, v
 
 
-def out_project(w, o):
-    """einsum("bshe,hed->bsd")."""
+def out_project(w, o, tp=None):
+    """einsum("bshe,hed->bsd"); with the heads split over the model axis
+    (``tp.heads``) the rank's partial sum, summed over the group, then
+    ``bo`` once."""
     H, E, d = w["wo"].shape
     y = o.reshape(*o.shape[:-2], H * E) @ w["wo"].to(o.dtype).reshape(H * E, d)
+    if _heads_split(tp):
+        y = tp.reduce(y)
     if "bo" in w:
         y = y + w["bo"].to(o.dtype)
     return y
@@ -198,20 +225,21 @@ def uses_flash(x, cfg) -> bool:
 
 
 def self_attention(w, x, cfg, positions, *, causal: bool = True,
-                   window: int = 0, rope: bool = True):
+                   window: int = 0, rope: bool = True, tp=None):
     """Full-sequence self attention (prefill, training): the flash kernel
     (K2, which reads the KV heads unexpanded) where ``uses_flash``, else
-    ``attend``."""
-    q, k, v = qkv_project(w, x, cfg, positions, rope=rope)
+    ``attend``; on the heads ``tp`` gives this rank (all without one)."""
+    q, k, v = qkv_project(w, x, cfg, positions, rope=rope, tp=tp)
     if uses_flash(x, cfg):
         from repro_torch.kernels import ops as kops
         o = kops.flash_attention(q, k, v, causal=causal, window=window,
                                  soft_cap=0.0)
     else:
-        o = attend(q, expand_kv(k, cfg.n_q_per_kv),
-                   expand_kv(v, cfg.n_q_per_kv), positions, positions,
-                   causal=causal, window=window, chunk=cfg.attn_chunk)
-    return out_project(w, o)
+        g = q.shape[2] // k.shape[2]
+        o = attend(q, expand_kv(k, g), expand_kv(v, g), positions,
+                   positions, causal=causal, window=window,
+                   chunk=cfg.attn_chunk)
+    return out_project(w, o, tp)
 
 
 def cross_attention(w, x, mem, cfg, positions, mem_positions):
@@ -267,11 +295,12 @@ def mla_attention(w, x, cfg, positions, *, causal: bool = True,
 # ---------------------------------------------------------------------------
 # KV caches and decode
 # ---------------------------------------------------------------------------
-def kv_cache_spec(cfg, batch: int, seq: int) -> dict:
+def kv_cache_spec(cfg, batch: int, seq: int, tp=None) -> dict:
     """Per-layer cache spec (the model prepends the layer stack dim).
     ``seq`` is the live cache length: the full context, or the ring
     window for long-context decode.  MLA caches the compressed latent
-    ``c`` and the rope key ``kr``."""
+    ``c`` and the rope key ``kr``.  On the model axis the cache holds the
+    kv heads this rank computes with (``tp.local_kv_heads()``)."""
     if cfg.use_mla:
         r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
         return {
@@ -280,7 +309,8 @@ def kv_cache_spec(cfg, batch: int, seq: int) -> dict:
                             "zeros"),
             "pos": ParamSpec((batch, seq), ("batch", "seq"), "zeros"),
         }
-    KV, Dh = cfg.n_kv_heads, cfg.d_head
+    KV = cfg.n_kv_heads if tp is None else tp.local_kv_heads()
+    Dh = cfg.d_head
     return {
         "k": ParamSpec((batch, seq, KV, Dh), ("batch", "seq", "kv", "head_dim"),
                        "zeros"),
@@ -336,7 +366,7 @@ def ring_scatter(buf, new, pos):
 
 
 def decode_self_attention(w, x, cache, cfg, cur_pos, *, window: int = 0,
-                          rope: bool = True):
+                          rope: bool = True, tp=None):
     """One decode step.  x: (B,T,d); cache: dict from ``kv_cache_spec``,
     UPDATED IN PLACE (the reference returns a new cache; the port writes
     the new k/v/pos into the cache it was given and returns it, so a step
@@ -344,13 +374,14 @@ def decode_self_attention(w, x, cache, cfg, cur_pos, *, window: int = 0,
     or per-row (B,)/(B,T) positions (negative = padding, no write).
 
     The new k/v go to slot ``pos % cache_len`` (a ring buffer; for a
-    full-context cache that is just ``pos``)."""
+    full-context cache that is just ``pos``).  ``tp``: as in
+    ``self_attention``, the cache holding this rank's kv heads."""
     dt = x.dtype
     B = x.shape[0]
     if _is_scalar(cur_pos) and x.shape[1] == 1:
         cur = int(cur_pos)
         pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)
-        q, k_new, v_new = qkv_project(w, x, cfg, pos, rope=rope)
+        q, k_new, v_new = qkv_project(w, x, cfg, pos, rope=rope, tp=tp)
         slot = cur % cache["pos"].shape[1]
         cache["k"][:, slot:slot + 1].copy_(k_new)
         cache["v"][:, slot:slot + 1].copy_(v_new)
@@ -358,7 +389,8 @@ def decode_self_attention(w, x, cache, cfg, cur_pos, *, window: int = 0,
     else:
         pos = decode_positions(x, cur_pos)
         # rope at clamped positions: padding rows are masked out anyway
-        q, k_new, v_new = qkv_project(w, x, cfg, pos.clamp_min(0), rope=rope)
+        q, k_new, v_new = qkv_project(w, x, cfg, pos.clamp_min(0), rope=rope,
+                                      tp=tp)
         ring_scatter(cache["k"], k_new, pos)
         ring_scatter(cache["v"], v_new, pos)
         ring_scatter(cache["pos"], pos, pos)
@@ -367,10 +399,11 @@ def decode_self_attention(w, x, cache, cfg, cur_pos, *, window: int = 0,
                                   pos, cache["pos"], causal=True,
                                   window=window)
     else:
-        o = attend(q, expand_kv(cache["k"].to(dt), cfg.n_q_per_kv),
-                   expand_kv(cache["v"].to(dt), cfg.n_q_per_kv), pos,
+        g = q.shape[2] // cache["k"].shape[2]
+        o = attend(q, expand_kv(cache["k"].to(dt), g),
+                   expand_kv(cache["v"].to(dt), g), pos,
                    cache["pos"], causal=True, window=window, chunk=0)
-    return out_project(w, o), cache
+    return out_project(w, o, tp), cache
 
 
 def decode_mla_attention(w, x, cache, cfg, cur_pos, *, window: int = 0):

@@ -47,37 +47,41 @@ def dense_spec(cfg) -> dict:
     return spec
 
 
-def dense_apply(w, x, mem, ctx: Ctx, cfg):
+def dense_apply(w, x, mem, ctx: Ctx, cfg, tp=None):
+    """``tp``: the model axis (``distributed.tensor_parallel``), its
+    split heads and ffn columns, or None."""
     if cfg.parallel_block:      # command-r: attn ∥ mlp off one norm
         h = _norm(w["ln1"], x, cfg)
         a = attn.self_attention(w["attn"], h, cfg, ctx.positions,
-                                causal=ctx.causal, window=ctx.window)
-        m = mlp_apply(w["mlp"], h, cfg)
+                                causal=ctx.causal, window=ctx.window, tp=tp)
+        m = mlp_apply(w["mlp"], h, cfg, tp)
         return x + a + m, 0.0
     h = _norm(w["ln1"], x, cfg)
     x = x + attn.self_attention(w["attn"], h, cfg, ctx.positions,
-                                causal=ctx.causal, window=ctx.window)
-    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+                                causal=ctx.causal, window=ctx.window, tp=tp)
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg, tp)
     return x, 0.0
 
 
-def dense_decode(w, x, cache, mem, ctx: Ctx, cfg):
+def dense_decode(w, x, cache, mem, ctx: Ctx, cfg, tp=None):
     if cfg.parallel_block:
         h = _norm(w["ln1"], x, cfg)
         a, cache = attn.decode_self_attention(w["attn"], h, cache, cfg,
-                                              ctx.cur_pos, window=ctx.window)
-        m = mlp_apply(w["mlp"], h, cfg)
+                                              ctx.cur_pos, window=ctx.window,
+                                              tp=tp)
+        m = mlp_apply(w["mlp"], h, cfg, tp)
         return x + a + m, cache
     h = _norm(w["ln1"], x, cfg)
     a, cache = attn.decode_self_attention(w["attn"], h, cache, cfg,
-                                          ctx.cur_pos, window=ctx.window)
+                                          ctx.cur_pos, window=ctx.window,
+                                          tp=tp)
     x = x + a
-    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg, tp)
     return x, cache
 
 
-def dense_cache_spec(cfg, batch, live):
-    return attn.kv_cache_spec(cfg, batch, live)
+def dense_cache_spec(cfg, batch, live, tp=None):
+    return attn.kv_cache_spec(cfg, batch, live, tp)
 
 
 # ===========================================================================

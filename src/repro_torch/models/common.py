@@ -145,16 +145,28 @@ def apply_rope(x, positions, theta: float, fraction: float = 1.0):
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
-def embed_tokens(w, tokens, cfg, dtype):
+def _vocab_split(tp) -> bool:
+    return tp is not None and tp.vocab
+
+
+def embed_tokens(w, tokens, cfg, dtype, tp=None):
     """Plain embedding row lookup — no scaling for either norm type, so
     ``prepare`` (prefill) and ``decode_embed`` (decode) agree.  Through
     ``F.embedding``, whose backward on CUDA sums each row's gradients
     without atomics (an indexing lookup's backward would accumulate with
-    them), so a training step is deterministic."""
+    them), so a training step is deterministic.  With a vocab-parallel
+    table (``tp.vocab``) the rank's rows, summed over the model group."""
+    if _vocab_split(tp):
+        return tp.embed(w["tok"], tokens, dtype)
     return F.embedding(tokens, w["tok"]).to(dtype)
 
 
-def logits_fn(head_w, embed_w, x, cfg):
+def logits_fn(head_w, embed_w, x, cfg, tp=None):
+    """The logits of x: with a vocab-parallel head (``tp.vocab``) this
+    rank's block of the vocabulary (its input's cotangent summed over the
+    model group)."""
+    if _vocab_split(tp):
+        x = tp.copy_in(x)
     if cfg.tie_embeddings:
         w = embed_w["tok"].to(x.dtype).T
     else:
@@ -166,10 +178,12 @@ def logits_fn(head_w, embed_w, x, cfg):
     return logits
 
 
-
-def softmax_xent(logits, targets, mask):
+def softmax_xent(logits, targets, mask, tp=None):
     """Cross-entropy, f32 reduction.  mask: (B,S) weights.
-    -> (loss_sum, weight_sum)."""
+    -> (loss_sum, weight_sum).  Over vocab-parallel logits
+    (``tp.vocab``): ``tp.xent``."""
+    if _vocab_split(tp):
+        return tp.xent(logits, targets, mask)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]

@@ -64,18 +64,36 @@ def stack_layers(layers):
 
 
 class LayeredModel:
-    def __init__(self, cfg: ModelConfig):
+    """``tp`` (a ``distributed.tensor_parallel.TensorParallel``): one rank
+    of the mesh's model axis, whose blocks of the split leaves this
+    model's functions compute with (the dense family only); the specs stay
+    the whole model's."""
+
+    def __init__(self, cfg: ModelConfig, tp=None):
         self.cfg = cfg
-        self.groups: Tuple[Group, ...] = self._build_groups(cfg)
+        self.tp = tp
+        self.groups: Tuple[Group, ...] = self._build_groups(cfg, tp)
 
     @staticmethod
-    def _build_groups(cfg) -> Tuple[Group, ...]:
+    def _build_groups(cfg, tp=None) -> Tuple[Group, ...]:
+        if tp is not None and cfg.family != "dense":
+            raise NotImplementedError(
+                f"the model axis runs the dense family, not {cfg.family}")
+
         def G(name, n, spec, apply_fn, decode_fn, cache_fn, **kw):
             ap = lambda w, x, mem, ctx: apply_fn(w, x, mem, ctx, cfg)
             de = lambda w, x, c, mem, ctx: decode_fn(w, x, c, mem, ctx, cfg)
             cs = lambda b, live: cache_fn(cfg, b, live)
             return Group(name, n, spec, ap, de, cs, **kw)
 
+        if tp is not None:
+            return (Group(
+                "layers", cfg.n_layers, blocks.dense_spec(cfg),
+                lambda w, x, mem, ctx: blocks.dense_apply(w, x, mem, ctx,
+                                                          cfg, tp),
+                lambda w, x, c, mem, ctx: blocks.dense_decode(
+                    w, x, c, mem, ctx, cfg, tp),
+                lambda b, live: blocks.dense_cache_spec(cfg, b, live, tp)),)
         if cfg.family in ("dense", "vlm"):
             return (G("layers", cfg.n_layers, blocks.dense_spec(cfg),
                       blocks.dense_apply, blocks.dense_decode,
@@ -183,7 +201,7 @@ class LayeredModel:
             B, nf, _ = frames.shape
             pos = _arange(nf, B, frames.device)
             return frames + sinusoidal(pos, cfg.d_model, dt), None
-        x = embed_tokens(emb, batch["tokens"], cfg, dt)
+        x = embed_tokens(emb, batch["tokens"], cfg, dt, self.tp)
         if cfg.is_vlm:
             p = batch["patches"].to(dt) @ emb["proj_w"].to(dt) \
                 + emb["proj_b"].to(dt)
@@ -242,17 +260,27 @@ class LayeredModel:
         whisper plus the sinusoidal position (``cur_pos``: a scalar or
         per-row positions, negative entries clamped to 0)."""
         cfg, dt = self.cfg, self.dtype()
-        x = embed_tokens(static["embed"], token, cfg, dt)
+        x = embed_tokens(static["embed"], token, cfg, dt, self.tp)
         if cfg.family == "audio":
             from repro_torch.models.attention import decode_positions
             pos = decode_positions(x, cur_pos).clamp_min(0)
             x = x + sinusoidal(pos, cfg.d_model, dt)
         return x
 
-    def decode_logits(self, static, x):
+    def local_logits(self, static, x):
+        """The head's logits of x: on a vocab-parallel head this rank's
+        block of the vocabulary."""
         cfg = self.cfg
         x = apply_norm(static["head"]["ln_f"], x, cfg.norm_eps)
-        return logits_fn(static["head"], static["embed"], x, cfg)
+        return logits_fn(static["head"], static["embed"], x, cfg, self.tp)
+
+    def decode_logits(self, static, x):
+        """The whole logits of x (gathered over the model axis when the
+        head is vocab-parallel)."""
+        logits = self.local_logits(static, x)
+        if self.tp is not None and self.tp.vocab:
+            logits = self.tp.gather_last(logits)
+        return logits
 
     def head_loss(self, static, x, batch):
         """-> (loss_sum, weight_sum); the caller normalizes.  BERT's head
@@ -261,8 +289,8 @@ class LayeredModel:
         (sliced before the head: per position the same logits)."""
         if self.cfg.is_vlm:
             x = x[:, self.cfg.n_patches:]
-        return softmax_xent(self.decode_logits(static, x), batch["targets"],
-                            batch["mask"])
+        return softmax_xent(self.local_logits(static, x), batch["targets"],
+                            batch["mask"], self.tp)
 
     def full_loss(self, params, batch, remat: bool = False):
         """The whole model at once (the baseline engines):

@@ -67,16 +67,22 @@ def make_schedule(base_lr: float, warmup: int = 0, total: int = 0,
     return sched
 
 
-def tree_global_norm(tree) -> torch.Tensor:
+def tree_global_norm(tree, tp=None, pspecs=None) -> torch.Tensor:
+    """The L2 norm of every leaf.  On the mesh's model axis (``tp``, the
+    tree laid out as ``pspecs``): the squares of the split leaves summed
+    over the model group, each whole leaf counted once."""
+    if tp is not None:
+        return torch.sqrt(tp.norm_sq(tree, pspecs))
     leaves = tree_leaves(tree)
     return torch.sqrt(sum(torch.sum(torch.square(l.float()))
                           for l in leaves))
 
 
-def clip_by_norm(tree, max_norm: float):
+def clip_by_norm(tree, max_norm: float, tp=None, pspecs=None):
     """Clip a gradient subtree by its own global norm (the L2L-p per-layer
-    clip: a global clip would serialize the eager updates)."""
-    norm = tree_global_norm(tree)
+    clip: a global clip would serialize the eager updates); ``tp`` and
+    ``pspecs`` as in ``tree_global_norm``."""
+    norm = tree_global_norm(tree, tp, pspecs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), tree), norm
 

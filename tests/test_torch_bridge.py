@@ -73,14 +73,22 @@ from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
 @pytest.fixture(scope="module")
 def jax_state():
     """A packed JAX l2l-p TrainState with bf16 masters, the loss scale on,
-    and Adam slots filled with numpy draws (so no slot is all zeros)."""
+    and its parameters and Adam slots filled with numpy draws (so no slot
+    is all zeros), in the reference's own shapes and layout
+    (``Engine.init``'s, without compiling its initializers)."""
     from repro.engine.state import TrainState as JState
     cfg = jget_config("bert-large", "smoke").replace(
         n_layers=2, param_dtype="bfloat16")
     eng = jengines.create("l2l-p", cfg, JExec(
         pack_params=True, n_microbatches=2, loss_scale_init=128.0),
         donate=False)
-    state = eng.init(jax.random.PRNGKey(3))
+    rs = np.random.RandomState(3)
+    drawn = jax.tree.map(
+        lambda s: jnp.asarray(rs.randn(*s.shape).astype(np.float32),
+                              dtype=jnp.bfloat16),
+        eng.model.param_specs(), is_leaf=lambda x: hasattr(x, "axes"))
+    params = eng._relay_params(drawn)
+    state = JState.from_legacy(params, eng._init_opt_legacy(params))
     rs = np.random.RandomState(0)
     opt = jpacking.unpack_opt_state(state.legacy_opt(), state.params)
     opt = {k: jax.tree.map(lambda a: jnp.asarray(

@@ -327,14 +327,17 @@ def test_sigterm_resume_matches_an_uninterrupted_run(tmp_path):
     final snapshot whose per-array crc32s equal an uninterrupted run's."""
     from repro_torch.testing import faults
     ref = str(tmp_path / "ref")
-    out = _run(TINY + ["--ckpt-dir", ref])
-    assert json.loads(out.strip().splitlines()[-1])["resumed_from"] is None
-    want = faults.snapshot_checksums(ref, step=6)
-
+    # the uninterrupted run beside the one that is killed
+    unbroken = _launch(TINY + ["--ckpt-dir", ref])
     d = str(tmp_path / "killed")
     proc = _launch(TINY + ["--ckpt-dir", d, "--ckpt-every", "2",
                            "--step-delay-ms", "300", "--resume", "auto"])
     rc, out = faults.kill_at_step(proc, 2, sig=signal.SIGTERM, timeout=300)
+    ref_out, _ = unbroken.communicate(timeout=300)
+    assert unbroken.returncode == 0, ref_out
+    assert json.loads(ref_out.strip().splitlines()[-1])["resumed_from"] \
+        is None
+    want = faults.snapshot_checksums(ref, step=6)
     assert rc == 0, f"graceful preemption should exit 0:\n{out}"
     marker = os.path.join(d, "PREEMPTED.json")
     with open(marker) as f:

@@ -3,8 +3,8 @@ ranks (tests/torch_dp_worker.py, one process each, one file store), each
 on its rows of a global batch, held to the JAX reference run on one device
 over the whole batch; the ranks bit for bit equal to each other; a world of
 one bit for bit the meshless engine on every entry point; the relay knobs
-bit for bit inside the two-rank mesh; MoE on two data ranks and any model
-axis over 1 refused.
+bit for bit inside the two-rank mesh; MoE on two data ranks, and MoE and
+a non-dense family on a model axis, refused.
 
 bert-large (layernorm, MHA with biases) and granite-3-8b (RMSNorm, GQA)
 at smoke size, f32, parameters drawn with numpy at fan-in scales
@@ -277,10 +277,12 @@ def test_a_mesh_needs_a_world_of_its_size(runs):
 
 def test_moe_on_data_ranks_and_a_model_axis_are_refused(runs):
     """NotImplementedError for deepseek-v2-lite on data=2 (the router's
-    batch statistics), for bert-large on model=2 (no model axis yet) and for
-    ``serve_session`` on data=2."""
+    batch statistics) and on model=2 (expert parallelism), for hymba-1.5b
+    on model=2 (the model axis runs the dense family) and for
+    ``serve_session`` on data=2.  bert-large on model=2 runs
+    (tests/test_torch_tensor_parallel.py)."""
     for out in runs["ranks"]:
-        assert [int(x) for x in _get(out, "refused")] == [1, 1, 1]
+        assert [int(x) for x in _get(out, "refused")] == [1, 1, 1, 1]
 
 
 

@@ -61,8 +61,8 @@ def test_apply_rope_matches_reference(fraction, theta):
     rs = np.random.RandomState(0)
     x = rs.randn(2, 7, 3, 16).astype(np.float32)
     pos = rs.randint(0, 200, size=(2, 7)).astype(np.int32)
-    ref = np.asarray(jcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos),
-                                        theta, fraction))
+    ref = np.asarray(jax.jit(lambda a, p: jcommon.apply_rope(
+        a, p, theta, fraction))(jnp.asarray(x), jnp.asarray(pos)))
     got = tcommon.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
                              theta, fraction)
     # interleaved pairs rotated in f32; sin/cos of angles up to 200 rad
@@ -81,8 +81,8 @@ def test_attend_matches_reference(chunk, causal, window):
     k_pos = np.broadcast_to(np.arange(Sk, dtype=np.int32), (B, Sk)).copy()
     k_pos[0, [2, 7]] = -1          # ring-buffer holes
     kw = dict(causal=causal, window=window, chunk=chunk)
-    ref = np.asarray(jattn.attend(*map(jnp.asarray, (q, k, v, q_pos, k_pos)),
-                                  **kw))
+    ref = np.asarray(jax.jit(lambda *a: jattn.attend(*a, **kw))(
+        *map(jnp.asarray, (q, k, v, q_pos, k_pos))))
     got = tattn.attend(*map(torch.from_numpy, (q, k, v, np.array(q_pos),
                                                k_pos)), **kw)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
@@ -102,10 +102,9 @@ def test_dense_apply_matches_reference(arch, use_pallas):
     pos = np.broadcast_to(np.arange(16, dtype=np.int32), (2, 16))
     prev = jcommon.use_pallas_rmsnorm(use_pallas)
     try:
-        ref, _ = jblocks.dense_apply(jax.tree.map(jnp.asarray, w),
-                                     jnp.asarray(x), None,
-                                     jblocks.Ctx(positions=jnp.asarray(pos)),
-                                     cfg)
+        ref, _ = jax.jit(lambda ww, xx, pp: jblocks.dense_apply(
+            ww, xx, None, jblocks.Ctx(positions=pp), cfg))(
+            jax.tree.map(jnp.asarray, w), jnp.asarray(x), jnp.asarray(pos))
     finally:
         jcommon.use_pallas_rmsnorm(prev)
     got, _ = tblocks.dense_apply(
@@ -132,10 +131,10 @@ def test_dense_decode_matches_reference(per_row):
     x = rs.randn(B, 1, cfg.d_model).astype(np.float32)
     cur = np.array([3, -1], np.int32) if per_row else 3
     jcur = jnp.asarray(cur) if per_row else jnp.int32(cur)
-    ref, ref_cache = jblocks.dense_decode(
+    ref, ref_cache = jax.jit(lambda ww, xx, cc, cp: jblocks.dense_decode(
+        ww, xx, cc, None, jblocks.Ctx(cur_pos=cp), cfg))(
         jax.tree.map(jnp.asarray, w), jnp.asarray(x),
-        jax.tree.map(jnp.asarray, cache), None,
-        jblocks.Ctx(cur_pos=jcur), cfg)
+        jax.tree.map(jnp.asarray, cache), jcur)
     t_cache = bridge.params_from_numpy(cache)
     tcur = torch.from_numpy(cur) if per_row else cur
     got, got_cache = tblocks.dense_decode(

@@ -188,6 +188,7 @@ def test_mamba_decode_matches_jax_and_the_full_sequence():
 def test_rwkv6_time_mix_and_vjp_match_jax(chunk):
     """The step scan (chunk 0) and the chunked scan (8 | 32), outputs and
     vjps, and the final state, against the reference's."""
+    import jax
     import jax.numpy as jnp
     from repro.models import ssm as jssm
     cfg = _cfg("rwkv6-1.6b", rwkv_chunk=chunk)
@@ -199,7 +200,8 @@ def test_rwkv6_time_mix_and_vjp_match_jax(chunk):
                   gy),
         _vjp_jax(lambda ww, xx: jssm.rwkv6_time_mix(ww, xx, jcfg)[0], w, x,
                  gy))
-    _, jst = jssm.rwkv6_time_mix(_map(jnp.asarray, w), jnp.asarray(x), jcfg)
+    jst = jax.jit(lambda ww, xx: jssm.rwkv6_time_mix(ww, xx, jcfg)[1])(
+        _map(jnp.asarray, w), jnp.asarray(x))
     with torch.no_grad():
         _, st = ssm.rwkv6_time_mix(bridge.params_from_numpy(w),
                                    torch.from_numpy(x), cfg)

@@ -9,8 +9,8 @@ With WORLD 2 the rank joins a gloo group over the file STORE and runs,
 on its rows of the batch (``shard_batch``), every entry point of an l2l-p
 engine on a ``data=2`` mesh: two train steps, grads, prefill,
 decode_init and two decode steps; then the knob points, each one train
-step; then the refusals (MoE on two data ranks, any model axis over 1,
-``serve_session`` on two data ranks).
+step; then the refusals (MoE on two data ranks, MoE and a non-dense
+family on a model axis of 2, ``serve_session`` on two data ranks).
 With WORLD 1 it runs the same entry points on a ``data=1`` mesh and
 without a mesh.  Results go to ``OUT.npz`` as flat arrays.
 """
@@ -134,7 +134,9 @@ def run_dp(inp, put, world):
     refused = []
     for arch, shape in (("deepseek-v2-lite-16b", {"data": world,
                                                   "model": 1}),
-                        ("bert-large", {"data": 1, "model": world})):
+                        ("deepseek-v2-lite-16b", {"data": 1,
+                                                  "model": world}),
+                        ("hymba-1.5b", {"data": 1, "model": world})):
         m = mesh if shape["data"] == world else make_mesh(shape, "cpu")
         try:
             engines.create("l2l-p", get_config(arch, "smoke"),
