@@ -112,10 +112,10 @@ Phases, one JSON line each:
               pinned rows) ``ExecutionConfig.dynamic_depth``, the counters set
               to 0 just before and read just after: granite-3-8b at full
               width and the serve phase's depth with its settings,
-              decode_init and 4 greedy steps on its 4 prompts at run depth
+              decode_init and 2 greedy steps on its 4 prompts at run depth
               n = 40 (tokens equal to the serve phase's, bit for bit) and
-              n = 20 on the same engine and rows (tok/s, K4 fetches per
-              step, relay GB/s at both); bert-large at full width,
+              n = 20 on the same engine and rows, on the prompts' first 4
+              tokens (tok/s, K4 fetches per step, relay GB/s at both); bert-large at full width,
               capacity 24, the train phase's settings, one step at n = 12
               (rows 12-23 of the weights and Adam slots unchanged bit for
               bit) and one at n = 24, the steps' peaks side by side.  Not
@@ -125,19 +125,20 @@ Phases, one JSON line each:
               (prefill and decode logits), each bit for bit;
    serve-moe — deepseek-v2-lite-16b (MLA, 64 routed experts top 6 and 2
               shared, a dense layer 0 then MoE layers: two layer groups)
-              at full width and depth 6 through the serve phase's engine
-              settings, the counters set to 0 just before and read just
+              at full width and depth 4 through the serve phase's
+              engine settings, the counters set to 0 just before and read just
               after: decode_init on 4 prompts of 16 tokens, 4 greedy
               steps, Engine.prefill on them and at B=2 x S=2048 (the
               capacity path), then 12 greedy requests (prompts of 32-128
               tokens, 8-16 new) into 8 slots with prefill chunks of 16
               (128 rows a tick, the dense MoE path); not counted: the
               request that waited longest alone (bit for bit the crowd's),
-              the 2048-token prefill's peak at depth 4 (within 5% of depth
-              6's), prefill against decode_init in f32 at depth 2, one
+              the 2048-token prefill's peak at depth 3 (within 5% of depth
+              4's), prefill against decode_init in f32 at depth 2, one
               fetch of each row kind;
-   train-moe — deepseek-v2-lite-16b at full width and depth 3 (the dense
-              layer 0 + 2 MoE layers), l2l-p with the train phase's knobs,
+   train-moe — deepseek-v2-lite-16b at full width and depth 2 (the dense
+              layer 0 + 1 MoE layer), l2l-p with the
+              train phase's knobs,
               2 steps at B=8, S=512, UB=2, the counters set to 0 just
               before and read just after; then Engine.grads in f32 at depth
               2 against the baseline engine at fan-in scales, and one step
@@ -146,12 +147,12 @@ Phases, one JSON line each:
               little else) grok-1-314b at full width (d 6144, 48
               heads over 8, 8 experts top 2 of d_ff 32768, vocab 131072,
               logits capped at 30 by a soft cap) and the depth the host
-              can pin (at most 2: a 19.7 GB f32 row pins a power of
-              two; MemAvailable
+              can pin (at most 1, for time: a 19.7 GB f32 row pins a
+              power of two; MemAvailable
               printed, and the phase fails if one layer cannot be
               pinned), drawn layer by layer on the card, through the
               serve phase's engine settings, counted: decode_init on 4
-              prompts of 4 tokens, 4 greedy steps, Engine.prefill at 4 x
+              prompts of 4 tokens, 2 greedy steps, Engine.prefill at 4 x
               16 and 2 x 2048; logits finite and within the cap, every
               token's 2 of 8 experts distinct, one fetch a layer and the
               ring's re-fetch; not counted: one K4 fetch of a whole
@@ -171,8 +172,9 @@ Phases, one JSON line each:
               against decode_init in f32 at depth 2 and in bf16 at depths
               1, 4 (also at fan-in scales) and full, one layer's scan
               timed;
-   train-recurrent — each at full width under l2l-p (hymba at 16 of its
-              32 layers, rwkv6 at 8 of its 24: its WKV step loop is
+   train-recurrent — each at full width under l2l-p (hymba at 8 of its
+              32 layers, rwkv6 at 4 of its 24:
+              its WKV step loop is
               host-bound) with the train phase's knobs, 3 steps at B=8,
               S=512, UB=2, the
               counters set to 0 just before and read just after; then
@@ -252,22 +254,22 @@ Phases, one JSON line each:
               depth 1 under torch.profiler: the device's idle share and
               its time by kernel;
    train-dp — data parallel over the mesh's data
-              axes, bert-large at full width and 12 of its 24 layers,
+              axes, bert-large at full width and 6 of its 24 layers,
               B=32 x 512, UB=4,
               l2l-p through the train CLI's configuration: (a) in this
               process, NCCL over a world of one (a FileStore under
               build/) and a (data=1, model=1) mesh, 3 steps counted beside
               3 meshless steps from the same state, bit for bit (losses,
-              weight and Adam checksums), 24 layer rows + the static tree
-              + 2 scalars all-reduced a step (12 + 3); (b) two gloo ranks on this
+              weight and Adam checksums), 6 layer rows + the static tree
+              + 2 scalars all-reduced a step; (b) two gloo ranks on this
               card through ``python -m torch.distributed.run -m
               repro_torch.launch.train --mesh data=2``, each rank its own
               pinned EPS: the ranks' final checksums equal, the losses
-              beside (a)'s meshless ones; then in f32 at depth 2 and
-              fan-in scales from one snapshot, the ranks' final snapshot
-              against one process on the whole batch (losses 1e-5,
-              each leaf's update 1e-3 relative L2); wall time, reduction
-              ms and GB a step for each part;
+              beside (a)'s meshless ones; its f32 check (depth 2,
+              fan-in scales, one step, against one process on the whole
+              batch: losses 1e-5, each leaf's update 1e-3 relative L2)
+              runs in the tp phase's world on the CLI's relay; wall
+              time, reduction ms and GB a step for each part;
    tp       — the mesh's model axis: two gloo ranks on this card through
               ``python -m torch.distributed.run chip_smoke.py --tp-rank``
               on a (data=1, model=2) mesh.  train-tp: bert-large at full
@@ -277,30 +279,54 @@ Phases, one JSON line each:
               steps counted (each rank's weights the slices of the
               one-process draw by checksum, the ranks' replicated leaves
               and Adam slots equal, the losses within 1e-3 of one
-              process), then in f32 at depth 2 and fan-in scales from one
-              snapshot against one process (losses 1e-5, updates 1e-3);
+              process), then in f32 at depth 2 and fan-in scales, one
+              draw on every rank, one step on the CLI's relay, against
+              one process (losses 1e-5, updates 1e-3);
               serve-tp: granite-3-8b at full width (16 of 32 q heads, 4 of
               8 kv heads, 6400 of 12800 ffn columns, the 49155-row
-              vocabulary whole), depth 4, weight_stream unpacked, counted:
+              vocabulary whole), depth 2, weight_stream unpacked, counted:
               decode_init on 4 prompts of 16, 4 greedy steps, prefill
               (within the serve phase's 0.35 of decode_init, top-1 on 3 of
               4 rows), bf16 logits within 0.35 of one process on the same
               weights, in f32 at fan-in scales tokens equal and logits
               within 1e-4; model-group collectives, bytes and ms a step,
               K2/K3a/K3b/K4 launches a step, tok/s, K4 GB a step a rank;
+              then the MoE family (``tp_rank_moe``), deepseek-v2-lite at
+              full width (8 of 16 heads, experts 32 of 64 and the router's
+              matching columns, 1408 of the shared experts' 2816 columns,
+              5472 of layer 0's 10944, 51200 of 102400 vocabulary rows a
+              rank): train-moe-tp, the dense layer 0 and one MoE layer,
+              B=8 x 512, UB=2, l2l-p unpacked, 2 steps counted (the
+              weights the one-process slices, the replicated leaves and
+              Adam slots equal, losses within 1e-3 of one process);
+              train-moe-dp, the same on a (data=2, model=1) mesh over the
+              same ranks, packed (K1), prefetch 0, each rank its block of
+              every microbatch, counted (checksums equal, losses within
+              1e-3 of one process, the MoE's statistics sums and count
+              exchanges a step apart from the gradient rows); each then in
+              f32 at fan-in scales, one step on its own relay, against
+              one process (losses 1e-5, aux 1e-5, updates 1e-3);
+              serve-moe-tp, depth 3, weight_stream unpacked, counted:
+              decode_init on 4 prompts of 16, 4 greedy steps, prefill,
+              bf16 logits within 0.35 of one process, in f32 at fan-in
+              scales on the same relay tokens equal and logits within
+              1e-4 of one process, K4 GB a step a
+              rank beside one process's; and train-dp's f32 check
+              (``tp_rank_dp_f32``) on the (data=2, model=1) mesh;
    memory-model — ``Engine.memory_estimate`` for the train phase's
               bert-large at depths 24 and 12 beside its peaks, and the
               serve estimate beside serve-continuous's peak (printed, not
               tied: the model counts the reference's buffers);
-10. launches — every kernel's count over the twenty-three main paths
+10. launches — every kernel's count over the twenty-six main paths
               (serve, serve-dense, serve-continuous, train, train-rmsnorm,
               dynamic-depth, host-optimizer, train-dp, serve-moe, train-moe,
               serve-hymba, train-hymba, serve-rwkv6, train-rwkv6,
               serve-vlm, train-vlm, serve-audio, train-audio, serve-grok,
-              tier-train, tier-serve, train-tp, serve-tp (summed over
+              tier-train, tier-serve, train-tp, serve-tp, train-moe-tp,
+              train-moe-dp, serve-moe-tp (summed over
               the two ranks); each of a
               path's kernels > 0, K1 0 on host-optimizer, K2 and K3 0 on
-              the two MoE paths, K2, K3 and K5 0 on the rwkv6 and whisper
+              the five MoE paths, K2, K3 and K5 0 on the rwkv6 and whisper
               paths),
               and the counts by route: every
               bf16 K2, K3a and K3b
@@ -414,15 +440,19 @@ def device_ms(torch, fn, reps):
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    assert us > 0, "the profiler saw no device time"
-    return us / 1e3 / reps
+    # a trace that caught no device span at all is taken again (one run of
+    # the script saw CUPTI return none for one K3 call; the others ran)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    raise AssertionError("the profiler saw no device time in three traces")
 
 
 def rotation(torch, fns, reps, timer=graph_ms):
@@ -1449,9 +1479,9 @@ def dynamic_depth_phase(torch, engines, ExecutionConfig, exec_cfg, cfg,
 
     * serve: granite-3-8b at full width and the serve phase's depth with
       the serve phase's settings and rows (``params``, its pinned EPS),
-      decode_init and 4 greedy steps on its
-      4 prompts at n = depth (tokens equal to the serve phase's first
-      ones), then at n = depth / 2 on the same engine and rows;
+      decode_init and 2 greedy steps on its 4 prompts at n = depth
+      (tokens equal to the serve phase's first ones), then at n = depth /
+      2 on the same engine and rows, on the prompts' first 4 tokens;
     * train: bert-large at full width, capacity 24, the train phase's
       settings, one step at n = 12 (rows 12-23 of the weights and Adam
       slots unchanged bit for bit), then one at n = 24; the peaks side by
@@ -1467,7 +1497,10 @@ def dynamic_depth_phase(torch, engines, ExecutionConfig, exec_cfg, cfg,
     from repro_torch.engine.state import TrainState
     B, P = prompt.shape
     live = P + len(serve_tokens[0]) - 1    # the serve phase's cache
-    GEN = 4           # of the serve phase's 8 steps: the phase's time budget
+    GEN = 2           # of the serve phase's 8 steps: the phase's time budget
+    # the half depth fills its caches from the prompts' first tokens: its
+    # tok/s and fetches a step need no full prompt
+    HALF_PROMPT = 4
     serve_tokens = [row[:GEN + 1] for row in serve_tokens]
     dyn_cfg = dataclasses.replace(exec_cfg, dynamic_depth=True)
     out = {"phase": "dynamic-depth", "arch": cfg.name,
@@ -1477,8 +1510,9 @@ def dynamic_depth_phase(torch, engines, ExecutionConfig, exec_cfg, cfg,
     reset_counts(counters.values())
     by_depth = {}
     for n in (cfg.n_layers, cfg.n_layers // 2):
+        pr = prompt if n == cfg.n_layers else prompt[:, :HALF_PROMPT]
         t0 = time.perf_counter()
-        caches, last = eng.decode_init(params, prompt, live, n_layers=n)
+        caches, last = eng.decode_init(params, pr, live, n_layers=n)
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
         tok = sample_batch(last)[:, None]
@@ -1486,14 +1520,14 @@ def dynamic_depth_phase(torch, engines, ExecutionConfig, exec_cfg, cfg,
         f0, b0 = fetch.launches, fetch.bytes
         t0 = time.perf_counter()
         for i in range(GEN):
-            logits, caches = eng.decode_step(params, caches, tok, P + i,
-                                             n_layers=n)
+            logits, caches = eng.decode_step(params, caches, tok,
+                                             pr.shape[1] + i, n_layers=n)
             tok = sample_batch(logits[:, -1])[:, None]
             toks.append(tok)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         by_depth[str(n)] = {
-            "decode_init_s": t_init, "decode_s": dt,
+            "prompt": pr.shape[1], "decode_init_s": t_init, "decode_s": dt,
             "tok_per_s": B * GEN / dt,
             "fetches_per_step": (fetch.launches - f0) / GEN,
             "relay_GBps": (fetch.bytes - b0) / dt / 1e9,
@@ -1689,7 +1723,8 @@ def host_optimizer_phase(torch, engines, ExecutionConfig, bert, knobs,
 # the MoE family: deepseek-v2-lite-16b (MLA; a dense layer 0, then MoE
 # layers of 64 routed experts, top 6, and 2 shared), at full width
 MOE_ARCH = "deepseek-v2-lite-16b"
-MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 6, 3
+# depths 4 / 2 (cut to make room for the MoE paths on the mesh)
+MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 4, 2
 # serve-moe's crowd: 8 slots x 16-row chunks = 128 rows = 2E, so every
 # tick takes the exact dense MoE path
 MOE_CROWD = dict(max_batch=8, page_size=16, max_seq=160, n_pages=64,
@@ -1725,8 +1760,8 @@ def _sub(packing, params, dense_eps, moe_eps, n_moe):
 def serve_moe_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
                     tree_leaves, is_spec, packing, rc, ServeConfig,
                     sample_batch, counters, dev):
-    """deepseek-v2-lite-16b at full width and depth 6 (the dense layer 0 +
-    5 MoE layers) with the serve phase's engine settings, every counter
+    """deepseek-v2-lite-16b at full width and depth 4 (the dense layer 0 +
+    3 MoE layers) with the serve phase's engine settings, every counter
     set to 0 just before and read just after: decode_init on 4 prompts of
     16 tokens, 4 greedy steps, Engine.prefill on the prompts and one at
     B=2 x S=2048 (the capacity path; MLA's plain attention in chunks of
@@ -1734,7 +1769,7 @@ def serve_moe_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
     into 8 slots with prefill chunks of 16 (128 rows a tick: the dense
     MoE path).  Not counted: the request that waited longest alone (its
     tokens equal to the crowd's bit for bit), the same 2048-token prefill
-    at depth 4 (its peak within 5% of depth 6's: a group boundary does not
+    at depth 3 (its peak within 5% of depth 4's: a group boundary does not
     make the footprint grow), prefill against decode_init in f32 at depth
     2, and one fetch of each row kind timed.  -> (line, launches,
     routes)."""
@@ -1825,7 +1860,7 @@ def serve_moe_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
     pick = max(range(n_req), key=lambda i: reqs[i].t_first)
     _, (solo,), solo_ticks, solo_s = serve(eng, params,
                                            [(prompts[pick], news[pick])])
-    d4 = min(4, depth)
+    d4 = min(3, depth)
     e4 = engines.create("l2l", cfg.replace(n_layers=d4), exec_cfg)
     sub4 = _sub(packing, params, dense_eps, moe_eps, d4 - 1)
     torch.cuda.synchronize()
@@ -1925,8 +1960,8 @@ def serve_moe_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
 def train_moe_phase(torch, np, engines, ExecutionConfig, knobs, get_config,
                     LayeredModel, tree_leaves, is_spec, SyntheticLM,
                     DataConfig, adam, make_schedule, counters, dev):
-    """deepseek-v2-lite-16b at full width and depth 3 (the dense layer 0 +
-    2 MoE layers) under l2l-p with the train phase's knobs, B=8 x S=512,
+    """deepseek-v2-lite-16b at full width and depth 2 (the dense layer 0 +
+    one MoE layer) under l2l-p with the train phase's knobs, B=8 x S=512,
     UB=2, 2 steps, every counter set to 0 just before and read just
     after.  Then, not counted: Engine.grads in f32 at depth 2 under l2l-p
     against the baseline engine on the same batch at fan-in scales
@@ -2058,7 +2093,7 @@ def train_moe_phase(torch, np, engines, ExecutionConfig, knobs, get_config,
 RECURRENT_ARCHS = ("hymba-1.5b", "rwkv6-1.6b")
 # the train phases' depth caps (0: the full depth, host allowing): rwkv6's
 # host-bound WKV loop made its 24-layer step 10-19 s
-TRAIN_DEPTH_CAP = {"hymba-1.5b": 16, "rwkv6-1.6b": 8}
+TRAIN_DEPTH_CAP = {"hymba-1.5b": 8, "rwkv6-1.6b": 4}
 # serve-recurrent's crowd: a recurrent family feeds one token a tick (the
 # ServeEngine forces prefill_chunk to 1), so the prompts stay short
 REC_CROWD = dict(max_batch=8, page_size=16, max_seq=48, n_pages=24,
@@ -3243,7 +3278,9 @@ def tier_phase(torch, np, engines, ExecutionConfig, bert, knobs, exec_cfg,
 
 
 GROK_ARCH = "grok-1-314b"
-GROK_DEPTH_CAP = 2
+# one layer: the script's time limit (a second 19.7 GB layer costs ~15 s
+# of drawing, pinning and fetching); the host could pin 2
+GROK_DEPTH_CAP = 1
 # the phase runs last and holds nothing on the host beside its EPS and
 # the process: with 24 GiB, 93.5 GB of MemAvailable on an H100 host left
 # depth 1
@@ -3255,9 +3292,10 @@ def grok_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
     """grok-1-314b at full width (d 6144, 48 heads over 8, 8 experts top
     2 of d_ff 32768, vocab 131072, logits soft-capped at 30), f32 masters,
     served with the serve phase's settings at the depth the host can pin
-    (at most 2; a layer is a 19.7 GB f32 row, pinned as a power of two),
+    (at most ``GROK_DEPTH_CAP``; a layer is a 19.7 GB f32 row, pinned as
+    a power of two),
     drawn layer by layer on the card.  Every counter set to 0 just before
-    and read just after: decode_init on 4 prompts of 4 tokens, 4 greedy
+    and read just after: decode_init on 4 prompts of 4 tokens, 2 greedy
     steps, Engine.prefill at 4 x 16 and 2 x 2048.  Checks: finite logits
     within the cap, the router's 2 of 8 distinct experts for every token.
     Not counted: one K4 fetch of a whole 19.7 GB row against ``copy_``, in
@@ -3269,7 +3307,9 @@ def grok_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
     import dataclasses
     from repro_torch.models import moe
     from repro_torch.testing import fan_in_params
-    B, P, GEN = 4, 4, 4
+    # 2 greedy steps: each is a fetch of the rows, ~2.2 s on a ~27 GB/s
+    # host
+    B, P, GEN = 4, 4, 2
     full = get_config(GROK_ARCH, "full")
     (row,) = group_rows(LayeredModel, tree_leaves, is_spec, full)
     avail = mem_available()
@@ -3327,8 +3367,8 @@ def grok_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
     picks = []
     route = moe._route
 
-    def watched(w, xf, cfg_):
-        top_w, top_i, aux = route(w, xf, cfg_)
+    def watched(w, xf, cfg_, *args):
+        top_w, top_i, aux = route(w, xf, cfg_, *args)
         picks.append((top_i.shape[1], int(top_i.min()), int(top_i.max()),
                       bool((top_i[:, 0] != top_i[:, 1]).all())))
         return top_w, top_i, aux
@@ -3400,8 +3440,9 @@ def grok_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
         "phase": "serve-grok", "arch": full.name, "depth": depth,
         "full_depth": full.n_layers, "mem_available_bytes": avail,
         "reserve_bytes": GROK_RESERVE,
-        "reduced": f"depth {full.n_layers} -> {depth}: host memory for "
-                   f"the pinned EPS (a {row} B row pins "
+        "reduced": f"depth {full.n_layers} -> {depth}: chip_smoke.py's "
+                   f"time limit (at most {GROK_DEPTH_CAP}) and host memory "
+                   f"for the pinned EPS (a {row} B row pins "
                    f"{2 ** math.ceil(math.log2(depth * row))} B)",
         "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
         "experts": [cfg.n_experts, cfg.experts_per_token],
@@ -3439,8 +3480,8 @@ def grok_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
 
 
 DP_DIR = ROOT / "build" / "chip_smoke_dp"
-# 12 of bert-large's 24 layers (the chip time of the model axis's phase)
-DP_DEPTH = 12
+# 6 of bert-large's 24 layers (the chip time of the mesh's phases)
+DP_DEPTH = 6
 # the train CLI's arguments of both train-dp runs: the train phase's
 # model, batch and knobs (l2l-p; Adam, its schedule and the per-layer
 # clip are the CLI's)
@@ -3450,10 +3491,10 @@ DP_ARGV = ["--arch", "bert-large", "--variant", "full", "--engine", "l2l-p",
            "--weight-stream", "--pack", "--prefetch", "1",
            "--transport", "pallas", "--offload-stash", "--use-pallas",
            "--log-every", "1", "--seed", "0"]
-# the f32 check: depth 2, B=8, UB=2, 2 steps, from a snapshot of fan-in
-# parameters
+# the f32 check: depth 2, B=8, UB=2, one step from one draw of fan-in
+# parameters (``tp_rank_dp_f32``)
 DP_F32 = ["--n-layers", "2", "--dtype", "float32", "--batch", "8",
-          "--ub", "2", "--steps", "2"]
+          "--ub", "2", "--steps", "1"]
 DP_RANKS = 2
 # bounds of the f32 check against one process on the whole batch (the
 # ranks' microbatches hold other rows: sums in other orders)
@@ -3513,28 +3554,23 @@ def train_dp_phase(torch, np, engines, counters, dev):
 
     (a) In process: NCCL over a world of one (a FileStore under build/),
     a (data=1, model=1) mesh; bert-large at full width and ``DP_DEPTH``
-    (12) of its 24 layers through the train CLI's configuration
+    (6) of its 24 layers through the train CLI's configuration
     (``DP_ARGV``): 3 steps on the mesh, the counters set to 0 just before
     and read just after, beside 3 meshless steps from the same state:
-    losses, weights and Adam slots bit for bit (checksums); 12 layer rows
+    losses, weights and Adam slots bit for bit (checksums); 6 layer rows
     + the static tree + 2 scalars reduced a step; the step times side by
     side.
     (b) Two gloo ranks on this card through the train CLI under
     ``torch.distributed.run`` (each rank its own pinned EPS): the bf16
     main path, its ranks' final checksums equal, its losses beside (a)'s
-    meshless ones; then the f32 check at fan-in scales, depth 2, from one
-    snapshot: the ranks' final snapshot against one process on the whole
-    batch within ``DP_LOSS_REL`` (losses) and ``DP_UPDATE_REL`` (each
-    leaf's update, rel L2)."""
+    meshless ones.  Its f32 check runs in the tp phase's world
+    (``tp_rank_dp_f32``: one process start-up less)."""
     import shutil
     import torch.distributed as dist
     from repro_torch.distributed.data_parallel import tree_checksum
-    from repro_torch.engine.state import TrainState
     from repro_torch.launch import train as cli
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.common import is_spec
-    from repro_torch.testing import fan_in_params
-    from repro_torch.core.tree import tree_leaves
     shutil.rmtree(DP_DIR, ignore_errors=True)
     DP_DIR.mkdir(parents=True)
     out = {"phase": "train-dp", "ranks_b": DP_RANKS}
@@ -3616,60 +3652,12 @@ def train_dp_phase(torch, np, engines, counters, dev):
     assert line["all_reduces_per_step"] == n_red
     assert all(np.isfinite(line["losses"])), line["losses"]
 
-    # -------------------------------------------------------- (b) f32
-    t_f = time.perf_counter()
-    argv = DP_ARGV + DP_F32 + ["--resume", str(DP_DIR / "f32"),
-                               "--ckpt-dir", str(DP_DIR / "f32")]
-    ap, args = cli.parse_args(argv)
-    name, cfg, opt, exec_cfg = cli.setup(ap, args)
-    eng = engines.create(name, cfg, exec_cfg, optimizer=opt)
-    g = torch.Generator(dev).manual_seed(11)
-    params = fan_in_params(eng.model.param_specs(), lambda shape: torch.randn(
-        shape, generator=g, device=dev))
-    p = eng._place_params(params)
-    st0 = TrainState.from_legacy(p, eng._place_opt(eng._init_opt_legacy(p),
-                                                   p))
-    eng.save(str(DP_DIR / "f32"), st0, step=0)
-    p0 = [a.float().cpu() for a in tree_leaves(params)]
-    del params, p
-    # the two ranks and the one process at once (a check of values only)
-    started = torchrun(argv)
-    one, one_losses, _, _ = run(eng, st0, args, cfg, args.steps)
-    torch.cuda.synchronize()
-    line, secs = torchrun_line(started, "train_dp_f32.log", 300)
-    dp_state, step = eng.restore(str(DP_DIR / "f32"), step=args.steps)
-    from repro_torch.bridge import train_state_to_numpy
-    got_p = tree_leaves(train_state_to_numpy(dp_state)[0])
-    want_p = tree_leaves(train_state_to_numpy(one)[0])
-    upd = max(float(np.linalg.norm(a - b) / max(
-        np.linalg.norm(b - c.numpy()), 1e-30))
-        for a, b, c in zip(got_p, want_p, p0))
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(line["losses"],
-                                                       one_losses))
-    out["b_f32"] = {
-        "depth": cfg.n_layers, "batch": args.batch, "dtype": "float32",
-        "init": "fan-in scales (repro_torch.testing.fan_in_params)",
-        "losses": line["losses"], "one_process_losses": one_losses,
-        "loss_rel_max": loss_rel, "update_rel_l2_max": upd,
-        "bounds": {"loss_rel": DP_LOSS_REL, "update_rel_l2": DP_UPDATE_REL},
-        "rank_checksums": line["rank_checksums"],
-        "all_reduces_per_step": line["all_reduces_per_step"],
-        "all_reduce_GB_per_step": line["all_reduce_bytes_per_step"] / 1e9,
-        "all_reduce_ms": line["all_reduce_ms"], "torchrun_s": secs,
-        "seconds": time.perf_counter() - t_f}
-    del one, dp_state, eng, st0
     shutil.rmtree(DP_DIR, ignore_errors=True)
     free_host(torch)
-    emit({"phase": "train-dp-b-f32", **out["b_f32"]})
-    sums_f = line["rank_checksums"]
-    assert all(s == sums_f[0] for s in sums_f), sums_f
-    assert step == args.steps and loss_rel <= DP_LOSS_REL and \
-        upd <= DP_UPDATE_REL, out["b_f32"]
     return out, launches, routes
 
 
 TP_RANKS = 2
-TP_DIR = ROOT / "build" / "chip_smoke_tp"
 # train-tp: bert-large at full width (16 heads, d_ff 4096, vocab 30522:
 # 8 heads, 2048 columns and 15261 rows a rank), depth 4, the train
 # phase's batch, l2l-p unpacked (the sharded relay) through the train
@@ -3679,33 +3667,75 @@ TP_ARGV = ["--arch", "bert-large", "--variant", "full", "--engine", "l2l-p",
            "--ub", "4", "--weight-stream", "--prefetch", "1",
            "--transport", "pallas", "--offload-stash", "--use-pallas",
            "--log-every", "1", "--seed", "0", "--mesh", f"model={TP_RANKS}"]
-# its f32 check, from one snapshot of fan-in parameters (train-dp's)
+# its f32 check, train-dp's
 TP_F32 = DP_F32
 # the bf16 losses against one process at the same depth and batch
 TP_LOSS_REL_BF16 = 1e-3
 # serve-tp: granite-3-8b at full width (32 heads over 8 kv: 16 over 4 a
 # rank; d_ff 12800: 6400; vocab 49155 does not split: whole on both),
-# depth 4, weight_stream unpacked
-TP_SERVE_DEPTH = 4
+# depth 2 (the chip time of the MoE paths beside it), weight_stream
+# unpacked
+TP_SERVE_DEPTH = 2
 TP_SERVE = dict(batch=4, prompt=16, gen=4)
 # the serve phase's bound of prefill against decode_init in bf16 (granite
 # at the reference's init: one process at depth 4 stands 0.062 apart)
 TP_SERVE_BF16 = 0.35
 TP_SERVE_F32 = 1e-4
 TP_K3_CELL = "bert-large train microbatch per model rank"
+# the MoE family on the mesh (one torch.distributed.run with train-tp and
+# serve-tp): deepseek-v2-lite at full width (8 of 16 heads, 32 of 64
+# experts and the router's matching columns, 1408 of the shared experts'
+# 2816 columns, 5472 of layer 0's 10944, 51200 of 102400 vocabulary rows
+# a model rank).  train-moe-tp: the dense layer 0 and one MoE layer, B=8 x
+# 512, UB=2, 2 l2l-p steps unpacked (the sharded relay) on (data=1,
+# model=2); train-moe-dp: the same on (data=2, model=1), packed (K1), 4 of
+# the 8 rows a rank (its block of each microbatch); serve-moe-tp: depth 3
+# on (data=1, model=2), weight_stream unpacked.  Each against one process
+# at the same depth and batch; in f32 at fan-in scales from one draw, the
+# ranks on the same relay, one process with its weights on the card
+TP_MOE_TRAIN = dict(depth=2, batch=8, seq=512, ub=2, steps=2, f32_steps=1)
+TP_MOE_SERVE_DEPTH = 3
+TP_MOE_AUX_REL = 1e-5
 
 
-def tp_layer_bytes(cfg, ranks, LayeredModel, tree_leaves, is_spec) -> int:
-    """One layer's f32 bytes on a rank of a model axis of ``ranks``: its
-    blocks of the split leaves, the other leaves whole."""
+def tp_layer_bytes(cfg, ranks, LayeredModel, tree_leaves, is_spec,
+                   group: int = 0) -> int:
+    """One layer's f32 bytes (of layer group ``group``) on a rank of a
+    model axis of ``ranks``: its blocks of the split leaves, the other
+    leaves whole."""
     from types import SimpleNamespace
     from repro_torch.distributed import sharding as shd
     mesh = SimpleNamespace(shape={"data": 1, "model": ranks})
     rules = shd.make_rules(cfg, mesh)
     return 4 * sum(math.prod(shd.local_shape(
         s.shape, shd.spec_to_pspec(s.axes, rules, s.shape, mesh), mesh))
-        for s in tree_leaves(LayeredModel(cfg).groups[0].spec,
+        for s in tree_leaves(LayeredModel(cfg).groups[group].spec,
                              is_leaf=is_spec))
+
+
+TP_PATHS = ("train-tp", "serve-tp", "train-moe-tp", "train-moe-dp",
+            "serve-moe-tp")
+
+
+def drawn_state(torch, e, seed: int = 11):
+    """A step-0 state of engine ``e`` at fan-in scales, every leaf drawn
+    whole on the card from ``seed`` (the same bits on every rank) and kept
+    as ``e`` holds it (a model rank's blocks)."""
+    from repro_torch.engine.state import TrainState
+    from repro_torch.testing import fan_in_params
+    g = torch.Generator("cuda").manual_seed(seed)
+    p = fan_in_params(e.model.param_specs(), lambda shape: torch.randn(
+        shape, generator=g, device="cuda"))
+    p = e._place_params(e.tp.shard(p) if e.tp else p)
+    return TrainState.from_legacy(p, e._place_opt(e._init_opt_legacy(p), p))
+
+
+def f32_rel(np, tree_leaves, got, want, p0) -> float:
+    """The largest relative L2 of a leaf's update, ``got`` against
+    ``want`` from ``p0`` (numpy trees)."""
+    return max(float(np.linalg.norm(a - b) / max(np.linalg.norm(b - c),
+                                                  1e-30))
+               for a, b, c in zip(tree_leaves(got), tree_leaves(want), p0))
 
 
 def tp_phase(torch, counters):
@@ -3720,7 +3750,7 @@ def tp_phase(torch, counters):
                                "tp_ranks.log", 900)
     ranks = line["tp_ranks"]
     out, launches, routes = {}, {}, {}
-    for key in ("train-tp", "serve-tp"):
+    for key in TP_PATHS:
         got = [r[key] for r in ranks]
         launches[key] = {n: sum(g["launches"][n] for g in got)
                          for n in counters}
@@ -3732,6 +3762,10 @@ def tp_phase(torch, counters):
                     "rank1": {k: got[1][k] for k in got[1]
                               if k not in ("launches", "routes")}}
         emit(out[key])
+    # train-dp's f32 check, made in this world (``tp_rank_dp_f32``)
+    out["train-dp-f32"] = {"phase": "train-dp-b-f32",
+                           **ranks[0]["train-dp-f32"]}
+    emit(out["train-dp-f32"])
     out["torchrun_s"] = secs
     out["seconds"] = time.perf_counter() - t0
     return out, launches, routes
@@ -3749,7 +3783,8 @@ def tp_rank(np, torch):
     pspec splits (and their Adam slots) equal; rank 0 then runs one
     process from the same seed and holds the losses within
     ``TP_LOSS_REL_BF16``; then in f32 at depth 2 and fan-in scales from
-    one snapshot, the gathered state against one process within
+    one draw, the ranks on the CLI's sharded, weight-streamed relay, the
+    gathered state against one process (its weights on the card) within
     ``DP_LOSS_REL`` (losses) and ``DP_UPDATE_REL`` (each leaf's update).
 
     serve-tp: granite-3-8b at depth ``TP_SERVE_DEPTH``, weight_stream
@@ -3760,7 +3795,7 @@ def tp_rank(np, torch):
     f32 at fan-in scales, tokens equal and every step's logits within
     ``TP_SERVE_F32`` of one process.  Rank 0 prints every rank's results
     as one JSON line."""
-    import shutil
+    import dataclasses
     import torch.distributed as dist
     from repro_torch import bridge
     from repro_torch import engine as engines
@@ -3768,8 +3803,6 @@ def tp_rank(np, torch):
     from repro_torch.core.schedule import ExecutionConfig
     from repro_torch.core.tree import tree_leaves
     from repro_torch.distributed.data_parallel import tree_checksum
-    from repro_torch.distributed.sharding import shard_batch
-    from repro_torch.engine.state import TrainState
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_adam as fadam
     from repro_torch.kernels import relay_copy as rc
@@ -3822,7 +3855,7 @@ def tp_rank(np, torch):
     slices = sync_sums(st0.params)[0] == sync_sums(
         eng.tp.shard(whole.params))[0]
     data = cli.make_data(args, cfg)
-    batches = [shard_batch(cli.batch_at(args, cfg, data, i), mesh, eng.rules)
+    batches = [eng.local_rows(cli.batch_at(args, cfg, data, i), "train_step")
                for i in range(args.steps)]
     torch.cuda.synchronize()
     st, losses, times, colls = st0, [], [], []
@@ -3881,59 +3914,54 @@ def tp_rank(np, torch):
     free_host(torch)
     dist.barrier()
 
-    # the f32 check: depth 2 at fan-in scales, one snapshot for both
+    # the f32 check: depth 2 at fan-in scales, one draw on every rank; the
+    # ranks on the CLI's configuration (the sharded, weight-streamed relay
+    # with the offloaded stash), one process with its weights on the card
     t0 = time.perf_counter()
     ap, args = cli.parse_args(TP_ARGV + TP_F32)
     name, cfg, opt, exec_cfg = cli.setup(ap, args)
-    one = engines.create(name, cfg, exec_cfg, optimizer=opt)
-    snap = TP_DIR / "f32"
-    if rank == 0:
-        shutil.rmtree(TP_DIR, ignore_errors=True)
-        g = torch.Generator(dev).manual_seed(11)
-        params = fan_in_params(one.model.param_specs(), lambda shape:
-                               torch.randn(shape, generator=g, device=dev))
-        p = one._place_params(params)
-        one.save(str(snap), TrainState.from_legacy(
-            p, one._place_opt(one._init_opt_legacy(p), p)), step=0)
-        del params, p
-    dist.barrier()
+    assert exec_cfg.weight_stream and not exec_cfg.pack_params
     eng = engines.create(name, cfg, exec_cfg, optimizer=opt, mesh=mesh)
     data = cli.make_data(args, cfg)
     batches = [cli.batch_at(args, cfg, data, i) for i in range(args.steps)]
-    st, _ = eng.restore(str(snap), step=0)
+    st = drawn_state(torch, eng)
     f32_losses = []
     for b in batches:
-        st, m = eng.train_step(st, b)
+        st, m = eng.train_step(st, eng.local_rows(b, "train_step"))
         f32_losses.append(float(m["loss"]))
-    got = bridge.gather_train_state(st, eng.tp)[0]
+    torch.cuda.synchronize()
+    got = bridge.gather_params(st.params, eng.tp)
     del st, eng
+    free_host(torch)
+    dist.barrier()
     if rank == 0:
-        ref, _ = one.restore(str(snap), step=0)
-        p0 = tree_leaves(bridge.train_state_to_numpy(ref)[0])
+        one = engines.create(name, cfg, dataclasses.replace(
+            exec_cfg, weight_stream=False, offload_stash=False),
+            optimizer=opt)
+        ref = drawn_state(torch, one)
+        p0 = tree_leaves(bridge.params_to_numpy(ref.params))
         one_losses = []
         for b in batches:
             ref, m = one.train_step(ref, b)
             one_losses.append(float(m["loss"]))
-        want = bridge.train_state_to_numpy(ref)[0]
-        upd = max(float(np.linalg.norm(a - b) / max(
-            np.linalg.norm(b - c), 1e-30))
-            for a, b, c in zip(tree_leaves(got), tree_leaves(want), p0))
+        upd = f32_rel(np, tree_leaves, got,
+                      bridge.params_to_numpy(ref.params), p0)
         loss_rel = max(abs(a - b) / abs(b)
                        for a, b in zip(f32_losses, one_losses))
         line["f32"] = {"depth": cfg.n_layers, "batch": args.batch,
                        "init": "fan-in scales (repro_torch.testing."
-                               "fan_in_params)",
+                               "fan_in_params), one draw",
+                       "ranks": "weight-streamed, sharded relay (the CLI's)",
                        "losses": f32_losses,
                        "one_process_losses": one_losses,
                        "loss_rel_max": loss_rel, "update_rel_l2_max": upd,
                        "bounds": {"loss_rel": DP_LOSS_REL,
                                   "update_rel_l2": DP_UPDATE_REL},
                        "seconds": time.perf_counter() - t0}
-        del ref
-        shutil.rmtree(TP_DIR, ignore_errors=True)
+        del ref, one
         check(loss_rel <= DP_LOSS_REL and upd <= DP_UPDATE_REL,
               "train-tp: f32 apart from one process")
-    del one, got
+    del got
     free_host(torch)
     line["seconds"] = time.perf_counter() - t_phase
     done("train-tp", line)
@@ -4052,12 +4080,465 @@ def tp_rank(np, torch):
     line["seconds"] = time.perf_counter() - t_phase
     done("serve-tp", line)
 
+    dist.barrier()
+    tp_rank_moe(np, torch, mesh, rank, counters, check, done)
+
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
     if rank == 0:
         print(json.dumps({"tp_ranks": every}), flush=True)
     dist.destroy_process_group()
     assert not fails, fails
+
+
+def tp_rank_moe(np, torch, mesh, rank, counters, check, done):
+    """The MoE family on the mesh, in ``tp_rank``'s world (``TP_RANKS``
+    gloo ranks on this card), deepseek-v2-lite at full width:
+
+    train-moe-tp: ``TP_MOE_TRAIN`` on ``mesh`` (data=1, model=2), l2l-p
+    unpacked, bf16, Adam: the rank's weights the slices of the one-process
+    draw (checksums), 2 steps with every counter set to 0 just before and
+    read just after, the ranks' replicated leaves and Adam slots equal;
+    rank 0 holds the losses to one process at the same depth and batch
+    (its weights on the card) within ``TP_LOSS_REL_BF16``; then in f32 at
+    fan-in scales, one step of the ranks on the same relay (K4 fetching
+    and writing back each rank's expert blocks), the gathered weights
+    against one process within ``DP_LOSS_REL`` (losses), ``DP_UPDATE_REL``
+    (each leaf's update) and ``TP_MOE_AUX_REL`` (the aux), each state
+    drawn whole from one seed on every rank.
+
+    train-moe-dp: the same on a (data=2, model=1) mesh over the same
+    ranks, packed (K1 runs) without the prefetch ring (two ranks' packed
+    MoE rows with their Adam slots share the card), each rank on its
+    block of each microbatch of
+    the global batch (the router's statistics and the dispatch over the
+    data group), counted; the ranks' checksums equal; rank 0 holds the
+    losses to the same one process (bf16), and the f32 run on the same
+    packed relay (K1 on the packed rows) from the same draw to the same
+    one-process f32 run; the data group's collectives a step, the MoE's
+    apart from the gradient rows.
+
+    serve-moe-tp: depth ``TP_MOE_SERVE_DEPTH`` on ``mesh``, weight_stream
+    unpacked, counted: decode_init on 4 prompts of 16, 4 greedy steps and
+    prefill; bf16 logits within ``TP_SERVE_BF16`` of one process on the
+    same weights; in f32 at fan-in scales, the ranks on the same
+    weight-streamed relay, tokens equal and logits within
+    ``TP_SERVE_F32`` of one process; K4's GB a step a rank beside one
+    process's."""
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch import engine as engines
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import packing
+    from repro_torch.core.schedule import ExecutionConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.distributed.data_parallel import tree_checksum
+    from repro_torch.kernels import relay_copy as rc
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adam, make_schedule
+    from repro_torch.serve.sampling import sample_batch
+    from repro_torch.testing import fan_in_params
+    dev = torch.device("cuda")
+    T = TP_MOE_TRAIN
+    full = get_config(MOE_ARCH, "full")
+    cfg = full.replace(n_layers=T["depth"], use_pallas=True)
+    c32 = cfg.replace(dtype="float32")
+    knobs = dict(n_microbatches=T["ub"], weight_stream=True,
+                 prefetch_depth=1, transport="pallas", offload_stash=True)
+    # packed (the data path) without the prefetch ring: two ranks share
+    # the card, and the ring's clamped re-fetch of the 2.3 GB MoE row
+    # with its Adam slots would double each rank's peak (results are the
+    # same bits at every prefetch depth)
+    ex = {False: ExecutionConfig(pack_params=False, **knobs),
+          True: ExecutionConfig(pack_params=True,
+                                **{**knobs, "prefetch_depth": 0})}
+    # the one process holds the numbers, not the relay: its weights rest
+    # on the card and nothing is pinned
+    ex_card = ExecutionConfig(n_microbatches=T["ub"])
+    opt = lambda: adam(schedule=make_schedule(1e-4, warmup=10))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=T["seq"],
+                   global_batch=T["batch"], seed=0)).batch(i).items()}
+        for i in range(T["steps"])]
+    mesh_dp = make_mesh({"data": TP_RANKS, "model": 1}, "cuda")
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    def sync_sums(*trees):
+        torch.cuda.synchronize()
+        return [tree_checksum(t) for t in trees]
+
+    def steps(eng, st):
+        """The counted steps on this rank's rows -> (state, line)."""
+        bs = [eng.local_rows(b, "train_step") for b in batches]
+        torch.cuda.synchronize()
+        reset_counts(counters.values())
+        losses, aux, times, colls = [], [], [], []
+        for b in bs:
+            t0 = time.perf_counter()
+            st, m = eng.train_step(st, b)
+            losses.append(float(m["loss"]))
+            aux.append(float(m["aux"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            colls.append({**eng.dp.stats(),
+                          **(eng.tp.stats() if eng.tp else {})})
+        launches = {n: c.launches for n, c in counters.items()}
+        line = {"arch": full.name, "depth": cfg.n_layers,
+                "batch": T["batch"], "rows_per_rank": bs[0]["tokens"].shape[0],
+                "seq": T["seq"], "microbatches": T["ub"], "dtype": cfg.dtype,
+                "pack": eng.exec_cfg.pack_params, "losses": losses,
+                "aux": aux, "step_s": times, "collectives_per_step": colls,
+                "launches_per_step": {n: v / T["steps"]
+                                      for n, v in launches.items()},
+                "launches": launches, "routes": route_counts(counters)}
+        return st, line
+
+    def f32_run(eng):
+        """The ranks' f32 steps on the relay of the counted run."""
+        st = drawn_state(torch, eng)
+        losses, aux = [], []
+        for b in batches[:T["f32_steps"]]:
+            st, m = eng.train_step(st, eng.local_rows(b, "train_step"))
+            losses.append(float(m["loss"]))
+            aux.append(float(m["aux"]))
+        torch.cuda.synchronize()
+        # the weights alone
+        got = (bridge.gather_params(st.params, eng.tp) if eng.tp
+               else bridge.params_to_numpy(packing.unpack_params(
+                   st.params)))
+        return losses, aux, got
+
+    def f32_check(line, key, losses, aux, got):
+        if rank != 0:
+            return
+        upd = f32_rel(np, tree_leaves, got, one32["params"], one32["p0"])
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, one32["losses"]))
+        aux_rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(aux, one32["aux"]))
+        line["f32"] = {"depth": c32.n_layers, "batch": T["batch"],
+                       "init": "fan-in scales (repro_torch.testing."
+                               "fan_in_params), one draw",
+                       "ranks": "the relay of the counted run",
+                       "losses": losses, "aux": aux,
+                       "one_process_losses": one32["losses"],
+                       "one_process_aux": one32["aux"],
+                       "loss_rel_max": loss_rel, "aux_rel_max": aux_rel,
+                       "update_rel_l2_max": upd,
+                       "bounds": {"loss_rel": DP_LOSS_REL,
+                                  "aux_rel": TP_MOE_AUX_REL,
+                                  "update_rel_l2": DP_UPDATE_REL}}
+        check(loss_rel <= DP_LOSS_REL and upd <= DP_UPDATE_REL
+              and aux_rel <= TP_MOE_AUX_REL,
+              f"{key}: f32 apart from one process")
+
+    # ------------------------------------------------------- train-moe-tp
+    t_phase = time.perf_counter()
+    eng = engines.create("l2l-p", cfg, ex[False], optimizer=opt(),
+                         mesh=mesh)
+    held = [eng.init(torch.Generator(dev).manual_seed(0))]
+    one = engines.create("l2l-p", cfg, ex_card, optimizer=opt())
+    # the one-process draw (rank 0 trains it; rank 1 needs its weights)
+    g0 = torch.Generator(dev).manual_seed(0)
+    whole = [one.init(g0) if rank == 0 else one.init_params(g0)]
+    slices = sync_sums(held[0].params)[0] == sync_sums(eng.tp.shard(
+        getattr(whole[0], "params", whole[0])))[0]
+    # no reference to the first state outlives its step: the second step
+    # reuses its pinned blocks
+    st, line = steps(eng, held.pop())
+    torch.cuda.synchronize()
+    whole_sums = eng.tp.gather_checksums(
+        eng.tp.whole_leaves(st.params), eng.tp.whole_leaves(st.legacy_opt()))
+    lo, hi = eng.tp.expert_block()
+    line.update({"heads_per_rank": cfg.n_heads // TP_RANKS,
+                 "experts_per_rank": [lo, hi],
+                 "shared_columns_per_rank": cfg.n_shared_experts
+                 * cfg.d_ff_expert // TP_RANKS,
+                 "dense_ffn_columns_per_rank": cfg.d_ff_dense // TP_RANKS,
+                 "vocab_per_rank": (cfg.vocab_size // TP_RANKS
+                                    if eng.tp.vocab else cfg.vocab_size),
+                 "weights_are_slices_of_one_process": slices,
+                 "whole_leaf_checksums": whole_sums})
+    del st, eng
+    check(slices, "train-moe-tp: the weights are not the one-process slices")
+    check(all(r == whole_sums[0] for r in whole_sums),
+          "train-moe-tp: the replicated leaves differ")
+    check(all(np.isfinite(line["losses"])) and min(line["aux"]) > 0,
+          "train-moe-tp: a loss or aux is not finite")
+    # the other rank's cached blocks go back before one process runs
+    free_host(torch)
+    dist.barrier()
+    one_bf16 = None
+    if rank == 0:
+        ref, ref_losses, ref_times = whole.pop(), [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            ref, m = one.train_step(ref, b)
+            ref_losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ref_times.append(time.perf_counter() - t0)
+        one_bf16 = {"losses": ref_losses, "step_s": ref_times}
+        line["one_process_losses"] = ref_losses
+        line["one_process_step_s"] = ref_times
+        line["loss_rel_to_one_process"] = [
+            abs(a - b) / abs(b) for a, b in zip(line["losses"], ref_losses)]
+        del ref
+        check(max(line["loss_rel_to_one_process"]) <= TP_LOSS_REL_BF16,
+              "train-moe-tp: bf16 losses apart from one process")
+    del whole, one
+    free_host(torch)
+    dist.barrier()
+    # f32 from one draw: the two ranks on the counted run's relay, then
+    # one process on rank 0
+    t0 = time.perf_counter()
+    eng = engines.create("l2l-p", c32, ex[False], optimizer=opt(),
+                         mesh=mesh)
+    tp32 = f32_run(eng)
+    del eng
+    free_host(torch)
+    dist.barrier()
+    one32 = {}
+    if rank == 0:
+        one = engines.create("l2l-p", c32, ex_card, optimizer=opt())
+        ref = drawn_state(torch, one)
+        one32["p0"] = tree_leaves(bridge.params_to_numpy(ref.params))
+        one32["losses"], one32["aux"] = [], []
+        for b in batches[:T["f32_steps"]]:
+            ref, m = one.train_step(ref, b)
+            one32["losses"].append(float(m["loss"]))
+            one32["aux"].append(float(m["aux"]))
+        one32["params"] = bridge.params_to_numpy(ref.params)
+        del ref, one
+    f32_check(line, "train-moe-tp", *tp32)
+    del tp32
+    free_host(torch)
+    line["f32_seconds"] = time.perf_counter() - t0
+    line["seconds"] = time.perf_counter() - t_phase
+    done("train-moe-tp", line)
+    dist.barrier()
+
+    # ------------------------------------------------------- train-moe-dp
+    t_phase = time.perf_counter()
+    eng = engines.create("l2l-p", cfg, ex[True], optimizer=opt(),
+                         mesh=mesh_dp)
+    st, line = steps(eng, eng.init(torch.Generator(dev).manual_seed(0)))
+    sums = eng.dp.gather_checksums(st.params, st.opt_state)
+    last = line["collectives_per_step"][-1]
+    line.update({"rank_checksums": sums,
+                 "gradient_all_reduces_per_step": last["all_reduces"],
+                 "gradient_all_reduce_GB_per_step":
+                     last["all_reduce_bytes"] / 1e9,
+                 "moe_collectives_per_step": last["moe_collectives"],
+                 "moe_collective_bytes_per_step":
+                     last["moe_collective_bytes"]})
+    del st, eng
+    check(all(r == sums[0] for r in sums),
+          "train-moe-dp: the data ranks' states differ")
+    check(all(np.isfinite(line["losses"])) and min(line["aux"]) > 0,
+          "train-moe-dp: a loss or aux is not finite")
+    if rank == 0:
+        # one process at the same depth, seed and global batch:
+        # train-moe-tp's
+        line["one_process_losses"] = one_bf16["losses"]
+        line["loss_rel_to_one_process"] = [
+            abs(a - b) / abs(b)
+            for a, b in zip(line["losses"], one_bf16["losses"])]
+        check(max(line["loss_rel_to_one_process"]) <= TP_LOSS_REL_BF16,
+              "train-moe-dp: bf16 losses apart from one process")
+    free_host(torch)
+    t0 = time.perf_counter()
+    eng = engines.create("l2l-p", c32, ex[True], optimizer=opt(),
+                         mesh=mesh_dp)
+    f32_check(line, "train-moe-dp", *f32_run(eng))
+    del eng, one32
+    free_host(torch)
+    line["f32_seconds"] = time.perf_counter() - t0
+    line["seconds"] = time.perf_counter() - t_phase
+    done("train-moe-dp", line)
+    dist.barrier()
+    tp_rank_dp_f32(np, torch, mesh_dp, rank, check, done)
+    dist.barrier()
+
+    # ------------------------------------------------------- serve-moe-tp
+    t_phase = time.perf_counter()
+    scfg = full.replace(n_layers=TP_MOE_SERVE_DEPTH, use_pallas=True)
+    sx = ExecutionConfig(weight_stream=True, pack_params=False,
+                         prefetch_depth=1, transport="pallas")
+    B, P, GEN = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["gen"]
+    prompt = torch.randint(0, scfg.vocab_size, (B, P), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+
+    def greedy(e, params, n):
+        """decode_init, ``n`` greedy steps, prefill -> (tokens, the
+        logits of decode_init and each step, prefill's, the decode
+        steps' seconds, K4 fetches and bytes and last step's model
+        collectives)."""
+        t0 = time.perf_counter()
+        caches, last = e.decode_init(params, prompt, P + n)
+        torch.cuda.synchronize()
+        info = {"init_s": time.perf_counter() - t0}
+        tok = sample_batch(last)[:, None]
+        toks, logits = [tok], [last]
+        f0, b0 = rc.copy_rows.launches, rc.copy_rows.bytes
+        t0 = time.perf_counter()
+        for i in range(n):
+            lg, caches = e.decode_step(params, caches, tok, P + i)
+            tok = sample_batch(lg[:, -1])[:, None]
+            toks.append(tok)
+            logits.append(lg[:, -1])
+        torch.cuda.synchronize()
+        info.update(decode_s=time.perf_counter() - t0,
+                    fetches=rc.copy_rows.launches - f0,
+                    fetched_bytes=rc.copy_rows.bytes - b0,
+                    collectives=e.tp.stats() if e.tp else None)
+        pl = e.prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        return torch.cat(toks, 1), logits, pl, info
+
+    eng = engines.create("l2l", scfg, sx, mesh=mesh)
+    t0 = time.perf_counter()
+    reset_counts(counters.values())
+    params = eng.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks, logits, pl, info = greedy(eng, params, GEN)
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    gap = rel(pl, logits[0])
+    line = {"arch": full.name, "depth": scfg.n_layers, "batch": B,
+            "prompt": P, "steps": GEN, "init_s": init_s,
+            "experts_per_rank": list(eng.tp.expert_block()),
+            "tokens": toks.tolist(), "decode_init_s": info["init_s"],
+            "decode_s": info["decode_s"],
+            "tok_per_s": B * GEN / info["decode_s"],
+            "k4_GB_per_step": info["fetched_bytes"] / GEN / 1e9,
+            "k4_launches_per_step": info["fetches"] / GEN,
+            "rel_l2_prefill_vs_decode_init": gap,
+            "model_collectives_last_step": info["collectives"],
+            "launches": launches, "routes": routes}
+    check(bool(torch.isfinite(pl).all()) and pl.shape == (B, scfg.vocab_size),
+          "serve-moe-tp: prefill's logits")
+    check(gap <= TP_SERVE_BF16, "serve-moe-tp: prefill apart from "
+                                "decode_init")
+    if rank == 0:
+        one = engines.create("l2l", scfg, sx)
+        wparams = one.init_params(torch.Generator(dev).manual_seed(0))
+        line["weights_are_slices_of_one_process"] = sync_sums(params)[0] == \
+            sync_sums(eng.tp.shard(wparams))[0]
+        _, o_logits, o_pl, o_info = greedy(one, wparams, GEN)
+        line["one_process_k4_GB_per_step"] = \
+            o_info["fetched_bytes"] / GEN / 1e9
+        line["one_process_tok_per_s"] = B * GEN / o_info["decode_s"]
+        line["bf16_rel_l2_to_one_process"] = {
+            "decode_init": rel(logits[0], o_logits[0]),
+            "prefill": rel(pl, o_pl)}
+        del one, wparams
+        check(line["weights_are_slices_of_one_process"],
+              "serve-moe-tp: the weights are not the one-process slices")
+        check(max(line["bf16_rel_l2_to_one_process"].values())
+              <= TP_SERVE_BF16, "serve-moe-tp: bf16 apart from one process")
+    del params, eng
+    free_host(torch)
+    dist.barrier()
+    s32 = scfg.replace(dtype="float32")
+    # the ranks on the counted run's relay; one process with its weights
+    # on the card
+    eng = engines.create("l2l", s32, sx, mesh=mesh)
+    g = torch.Generator(dev).manual_seed(5)
+    wparams = fan_in_params(eng.model.param_specs(), lambda shape:
+                            torch.randn(shape, generator=g, device=dev))
+    toks32, logits32, pl32, _ = greedy(eng, eng.tp.shard(wparams), GEN)
+    del eng
+    if rank == 0:
+        one = engines.create("l2l", s32, ExecutionConfig())
+        o_toks, o_logits, o_pl, _ = greedy(one, wparams, GEN)
+        worst = max([rel(a, b) for a, b in zip(logits32, o_logits)]
+                    + [rel(pl32, o_pl)])
+        line["f32"] = {"init": "fan-in scales", "tokens": toks32.tolist(),
+                       "tokens_equal": bool(torch.equal(toks32, o_toks)),
+                       "logits_rel_l2_max": worst, "bound": TP_SERVE_F32}
+        del one
+        check(line["f32"]["tokens_equal"] and worst <= TP_SERVE_F32,
+              "serve-moe-tp: f32 apart from one process")
+    del wparams
+    free_host(torch)
+    line["seconds"] = time.perf_counter() - t_phase
+    done("serve-moe-tp", line)
+
+
+def tp_rank_dp_f32(np, torch, mesh_dp, rank, check, done):
+    """train-dp's f32 check, in the tp phase's world (one process start-up
+    less than a torchrun of its own): bert-large at depth 2 through the
+    train CLI's configuration (``DP_ARGV`` + ``DP_F32``) on ``mesh_dp``
+    (data=2, model=1), each rank on its block of each microbatch, on the
+    CLI's
+    weight-streamed, packed relay, one step from one draw at fan-in
+    scales, the ranks' checksums equal; rank 0 holds the gathered weights
+    to one process (its weights on the card) on the whole batch within
+    ``DP_LOSS_REL`` (losses) and ``DP_UPDATE_REL`` (each leaf's
+    update)."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch import engine as engines
+    from repro_torch.core import packing
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import train as cli
+    t0 = time.perf_counter()
+    ap, args = cli.parse_args(DP_ARGV + DP_F32)
+    name, cfg, opt, exec_cfg = cli.setup(ap, args)
+    assert exec_cfg.weight_stream and exec_cfg.pack_params
+    data = cli.make_data(args, cfg)
+    batches = [cli.batch_at(args, cfg, data, i) for i in range(args.steps)]
+    eng = engines.create(name, cfg, exec_cfg, optimizer=opt, mesh=mesh_dp)
+    st, losses = drawn_state(torch, eng), []
+    for b in batches:
+        st, m = eng.train_step(st, eng.local_rows(b, "train_step"))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    sums = eng.dp.gather_checksums(st.params, st.opt_state)
+    got = bridge.params_to_numpy(packing.unpack_params(st.params))
+    last = eng.dp.stats()
+    del st, eng
+    free_host(torch)
+    line = {"depth": cfg.n_layers, "batch": args.batch, "dtype": "float32",
+            "init": "fan-in scales (repro_torch.testing.fan_in_params), "
+                    "one draw",
+            "ranks": "weight-streamed, packed relay (the CLI's)",
+            "losses": losses, "rank_checksums": sums,
+            "all_reduces_per_step": last["all_reduces"],
+            "all_reduce_GB_per_step": last["all_reduce_bytes"] / 1e9,
+            "all_reduce_ms": last["all_reduce_ms"]}
+    check(all(r == sums[0] for r in sums),
+          "train-dp-b-f32: the data ranks' states differ")
+    if rank == 0:
+        one = engines.create(name, cfg, dataclasses.replace(
+            exec_cfg, weight_stream=False, offload_stash=False),
+            optimizer=opt)
+        ref = drawn_state(torch, one)
+        p0 = tree_leaves(bridge.params_to_numpy(packing.unpack_params(
+            ref.params)))
+        one_losses = []
+        for b in batches:
+            ref, m = one.train_step(ref, b)
+            one_losses.append(float(m["loss"]))
+        upd = f32_rel(np, tree_leaves, got, bridge.params_to_numpy(
+            packing.unpack_params(ref.params)), p0)
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, one_losses))
+        line.update(one_process_losses=one_losses, loss_rel_max=loss_rel,
+                    update_rel_l2_max=upd,
+                    bounds={"loss_rel": DP_LOSS_REL,
+                            "update_rel_l2": DP_UPDATE_REL})
+        del ref, one
+        check(loss_rel <= DP_LOSS_REL and upd <= DP_UPDATE_REL,
+              "train-dp-b-f32: f32 apart from one process")
+    free_host(torch)
+    line["seconds"] = time.perf_counter() - t0
+    done("train-dp-f32", line)
 
 
 def state_tensors(torch, state):
@@ -4646,11 +5127,14 @@ def main(argv=None):
     # way, against copy_
     rows += modality_k4_rows(torch, dev, g, rc, ref, get_config,
                              LayeredModel, tree_leaves, is_spec)
-    # K4 at one model rank's layer rows: bert-large's and granite-3-8b's
+    # K4 at one model rank's layer rows: bert-large's, granite-3-8b's and
+    # deepseek-v2-lite's MoE layer (32 of its 64 experts)
     rows += k4_rows(torch, dev, g, rc, ref, [
         (f"{c.name} layer per model rank", tp_layer_bytes(
             c, TP_RANKS, LayeredModel, tree_leaves, is_spec))
-        for c in (bert_full, full)])
+        for c in (bert_full, full)] + [
+        ("deepseek-v2-lite-16b MoE layer per model rank", tp_layer_bytes(
+            moe_cfg, TP_RANKS, LayeredModel, tree_leaves, is_spec, 1))])
     torch.cuda.empty_cache()
     report["kernels"] = {"phase": "kernels", "rows": rows}
     emit(report["kernels"])
@@ -5206,7 +5690,7 @@ def main(argv=None):
               **rec_routes, **mod_routes, "serve-grok": grok_routes,
               **tier_routes, **tp_routes}
     emit({"launches": launches, "routes": routes})
-    assert len(launches) == 23, sorted(launches)
+    assert len(launches) == 26, sorted(launches)
     for path in [p for p in launches if p != "serve"]:
         got, by = launches[path], routes[path]
         # every bf16 K2, K3a and K3b launch of the path took the wgmma route
@@ -5259,14 +5743,21 @@ def main(argv=None):
                     # unpacked: no K1 (the fused update takes packed rows)
                     "train-tp": train_kernels[:-1],
                     "serve-tp": ("relay_copy", "rmsnorm",
-                                 "flash_attention_fwd")}
+                                 "flash_attention_fwd"),
+                    # deepseek-v2-lite on the mesh: MLA is plain attend
+                    "train-moe-tp": ("relay_copy", "relay_copy_writeback",
+                                     "rmsnorm"),
+                    "train-moe-dp": ("relay_copy", "relay_copy_writeback",
+                                     "rmsnorm", "fused_adam"),
+                    "serve-moe-tp": ("relay_copy", "rmsnorm")}
     for path, names in path_kernels.items():
         assert all(launches[path].get(n, 0) > 0 for n in names), \
             (path, launches[path])
     # MLA attention is plain arithmetic in both packages (the reference's
     # mla_attention calls no kernel, use_pallas or not): no K2 or K3 on
     # the MoE paths
-    for path in ("serve-moe", "train-moe"):
+    for path in ("serve-moe", "train-moe", "train-moe-tp", "train-moe-dp",
+                 "serve-moe-tp"):
         assert all(launches[path][n] == 0 for n in (
             "flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")), (path, launches[path])

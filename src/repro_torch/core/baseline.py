@@ -24,7 +24,9 @@ def make_grads_fn(model, exec_cfg: ExecutionConfig, dp=None) -> Callable:
     loss_sums over the total weight, plus the mean aux).  With ``dp`` (a
     ``distributed.data_parallel.DataParallel``) the batch is this rank's
     rows: the loss weight is summed over the data axes first, and the
-    gradients (one flat row) and the loss once, after the backward."""
+    gradients (one flat row) and the loss once, after the backward; the
+    aux (a MoE's is already the global batch's) is added after that sum,
+    as the L2L engine adds it."""
     fn = _grads_and_weight(model, exec_cfg, dp)
     return lambda params, batch: fn(params, batch)[:2]
 
@@ -48,12 +50,13 @@ def _grads_and_weight(model, exec_cfg: ExecutionConfig, dp) -> Callable:
                     remat=exec_cfg.remat)
                 loss = loss_sum / W_total + aux / UB
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            return loss.detach(), tree_unflatten_like(params, [
-                torch.zeros_like(a) if g is None else g
-                for a, g in zip(leaves, grads)])
+            return (loss_sum / W_total).detach(), aux.detach(), \
+                tree_unflatten_like(params, [
+                    torch.zeros_like(a) if g is None else g
+                    for a, g in zip(leaves, grads)])
 
         if UB == 1:
-            loss, acc = ub_grads(batch)
+            loss, aux_sum, acc = ub_grads(batch)
         else:
             batch_ub = tree_map(
                 lambda a: a.reshape(UB, a.shape[0] // UB, *a.shape[1:]),
@@ -62,13 +65,19 @@ def _grads_and_weight(model, exec_cfg: ExecutionConfig, dp) -> Callable:
                                device=W_total.device)
             acc = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
+            aux_sum = torch.zeros_like(loss)
             for u in range(UB):
-                l, g = ub_grads(tree_map(lambda a, _u=u: a[_u], batch_ub))
+                l, a_u, g = ub_grads(tree_map(lambda a, _u=u: a[_u],
+                                              batch_ub))
                 acc = tree_map(lambda a, x: a + x.float(), acc, g)
                 loss = loss + l
+                aux_sum = aux_sum + a_u
         if dp is not None:
             acc = dp.reduce_tree(acc)
             loss = dp.all_reduce_(loss)
+        # the aux is the global batch's on every data rank (a MoE sums its
+        # router statistics over the group): added once, after the sum
+        loss = loss + aux_sum / UB
         return loss, acc, wsum
 
     return fn

@@ -11,6 +11,15 @@ and timed: with CUDA events around it on the current stream (read after
 the caller's synchronize, never inside the step), else by the host's
 clock.  ``begin()`` zeroes the counts; ``stats()`` reads them.
 
+The MoE layers (``models.moe``) make two collectives of their own over
+the group, counted apart from the gradient rows (``moe_calls`` by kind):
+``stats`` sums the router's per-expert counts and probability sums (the
+load-balance statistics of the global batch; ``sum_stats``, whose
+backward is the identity, so each rank's vjp gives its own tokens' share
+and the layer's gradient row adds the shares once) and ``counts``
+gathers every rank's per-expert integer counts (``gather_counts``: the
+global dispatch's slot offsets).
+
 The collectives are plain ``torch.distributed.all_reduce`` sums: no DDP,
 no float atomics.  An all-reduce over one rank is the identity, so a world
 of one gives the meshless results bit for bit.  Every rank checks that it
@@ -91,37 +100,73 @@ class DataParallel:
         """Zero the counts and timers (the start of a step)."""
         self.calls = 0
         self.bytes = 0
-        self._events = []
-        self._host_s = 0.0
+        self.moe_calls = {"stats": 0, "counts": 0}
+        self.moe_bytes = 0
+        self._events = {False: [], True: []}
+        self._host_s = {False: 0.0, True: 0.0}
 
     def stats(self) -> dict:
-        """All-reduces, bytes and milliseconds since ``begin``; the device
-        time is read from the events, so call this after a synchronize."""
-        ms = self._host_s * 1e3
-        for a, b in self._events:
-            b.synchronize()
-            ms += a.elapsed_time(b)
+        """All-reduces, bytes and milliseconds since ``begin`` (the MoE's
+        own apart); the device time is read from the events, so call this
+        after a synchronize."""
+        ms = {}
+        for moe in (False, True):
+            ms[moe] = self._host_s[moe] * 1e3
+            for a, b in self._events[moe]:
+                b.synchronize()
+                ms[moe] += a.elapsed_time(b)
         return {"all_reduces": self.calls, "all_reduce_bytes": self.bytes,
-                "all_reduce_ms": ms}
+                "all_reduce_ms": ms[False],
+                "moe_collectives": dict(self.moe_calls),
+                "moe_collective_bytes": self.moe_bytes,
+                "moe_collective_ms": ms[True]}
 
     # -- collectives --------------------------------------------------------
+    def _timed(self, t, fn, moe: bool):
+        if t.device.type == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn()
+            ev[1].record()
+            self._events[moe].append(ev)
+            return out
+        t0 = time.perf_counter()
+        out = fn()
+        self._host_s[moe] += time.perf_counter() - t0
+        return out
+
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the data axes, in place; returns it."""
         import torch.distributed as dist
         self.calls += 1
         self.bytes += t.numel() * t.element_size()
-        if t.device.type == "cuda":
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            dist.all_reduce(t, group=self.group)
-            ev[1].record()
-            self._events.append(ev)
-        else:
-            t0 = time.perf_counter()
-            dist.all_reduce(t, group=self.group)
-            self._host_s += time.perf_counter() - t0
+        self._timed(t, lambda: dist.all_reduce(t, group=self.group), False)
         return t
+
+    def sum_stats(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data axes forward, the identity backward:
+        the MoE router's statistics (counted as ``stats``)."""
+        return _SumStats.apply(t, self)
+
+    def _sum_stats_(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        self.moe_calls["stats"] += 1
+        self.moe_bytes += t.numel() * t.element_size()
+        self._timed(t, lambda: dist.all_reduce(t, group=self.group), True)
+        return t
+
+    def gather_counts(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's integer ``t`` stacked in rank order ``(world,
+        ...)``: the MoE's per-expert counts (counted as ``counts``)."""
+        import torch.distributed as dist
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        self.moe_calls["counts"] += 1
+        self.moe_bytes += t.numel() * t.element_size()
+        self._timed(t, lambda: dist.all_gather(parts, t, group=self.group),
+                    True)
+        return torch.stack(parts)
 
     def reduce_tree(self, tree):
         """The tree summed over the data axes: its leaves packed into one
@@ -163,3 +208,17 @@ class DataParallel:
                 f"data-parallel ranks hold different states: checksums "
                 f"{every} (rank order)")
         return every[self.rank]
+
+
+class _SumStats(torch.autograd.Function):
+    """Sum over the data group forward, identity backward: a statistic of
+    the global batch whose cotangent each rank applies to its own
+    tokens."""
+
+    @staticmethod
+    def forward(ctx, t, dp):
+        return dp._sum_stats_(t.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None

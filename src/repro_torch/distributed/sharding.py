@@ -310,21 +310,37 @@ def is_split_over(pspec: P, axis: str = "model") -> bool:
     return any(e is not None and axis in _names(e) for e in pspec)
 
 
-def shard_batch(batch: dict, mesh, rules: dict) -> dict:
+def shard_batch(batch: dict, mesh, rules: dict,
+                n_microbatches: int = 1) -> dict:
     """One rank's rows of a global batch: every array's leading (batch)
     dim, which ``batch_pspecs`` puts on ``rules["batch"]``, is cut to this
     rank's contiguous block (rank order, as ``P("data")`` lays rows out);
-    a replicated batch (``rules["batch"]`` None) is returned whole."""
+    a replicated batch (``rules["batch"]`` None) is returned whole.
+
+    With ``n_microbatches`` UB > 1 the cut is made inside each microbatch:
+    the global batch is UB contiguous microbatches (the engines'
+    ``_reshape_ub``), and the rank's rows are its block of each, in
+    microbatch order, as the reference's stash ``P(None, batch)`` lays a
+    microbatched batch out.  So the rank's microbatch u is the r-th block
+    of the global microbatch u: a statistic or a dispatch formed over the
+    data group per microbatch (the MoE's) is the global microbatch's."""
     b_ax = rules.get("batch")
     if b_ax is None:
         return dict(batch)
     n = _axis_size(mesh, b_ax)
     i = data_index(mesh)
+    ub = int(n_microbatches)
     out = {}
     for k, a in batch.items():
         rows = a.shape[0]
-        assert rows % n == 0, \
-            f"batch {k!r} of {rows} rows does not split over {n} ranks"
-        per = rows // n
-        out[k] = a[i * per:(i + 1) * per]
+        assert rows % (n * ub) == 0, \
+            (f"batch {k!r} of {rows} rows does not split over {n} ranks "
+             f"in {ub} microbatches")
+        per = rows // (n * ub)
+        if ub == 1:
+            out[k] = a[i * per:(i + 1) * per]
+            continue
+        blocks = a.reshape(ub, n * per, *a.shape[1:])[:, i * per:
+                                                      (i + 1) * per]
+        out[k] = blocks.reshape(ub * per, *a.shape[1:])
     return out

@@ -16,6 +16,14 @@ dim a pspec puts on "model" (``distributed.sharding.shard_leaf``):
   the sum;
 * MLP: ``w_in`` / ``w_gate`` / ``b_in`` column-parallel, ``w_out``
   row-parallel, ``b_out`` added once;
+* MoE (``models.moe``): with ``experts`` on "model" (expert
+  parallelism, E divisible by M) rank r holds experts
+  ``[r E/M, (r+1) E/M)`` (``expert_block``) and the router's matching
+  columns; the whole logits are gathered (``gather_last``), every rank
+  routes alike, runs its experts only and the combine is summed over the
+  group.  With ``expert_ffn`` on "model" instead (E not divisible) the
+  experts' ``w_gate`` / ``w_in`` are column-parallel, ``w_out``
+  row-parallel, and the router stays whole;
 * vocabulary (when it divides): a masked local embedding lookup summed
   over the group, local logits, a vocab-parallel cross-entropy
   (``xent``), the whole logits gathered for serving;
@@ -71,8 +79,11 @@ class TensorParallel:
         self.heads = shard_layers and on("heads")
         self.kv = shard_layers and on("kv")
         self.ffn = shard_layers and on("ffn")
+        self.experts = shard_layers and on("experts")
+        self.expert_ffn = shard_layers and on("expert_ffn")
         self.shard_layers = shard_layers
         self.n_heads, self.n_kv_heads = cfg.n_heads, cfg.n_kv_heads
+        self.n_experts = cfg.n_experts
         self.static_pspecs = {
             k: shd.pspec_tree(param_specs[k], rules, mesh)
             for k in ("embed", "head")}
@@ -91,7 +102,26 @@ class TensorParallel:
                             for p in layer)}
         if self.heads and not self.kv:
             self.kv_block()              # raises on a mapping it cannot cut
+        self._check_splits(param_specs["groups"], rules)
         self.begin()
+
+    def _check_splits(self, group_specs, rules):
+        """Raise unless every layer leaf on a logical axis this rank
+        splits (``heads``, ``kv``, ``ffn``, ``experts``, ``expert_ffn``)
+        is split: the model functions read the flags, not the leaves'
+        shapes, so a dim the axis does not divide cannot stay whole."""
+        split = {ax for ax in ("heads", "kv", "ffn", "experts",
+                               "expert_ffn") if getattr(self, ax)}
+        for g, p in zip(group_specs, self.layer_pspecs):
+            for s, ps in zip(tree_leaves(g, is_leaf=lambda x: hasattr(
+                    x, "axes")), tree_leaves(p, is_leaf=is_pspec)):
+                axes = s.axes[1:]
+                for i, ax in enumerate(axes):
+                    if ax in split and (i >= len(ps) or ps[i] is None):
+                        raise NotImplementedError(
+                            f"a leaf of shape {tuple(s.shape[1:])} on "
+                            f"{axes}: its {ax!r} dim {s.shape[1 + i]} does "
+                            f"not split over {self.size} model ranks")
 
     # -- accounting ---------------------------------------------------------
     def begin(self):
@@ -179,6 +209,15 @@ class TensorParallel:
         lo = self.rank * hl // g
         hi = ((self.rank + 1) * hl - 1) // g + 1
         return lo, hi
+
+    # -- experts ------------------------------------------------------------
+    def expert_block(self) -> tuple:
+        """``(lo, hi)``: the experts this rank holds and runs (all of them
+        unless the experts are split over the group)."""
+        if not self.experts:
+            return 0, self.n_experts
+        per = self.n_experts // self.size
+        return self.rank * per, (self.rank + 1) * per
 
     def local_kv_heads(self) -> int:
         """The kv heads one rank computes with (its cache's kv dim)."""

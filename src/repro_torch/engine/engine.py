@@ -53,7 +53,7 @@ bit.
 On a mesh (``mesh=``, a ``torch.distributed.device_mesh.DeviceMesh`` of
 the initialized world, ``launch.mesh``) the Engine runs the mesh's data
 axes ("pod" x "data"), one process a rank: each entry point takes this
-rank's rows of the batch (``distributed.sharding.shard_batch``) and
+rank's rows of the batch (``local_rows``) and
 returns this rank's outputs.  ``rules`` default to
 ``make_rules(cfg, mesh, kind="train")`` and the placements carry their
 pspecs (``engine.placement.placements_for``).  ``train_step`` and
@@ -64,20 +64,29 @@ batch's on every rank; their metrics count the all-reduces and bytes.
 ``init`` and ``restore`` check by checksum that every rank holds the same
 state.
 
-A "model" axis over 1 runs the dense family tensor parallel
+A "model" axis over 1 runs the dense and MoE families tensor parallel
 (``distributed.tensor_parallel``): each rank holds and relays its blocks
-of the heads, ffn columns and (where it divides) vocabulary, the model's
-own autograd sums over the model group, the norms and finite flags agree
-over it, ``prefill`` and the decode calls return the whole logits, and the
-decode caches hold the rank's kv heads.  ``init`` draws every leaf whole
-and keeps the rank's block; ``init`` and ``restore`` also check that the
-leaves no pspec splits agree over the model group; ``save`` gathers and
-rank 0 writes the meshless snapshot; ``restore`` slices.  With
-``pack_params`` the packed rows stay whole on every model rank (the
-reference's placements) and only the embedding and head split.  Metrics
-count the model group's collectives.  MoE and the other families on a
-model axis, a MoE config on more than one data rank and ``serve_session``
-on a mesh of more than one rank raise NotImplementedError.
+of the heads (MLA's too), ffn columns, experts (or, where the experts do
+not divide, their columns) and (where it divides) vocabulary, the
+model's own autograd sums over the model group, the norms and finite
+flags agree over it, ``prefill`` and the decode calls return the whole
+logits, and the decode caches hold the rank's kv heads (MLA's latent
+whole).  ``init`` draws every leaf whole and keeps the rank's block;
+``init`` and ``restore`` also check that the leaves no pspec splits agree
+over the model group; ``save`` gathers and rank 0 writes the meshless
+snapshot; ``restore`` slices.  With ``pack_params`` the packed rows stay
+whole on every model rank (the reference's placements) and only the
+embedding and head split.  Metrics count the model group's collectives.
+
+A MoE config on more than one data rank forms the router's statistics
+and its capacity dispatch over the data group (``models.moe``): each
+call's rows are the rank's block of the reference's call, each
+microbatch of ``train_step``, ``grads`` and ``prefill`` included
+(``local_rows(batch, entry)`` cuts a global batch so for each entry
+point), and ``train_step``'s metrics count the MoE's own collectives
+apart.  The hybrid, SSM, VLM and audio
+families on a model axis, and ``serve_session`` on a mesh of more than
+one rank, raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -123,26 +132,21 @@ def resolve_device(device) -> torch.device:
 
 def _check_mesh(cfg, mesh):
     """The mesh axes this port runs: the data axes ("pod", "data") for
-    every family but MoE, and the model axis for the dense family."""
+    every family, and the model axis for the dense and MoE families."""
     m = shd.model_size(mesh)
-    if m > 1 and cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name} (n_experts={cfg.n_experts}) on a 'model' axis of "
-            f"{m}: expert parallelism over 'model', the router's batch "
-            "statistics over 'data' and the grouped dispatch come with the "
-            "next slice")
-    if m > 1 and cfg.family != "dense":
+    if m > 1 and cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family}) on a 'model' axis of {m}: "
-            "the model axis runs the dense family; the hybrid, SSM, VLM "
-            "and audio families on it come with the next slice")
-    if cfg.n_experts and shd.data_size(mesh) > 1:
+            "the model axis runs the dense and MoE families; the VLM and "
+            "audio families on it (the patch projection, cross-attention "
+            "and the encoder) come with the next slice")
+    if m > 1 and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name} (n_experts={cfg.n_experts}) on {shd.data_size(mesh)} "
-            "data ranks: the router's load-balance loss is formed over the "
-            "whole batch, and a per-rank capacity dispatch equals it only "
-            "under the grouped (expert-parallel) dispatch of the model "
-            "axis, which is not supported yet")
+            f"{cfg.name} (family {cfg.family}) on a 'model' axis of {m}: "
+            "the model axis runs the dense and MoE families; the hybrid "
+            "and SSM families on it (mamba's channels and RWKV's heads "
+            "over 'model') come with the slice after the VLM and audio "
+            "families'")
 
 
 class Engine:
@@ -176,7 +180,13 @@ class Engine:
                 self.tp = TensorParallel(
                     mesh, model.cfg, model.param_specs(), self.rules,
                     shard_layers=not self.exec_cfg.pack_params)
-                self.model = model = LayeredModel(model.cfg, tp=self.tp)
+            # the MoE's router statistics and dispatch range over the
+            # data group's rows
+            moe_dp = (self.dp if model.cfg.n_experts and self.dp.world > 1
+                      else None)
+            if self.tp is not None or moe_dp is not None:
+                self.model = model = LayeredModel(model.cfg, tp=self.tp,
+                                                  dp=moe_dp)
         self.placements = placements or placements_for(
             model, self.exec_cfg, mesh, self.rules, self.optimizer,
             self.device)
@@ -342,6 +352,32 @@ class Engine:
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
 
+    # the entry points that split their rows into microbatches
+    # (``core.l2l._reshape_ub``), and those that run a call whole
+    _UB_ENTRIES = ("train_step", "grads", "prefill")
+    _WHOLE_ENTRIES = ("decode_init", "decode_step")
+
+    def local_rows(self, batch: dict, entry: str) -> dict:
+        """This rank's rows of a global ``batch`` (a dict of arrays, the
+        batch dim leading) for the entry point ``entry``: the batch as it
+        is without a mesh; on a mesh the rank's contiguous block of each
+        of the ``n_microbatches`` microbatches for ``train_step``,
+        ``grads`` and ``prefill``, and of the whole call for
+        ``decode_init`` and ``decode_step``.  So the rank's rows of every
+        call a MoE dispatches over the data group are the r-th block of
+        the reference's rows of that call (its router statistics, its
+        capacity drops and its aux are the global batch's)."""
+        if entry in self._UB_ENTRIES:
+            ub = self.exec_cfg.n_microbatches
+        elif entry in self._WHOLE_ENTRIES:
+            ub = 1
+        else:
+            raise ValueError(f"no entry point {entry!r}: one of "
+                             f"{self._UB_ENTRIES + self._WHOLE_ENTRIES}")
+        if self.mesh is None:
+            return dict(batch)
+        return shd.shard_batch(batch, self.mesh, self.rules, ub)
+
     def _make_step(self):
         return _l2l.make_train_step(self.model, self.optimizer,
                                     self.exec_cfg, self.placements,
@@ -395,6 +431,8 @@ class Engine:
         if self.dp is not None:
             metrics["all_reduces"] = self.dp.calls
             metrics["all_reduce_bytes"] = self.dp.bytes
+            if self.model.dp is not None:
+                metrics["moe_collectives"] = dict(self.dp.moe_calls)
         if self.tp is not None:
             metrics["model_collectives"] = dict(self.tp.calls)
             metrics["model_collective_bytes"] = sum(self.tp.bytes.values())

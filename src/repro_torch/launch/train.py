@@ -44,13 +44,18 @@ Data parallel over the mesh's data axes, one process a rank, launched by
 ``--mesh data=N[,model=M]`` needs a world of N·M ranks (a single
 process with ``--mesh data=1`` runs a world of one over a file store); a
 process group that does not start raises.  ``--batch`` is the global
-batch: each rank trains on its data rows of ``data.batch(i)``
-(``distributed.sharding.shard_batch``), and the layer relay sums each
+batch: each rank trains on its data rows of ``data.batch(i)``, its
+block of each of the ``--ub`` microbatches
+(``Engine.local_rows``), and the layer relay sums each
 layer's gradient over the data ranks once (``core.l2l``), so the ranks
-of a data group end each step with the same state.  ``model=M`` > 1
-(the dense family) splits the heads, the ffn columns and a vocabulary
-that divides over M ranks (``distributed.tensor_parallel``): each rank
-holds and relays its blocks.  ``--dist-backend`` is nccl on the card,
+of a data group end each step with the same state; a MoE config sums
+its router statistics and its dispatch counts over the data ranks too
+(the JSON line counts them as ``moe_collectives_per_step``).
+``model=M`` > 1 (the dense and MoE families) splits the heads, the ffn
+columns, the experts (or their columns where the experts do not divide)
+and a vocabulary that divides over M ranks
+(``distributed.tensor_parallel``): each rank holds and relays its
+blocks.  ``--dist-backend`` is nccl on the card,
 gloo with ``--device cpu``.  Only rank 0 prints, writes snapshots and
 ``PREEMPTED.json`` (every rank takes part in a save: the split leaves
 are gathered first); every rank restores.  The JSON line adds the
@@ -80,7 +85,6 @@ from repro_torch.configs.base import get_config
 from repro_torch.core.schedule import ExecutionConfig
 from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
                                         add_modality_stubs)
-from repro_torch.distributed.sharding import shard_batch
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.optim import get_optimizer, make_schedule
 
@@ -299,8 +303,7 @@ def main(argv=None):
     last_saved = start_step if resumed_from is not None else None
     for i in range(start_step, args.steps):
         batch = batch_at(args, cfg, data, i)
-        if mesh is not None:
-            batch = shard_batch(batch, mesh, eng.rules)
+        batch = eng.local_rows(batch, "train_step")
         t0 = time.perf_counter()
         state, metrics = eng.train_step(state, batch, n_layers=run_layers)
         loss = float(metrics["loss"])          # waits for the step
@@ -356,6 +359,13 @@ def main(argv=None):
             all_reduce_bytes_per_step=(reduces[-1]["all_reduce_bytes"]
                                        if reduces else None),
             all_reduce_ms=[r["all_reduce_ms"] for r in reduces])
+        if eng.model.dp is not None:
+            dist_line.update(
+                moe_collectives_per_step=(reduces[-1]["moe_collectives"]
+                                          if reduces else None),
+                moe_collective_bytes_per_step=(
+                    reduces[-1]["moe_collective_bytes"] if reduces
+                    else None))
         if eng.tp is not None:
             whole = eng.tp.gather_checksums(
                 eng.tp.whole_leaves(state.params),

@@ -272,14 +272,31 @@ def _mla_latent(w, x, cfg, positions):
     return c, apply_rope(kr, positions, cfg.rope_theta)
 
 
+def _mla_heads_in(x, c, kr, tp):
+    """The inputs of MLA's per-head products as this rank uses them.  With
+    the heads split over the model axis, ``x`` (for ``wq``), the normed
+    latent ``c`` and the rope key ``kr`` pass ``copy_in``: their
+    cotangents from the local heads are summed over the group.  The ``x``
+    that feeds ``w_dkv`` / ``w_kr`` does not (that path is whole on every
+    rank: a sum would count it M times)."""
+    if not _heads_split(tp):
+        return x, c, kr
+    return tp.copy_in(x), tp.copy_in(c), tp.copy_in(kr)
+
+
 def mla_attention(w, x, cfg, positions, *, causal: bool = True,
-                  window: int = 0):
+                  window: int = 0, tp=None):
+    """MLA over the full sequence; with the heads split over the model
+    axis (``tp.heads``) on this rank's heads of ``wq``, ``w_uk``, ``w_uv``
+    and ``wo`` (summed over the group), the latent whole on every rank."""
     B, S, _ = x.shape
-    H, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = _proj(x, w["wq"])                                    # (B,S,H,nd+rd)
+    nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
+    c, k_rope = _mla_latent(w, x, cfg, positions)
+    xq, c, k_rope = _mla_heads_in(x, c, k_rope, tp)
+    q = _proj(xq, w["wq"])                                   # (B,S,H,nd+rd)
+    H = q.shape[2]
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c, k_rope = _mla_latent(w, x, cfg, positions)
     k_nope = _proj(c, w["w_uk"])
     v = _proj(c, w["w_uv"])
     k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
@@ -289,7 +306,7 @@ def mla_attention(w, x, cfg, positions, *, causal: bool = True,
     vp = torch.nn.functional.pad(v, (0, qq.shape[-1] - v.shape[-1]))
     o = attend(qq, k, vp, positions, positions, causal=causal, window=window,
                chunk=cfg.attn_chunk)[..., :cfg.v_head_dim]
-    return out_project(w, o)
+    return out_project(w, o, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -406,13 +423,15 @@ def decode_self_attention(w, x, cache, cfg, cur_pos, *, window: int = 0,
     return out_project(w, o, tp), cache
 
 
-def decode_mla_attention(w, x, cache, cfg, cur_pos, *, window: int = 0):
+def decode_mla_attention(w, x, cache, cfg, cur_pos, *, window: int = 0,
+                         tp=None):
     """Absorbed-matmul MLA decode: scores against the COMPRESSED cache
     (``c``, ``kr``, ``pos``), updated in place as in
     ``decode_self_attention``.  q_nope is absorbed through w_uk into the
     latent space, so a step costs O(S·(r + rd)·H), not O(S·H·(nd + rd)).
     ``cur_pos``: a scalar (T = 1) or per-row (B,)/(B,T) positions,
-    negative = padding (no write, masked)."""
+    negative = padding (no write, masked).  ``tp``: as in
+    ``mla_attention``, on this rank's heads against the whole cache."""
     dt = x.dtype
     B = x.shape[0]
     nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
@@ -424,7 +443,7 @@ def decode_mla_attention(w, x, cache, cfg, cur_pos, *, window: int = 0):
     else:
         pos = decode_positions(x, cur_pos)
         rope_pos = pos.clamp_min(0)
-    q = _proj(x, w["wq"])
+    q = _proj(x, w["wq"])                        # this rank's heads
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     q_rope = apply_rope(q_rope, rope_pos, cfg.rope_theta)
     c_new, kr_new = _mla_latent(w, x, cfg, rope_pos)
@@ -450,4 +469,4 @@ def decode_mla_attention(w, x, cache, cfg, cur_pos, *, window: int = 0):
     p = torch.softmax(s, dim=-1)
     ctx_c = torch.einsum("bhst,btr->bshr", p.to(dt), c)
     o = torch.einsum("bshr,rhe->bshe", ctx_c, w["w_uv"].to(dt))
-    return out_project(w, o), cache
+    return out_project(w, o, tp), cache

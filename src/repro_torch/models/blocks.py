@@ -95,37 +95,43 @@ def moe_block_spec(cfg, dense_ffn: bool = False) -> dict:
             "ffn": ffn}
 
 
-def moe_block_apply(w, x, mem, ctx: Ctx, cfg):
+def moe_block_apply(w, x, mem, ctx: Ctx, cfg, tp=None, dp=None):
+    """``tp``: the model axis (split heads, experts or expert columns,
+    ffn columns); ``dp``: the data axes the MoE's router statistics and
+    dispatch range over (None: this call's rows are the whole batch)."""
     h = _norm(w["ln1"], x, cfg)
     if cfg.use_mla:
         a = attn.mla_attention(w["attn"], h, cfg, ctx.positions,
-                               causal=ctx.causal, window=ctx.window)
+                               causal=ctx.causal, window=ctx.window, tp=tp)
     else:
         a = attn.self_attention(w["attn"], h, cfg, ctx.positions,
-                                causal=ctx.causal, window=ctx.window)
+                                causal=ctx.causal, window=ctx.window, tp=tp)
     x = x + a
     h2 = _norm(w["ln2"], x, cfg)
     if "router" in w["ffn"]:
-        y, aux = moe_apply(w["ffn"], h2, cfg)
+        y, aux = moe_apply(w["ffn"], h2, cfg, tp, dp)
     else:
-        y, aux = mlp_apply(w["ffn"], h2, cfg), 0.0
+        y, aux = mlp_apply(w["ffn"], h2, cfg, tp), 0.0
     return x + y, aux
 
 
-def moe_block_decode(w, x, cache, mem, ctx: Ctx, cfg):
+def moe_block_decode(w, x, cache, mem, ctx: Ctx, cfg, tp=None, dp=None):
     h = _norm(w["ln1"], x, cfg)
     if cfg.use_mla:
         a, cache = attn.decode_mla_attention(w["attn"], h, cache, cfg,
-                                             ctx.cur_pos, window=ctx.window)
+                                             ctx.cur_pos, window=ctx.window,
+                                             tp=tp)
     else:
         a, cache = attn.decode_self_attention(w["attn"], h, cache, cfg,
-                                              ctx.cur_pos, window=ctx.window)
+                                              ctx.cur_pos, window=ctx.window,
+                                              tp=tp)
     x = x + a
     h2 = _norm(w["ln2"], x, cfg)
     if "router" in w["ffn"]:
-        y, _ = moe_apply(w["ffn"], h2, cfg)
+        # the aux is dropped: no router statistics over the data axes
+        y, _ = moe_apply(w["ffn"], h2, cfg, tp, dp, stats=False)
     else:
-        y = mlp_apply(w["ffn"], h2, cfg)
+        y = mlp_apply(w["ffn"], h2, cfg, tp)
     return x + y, cache
 
 

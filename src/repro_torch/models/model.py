@@ -66,50 +66,52 @@ def stack_layers(layers):
 class LayeredModel:
     """``tp`` (a ``distributed.tensor_parallel.TensorParallel``): one rank
     of the mesh's model axis, whose blocks of the split leaves this
-    model's functions compute with (the dense family only); the specs stay
-    the whole model's."""
+    model's functions compute with (the dense and MoE families); ``dp``
+    (a ``distributed.data_parallel.DataParallel`` of more than one rank):
+    the data axes the MoE layers' router statistics and dispatch range
+    over.  The specs stay the whole model's."""
 
-    def __init__(self, cfg: ModelConfig, tp=None):
+    def __init__(self, cfg: ModelConfig, tp=None, dp=None):
         self.cfg = cfg
         self.tp = tp
-        self.groups: Tuple[Group, ...] = self._build_groups(cfg, tp)
+        self.dp = dp
+        self.groups: Tuple[Group, ...] = self._build_groups(cfg, tp, dp)
 
     @staticmethod
-    def _build_groups(cfg, tp=None) -> Tuple[Group, ...]:
-        if tp is not None and cfg.family != "dense":
+    def _build_groups(cfg, tp=None, dp=None) -> Tuple[Group, ...]:
+        if tp is not None and cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"the model axis runs the dense family, not {cfg.family}")
+                f"the model axis runs the dense and MoE families, not "
+                f"{cfg.family}")
 
-        def G(name, n, spec, apply_fn, decode_fn, cache_fn, **kw):
-            ap = lambda w, x, mem, ctx: apply_fn(w, x, mem, ctx, cfg)
-            de = lambda w, x, c, mem, ctx: decode_fn(w, x, c, mem, ctx, cfg)
-            cs = lambda b, live: cache_fn(cfg, b, live)
+        def G(name, n, spec, apply_fn, decode_fn, cache_fn, axes=None,
+              **kw):
+            """``axes``: the mesh groups the family's functions take."""
+            m = axes or {}
+            ap = lambda w, x, mem, ctx: apply_fn(w, x, mem, ctx, cfg, **m)
+            de = lambda w, x, c, mem, ctx: decode_fn(w, x, c, mem, ctx, cfg,
+                                                     **m)
+            cm = {"tp": m["tp"]} if "tp" in m else {}
+            cs = lambda b, live: cache_fn(cfg, b, live, **cm)
             return Group(name, n, spec, ap, de, cs, **kw)
 
-        if tp is not None:
-            return (Group(
-                "layers", cfg.n_layers, blocks.dense_spec(cfg),
-                lambda w, x, mem, ctx: blocks.dense_apply(w, x, mem, ctx,
-                                                          cfg, tp),
-                lambda w, x, c, mem, ctx: blocks.dense_decode(
-                    w, x, c, mem, ctx, cfg, tp),
-                lambda b, live: blocks.dense_cache_spec(cfg, b, live, tp)),)
         if cfg.family in ("dense", "vlm"):
             return (G("layers", cfg.n_layers, blocks.dense_spec(cfg),
                       blocks.dense_apply, blocks.dense_decode,
-                      blocks.dense_cache_spec),)
+                      blocks.dense_cache_spec, {"tp": tp}),)
         if cfg.family == "moe":
+            axes = {"tp": tp, "dp": dp}
             gs = []
             if cfg.first_dense_layers:
                 # deepseek-v2: layer 0 keeps MLA attention but a dense FFN
                 gs.append(G("dense_layers", cfg.first_dense_layers,
                             blocks.moe_block_spec(cfg, dense_ffn=True),
                             blocks.moe_block_apply, blocks.moe_block_decode,
-                            blocks.dense_cache_spec))
+                            blocks.dense_cache_spec, axes))
             gs.append(G("moe_layers", cfg.n_layers - cfg.first_dense_layers,
                         blocks.moe_block_spec(cfg),
                         blocks.moe_block_apply, blocks.moe_block_decode,
-                        blocks.dense_cache_spec))
+                        blocks.dense_cache_spec, axes))
             return tuple(gs)
         if cfg.family == "hybrid":
             return (G("layers", cfg.n_layers, blocks.hybrid_spec(cfg),

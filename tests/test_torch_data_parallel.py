@@ -3,8 +3,8 @@ ranks (tests/torch_dp_worker.py, one process each, one file store), each
 on its rows of a global batch, held to the JAX reference run on one device
 over the whole batch; the ranks bit for bit equal to each other; a world of
 one bit for bit the meshless engine on every entry point; the relay knobs
-bit for bit inside the two-rank mesh; MoE on two data ranks, and MoE and
-a non-dense family on a model axis, refused.
+bit for bit inside the two-rank mesh; MoE on two data ranks and on a
+model axis accepted, the hybrid family on a model axis refused.
 
 bert-large (layernorm, MHA with biases) and granite-3-8b (RMSNorm, GQA)
 at smoke size, f32, parameters drawn with numpy at fan-in scales
@@ -276,13 +276,13 @@ def test_a_mesh_needs_a_world_of_its_size(runs):
 
 
 def test_moe_on_data_ranks_and_a_model_axis_are_refused(runs):
-    """NotImplementedError for deepseek-v2-lite on data=2 (the router's
-    batch statistics) and on model=2 (expert parallelism), for hymba-1.5b
-    on model=2 (the model axis runs the dense family) and for
-    ``serve_session`` on data=2.  bert-large on model=2 runs
-    (tests/test_torch_tensor_parallel.py)."""
+    """deepseek-v2-lite on data=2 (the router's statistics and the
+    dispatch over the data group) and on model=2 (expert parallelism) is
+    no longer refused (tests/test_torch_moe_parallel.py); NotImplementedError
+    for hymba-1.5b on model=2 (the hybrid family on the model axis comes
+    later) and for ``serve_session`` on data=2."""
     for out in runs["ranks"]:
-        assert [int(x) for x in _get(out, "refused")] == [1, 1, 1, 1]
+        assert [int(x) for x in _get(out, "refused")] == [0, 0, 1, 1]
 
 
 

@@ -6,8 +6,8 @@ meshless engine on the same numpy inputs; the leaves no pspec splits bit
 for bit equal across the ranks; the relay knobs bit for bit inside the
 mesh; pack on (the layers whole on every rank) within the bounds of pack
 off; four ranks on ``(data=2, model=2)`` within the bounds of two; a
-snapshot at M = 2 byte for byte the meshless one; MoE, the other
-families and ``serve_session`` on the model axis refused.
+snapshot at M = 2 byte for byte the meshless one; the hybrid, SSM, VLM
+and audio families and ``serve_session`` on the model axis refused.
 
 bert-large (layernorm, MHA with biases, vocab 512: vocab-parallel),
 granite-3-8b (RMSNorm, GQA kv 2 -> 1 a rank, tied vocab-parallel
@@ -409,11 +409,16 @@ def test_shard_leaf_cuts_each_ranks_contiguous_block():
 
 
 def test_moe_other_families_and_serve_session_are_refused(runs):
-    """NotImplementedError on (data=1, model=2) for deepseek-v2-lite (the
-    expert axis), hymba-1.5b (a family the model axis does not run yet)
-    and ``serve_session`` on the mesh."""
+    """NotImplementedError on (data=1, model=2) for what the model axis
+    does not run yet: hymba-1.5b (hybrid), rwkv6-1.6b (SSM), internvl2-1b
+    (VLM) and whisper-base (audio), each message naming the slice that
+    brings it, and ``serve_session`` on the mesh.  The MoE family runs on
+    the model axis (tests/test_torch_moe_parallel.py)."""
     for out in runs["ranks"]:
-        assert [int(x) for x in _get(out, "refused")] == [1, 1, 1]
+        assert [int(x) for x in _get(out, "refused")] == [1, 1, 1, 1, 1]
+        said = [str(x) for x in _get(out, "refused_messages")]
+        assert all("slice" in m for m in said[:4]), said
+        assert "serve_session" in said[4]
 
 
 def test_the_collectives_are_counted(runs):
