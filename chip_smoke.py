@@ -172,8 +172,8 @@ Phases, one JSON line each:
               against decode_init in f32 at depth 2 and in bf16 at depths
               1, 4 (also at fan-in scales) and full, one layer's scan
               timed;
-   train-recurrent — each at full width under l2l-p (hymba at 8 of its
-              32 layers, rwkv6 at 4 of its 24:
+   train-recurrent — each at full width under l2l-p (hymba at 4 of its
+              32 layers, rwkv6 at 3 of its 24:
               its WKV step loop is
               host-bound) with the train phase's knobs, 3 steps at B=8,
               S=512, UB=2, the
@@ -211,8 +211,8 @@ Phases, one JSON line each:
               B=8 x 448 target tokens with 1500 frames, UB=2, 3 steps,
               counted; then the train-vlm checks;
    tier     — the disk tier (``tiers=3``): tier-train, bert-large at
-              full width and 12 of its 24 layers under l2l-p with the train
-              phase's knobs, B=32 x 512, UB=4, 2 steps with 6 of the 12 layers'
+              full width and 8 of its 24 layers under l2l-p with the train
+              phase's knobs, B=32 x 512, UB=4, 2 steps with 4 of the 8 layers'
               weights and Adam slots demoted to segment files under
               build/ (counted from the tier engine's init to its last
               step), its state bit for bit a two-tier run's from the same
@@ -254,7 +254,7 @@ Phases, one JSON line each:
               depth 1 under torch.profiler: the device's idle share and
               its time by kernel;
    train-dp — data parallel over the mesh's data
-              axes, bert-large at full width and 6 of its 24 layers,
+              axes, bert-large at full width and 3 of its 24 layers,
               B=32 x 512, UB=4,
               l2l-p through the train CLI's configuration: (a) in this
               process, NCCL over a world of one (a FileStore under
@@ -274,7 +274,7 @@ Phases, one JSON line each:
               ``python -m torch.distributed.run chip_smoke.py --tp-rank``
               on a (data=1, model=2) mesh.  train-tp: bert-large at full
               width (8 of 16 heads, 2048 of 4096 ffn columns, 15261 of
-              30522 vocabulary rows a rank), depth 4, B=32 x 512, UB=4,
+              30522 vocabulary rows a rank), depth 2, B=32 x 512, UB=4,
               l2l-p unpacked through the train CLI's configuration, 3
               steps counted (each rank's weights the slices of the
               one-process draw by checksum, the ranks' replicated leaves
@@ -296,7 +296,7 @@ Phases, one JSON line each:
               matching columns, 1408 of the shared experts' 2816 columns,
               5472 of layer 0's 10944, 51200 of 102400 vocabulary rows a
               rank): train-moe-tp, the dense layer 0 and one MoE layer,
-              B=8 x 512, UB=2, l2l-p unpacked, 2 steps counted (the
+              B=8 x 512, UB=2, l2l-p unpacked, 1 step counted (the
               weights the one-process slices, the replicated leaves and
               Adam slots equal, losses within 1e-3 of one process);
               train-moe-dp, the same on a (data=2, model=1) mesh over the
@@ -312,22 +312,42 @@ Phases, one JSON line each:
               scales on the same relay tokens equal and logits within
               1e-4 of one process, K4 GB a step a
               rank beside one process's; and train-dp's f32 check
-              (``tp_rank_dp_f32``) on the (data=2, model=1) mesh;
+              (``tp_rank_dp_f32``) on the (data=2, model=1) mesh; then
+              the hybrid and SSM families (``tp_rank_recurrent``):
+              train-hybrid-tp, hymba-1.5b at full width (its 25 q and 5 kv
+              heads do not split over 2: the attention runs whole on each
+              rank; 800 of 1600 mamba channels, 2752 of 5504 MLP columns,
+              the 32001-row vocabulary whole), depth 2, B=8 x 512, UB=2,
+              l2l-p unpacked through the train CLI's configuration, 2
+              steps counted (the weights the one-process slices, the
+              replicated leaves and Adam slots equal, losses within 1e-3
+              of one process), one f32 step at fan-in scales on the CLI's
+              relay against one process (losses 1e-5, updates 1e-3), and
+              its decode in f32 at depth 1 (decode_init on 4 prompts of
+              16, 2 greedy steps: tokens equal, logits within 1e-4);
+              serve-ssm-tp, rwkv6-1.6b at full width (16 of 32 heads, 1024
+              of 2048 channels, 3584 of 7168 ffn columns, 32768 of 65536
+              vocabulary rows a rank), depth 2, weight_stream unpacked,
+              counted: decode_init on 4 prompts of 16, 4 greedy steps,
+              prefill, bf16 logits within 0.35 of one process, in f32 at
+              fan-in scales tokens equal and logits within 1e-4, then one
+              f32 l2l-p step at depth 1 on the relay against one process
+              (losses 1e-5, updates 1e-3);
    memory-model — ``Engine.memory_estimate`` for the train phase's
               bert-large at depths 24 and 12 beside its peaks, and the
               serve estimate beside serve-continuous's peak (printed, not
               tied: the model counts the reference's buffers);
-10. launches — every kernel's count over the twenty-six main paths
+10. launches — every kernel's count over the twenty-eight main paths
               (serve, serve-dense, serve-continuous, train, train-rmsnorm,
               dynamic-depth, host-optimizer, train-dp, serve-moe, train-moe,
               serve-hymba, train-hymba, serve-rwkv6, train-rwkv6,
               serve-vlm, train-vlm, serve-audio, train-audio, serve-grok,
               tier-train, tier-serve, train-tp, serve-tp, train-moe-tp,
-              train-moe-dp, serve-moe-tp (summed over
-              the two ranks); each of a
+              train-moe-dp, serve-moe-tp, train-hybrid-tp, serve-ssm-tp
+              (summed over the two ranks); each of a
               path's kernels > 0, K1 0 on host-optimizer, K2 and K3 0 on
-              the five MoE paths, K2, K3 and K5 0 on the rwkv6 and whisper
-              paths),
+              the five MoE paths, K2, K3 and K5 0 on the rwkv6 paths
+              (serve-ssm-tp's too) and whisper's),
               and the counts by route: every
               bf16 K2, K3a and K3b
               launch on the wgmma route, none on the CUDA-core one, every
@@ -2093,7 +2113,7 @@ def train_moe_phase(torch, np, engines, ExecutionConfig, knobs, get_config,
 RECURRENT_ARCHS = ("hymba-1.5b", "rwkv6-1.6b")
 # the train phases' depth caps (0: the full depth, host allowing): rwkv6's
 # host-bound WKV loop made its 24-layer step 10-19 s
-TRAIN_DEPTH_CAP = {"hymba-1.5b": 8, "rwkv6-1.6b": 4}
+TRAIN_DEPTH_CAP = {"hymba-1.5b": 4, "rwkv6-1.6b": 3}
 # serve-recurrent's crowd: a recurrent family feeds one token a tick (the
 # ServeEngine forces prefill_chunk to 1), so the prompts stay short
 REC_CROWD = dict(max_batch=8, page_size=16, max_seq=48, n_pages=24,
@@ -3081,18 +3101,18 @@ def fs_type(path) -> tuple:
 
 TIER_DIR = ROOT / "build" / "chip_smoke_tier"
 TIER_HOT = 12          # of internvl2's 24 layers kept on the host (serve)
-# tier-train: 12 of bert-large's 24 layers, 6 of them kept on the host
-TIER_TRAIN_DEPTH, TIER_TRAIN_HOT = 12, 6
+# tier-train: 8 of bert-large's 24 layers, 4 of them kept on the host
+TIER_TRAIN_DEPTH, TIER_TRAIN_HOT = 8, 4
 
 
 def tier_phase(torch, np, engines, ExecutionConfig, bert, knobs, exec_cfg,
                get_config, LayeredModel, tree_leaves, is_spec, SyntheticLM,
                DataConfig, adam, make_schedule, sample_batch, counters, dev):
     """The disk tier (``tiers=3``) on the card.  train: bert-large at full
-    width and ``TIER_TRAIN_DEPTH`` (12) of its 24 layers under l2l-p with
+    width and ``TIER_TRAIN_DEPTH`` (8) of its 24 layers under l2l-p with
     the train phase's knobs, B=32 x 512, UB=4, 2 steps, with
-    ``host_budget_bytes`` keeping 6 of the 12 layers' weights and Adam
-    slots on the host and the other 6 in segment files
+    ``host_budget_bytes`` keeping 4 of the 8 layers' weights and Adam
+    slots on the host and the other 4 in segment files
     under build/, every counter set to 0 just before the tier engine's
     init and read after its last step; its state after the 2 steps against
     a two-tier run's from the same init, bit for bit (the two-tier run
@@ -3480,8 +3500,8 @@ def grok_phase(torch, np, engines, exec_cfg, get_config, LayeredModel,
 
 
 DP_DIR = ROOT / "build" / "chip_smoke_dp"
-# 6 of bert-large's 24 layers (the chip time of the mesh's phases)
-DP_DEPTH = 6
+# 3 of bert-large's 24 layers (the chip time of the mesh's phases)
+DP_DEPTH = 3
 # the train CLI's arguments of both train-dp runs: the train phase's
 # model, batch and knobs (l2l-p; Adam, its schedule and the per-layer
 # clip are the CLI's)
@@ -3554,7 +3574,7 @@ def train_dp_phase(torch, np, engines, counters, dev):
 
     (a) In process: NCCL over a world of one (a FileStore under build/),
     a (data=1, model=1) mesh; bert-large at full width and ``DP_DEPTH``
-    (6) of its 24 layers through the train CLI's configuration
+    (3) of its 24 layers through the train CLI's configuration
     (``DP_ARGV``): 3 steps on the mesh, the counters set to 0 just before
     and read just after, beside 3 meshless steps from the same state:
     losses, weights and Adam slots bit for bit (checksums); 6 layer rows
@@ -3659,11 +3679,11 @@ def train_dp_phase(torch, np, engines, counters, dev):
 
 TP_RANKS = 2
 # train-tp: bert-large at full width (16 heads, d_ff 4096, vocab 30522:
-# 8 heads, 2048 columns and 15261 rows a rank), depth 4, the train
+# 8 heads, 2048 columns and 15261 rows a rank), depth 2, the train
 # phase's batch, l2l-p unpacked (the sharded relay) through the train
 # CLI's configuration
 TP_ARGV = ["--arch", "bert-large", "--variant", "full", "--engine", "l2l-p",
-           "--n-layers", "4", "--steps", "3", "--batch", "32", "--seq", "512",
+           "--n-layers", "2", "--steps", "3", "--batch", "32", "--seq", "512",
            "--ub", "4", "--weight-stream", "--prefetch", "1",
            "--transport", "pallas", "--offload-stash", "--use-pallas",
            "--log-every", "1", "--seed", "0", "--mesh", f"model={TP_RANKS}"]
@@ -3687,13 +3707,13 @@ TP_K3_CELL = "bert-large train microbatch per model rank"
 # experts and the router's matching columns, 1408 of the shared experts'
 # 2816 columns, 5472 of layer 0's 10944, 51200 of 102400 vocabulary rows
 # a model rank).  train-moe-tp: the dense layer 0 and one MoE layer, B=8 x
-# 512, UB=2, 2 l2l-p steps unpacked (the sharded relay) on (data=1,
+# 512, UB=2, 1 l2l-p step unpacked (the sharded relay) on (data=1,
 # model=2); train-moe-dp: the same on (data=2, model=1), packed (K1), 4 of
 # the 8 rows a rank (its block of each microbatch); serve-moe-tp: depth 3
 # on (data=1, model=2), weight_stream unpacked.  Each against one process
 # at the same depth and batch; in f32 at fan-in scales from one draw, the
 # ranks on the same relay, one process with its weights on the card
-TP_MOE_TRAIN = dict(depth=2, batch=8, seq=512, ub=2, steps=2, f32_steps=1)
+TP_MOE_TRAIN = dict(depth=2, batch=8, seq=512, ub=2, steps=1, f32_steps=1)
 TP_MOE_SERVE_DEPTH = 3
 TP_MOE_AUX_REL = 1e-5
 
@@ -3714,7 +3734,31 @@ def tp_layer_bytes(cfg, ranks, LayeredModel, tree_leaves, is_spec,
 
 
 TP_PATHS = ("train-tp", "serve-tp", "train-moe-tp", "train-moe-dp",
-            "serve-moe-tp")
+            "serve-moe-tp", "train-hybrid-tp", "serve-ssm-tp")
+# the hybrid and SSM families on the model axis (``tp_rank_recurrent``).
+# train-hybrid-tp: hymba-1.5b at full width (its 25 q and 5 kv heads do
+# not split over 2 ranks: the attention runs whole on each; 800 of 1600
+# mamba channels and 2752 of 5504 MLP columns a rank; the 32001-row
+# vocabulary whole), depth 2, B=8 x 512, UB=2, 2 l2l-p steps unpacked (the
+# sharded relay) through the train CLI's configuration; its f32 check
+# (``TP_F32``) at depth 2 on the same relay
+TP_HYBRID_ARGV = ["--arch", "hymba-1.5b", "--variant", "full",
+                  "--engine", "l2l-p", "--n-layers", "2", "--steps", "2",
+                  "--batch", "8", "--seq", "512", "--ub", "2",
+                  "--weight-stream", "--prefetch", "1",
+                  "--transport", "pallas", "--offload-stash", "--use-pallas",
+                  "--log-every", "1", "--seed", "0",
+                  "--mesh", f"model={TP_RANKS}"]
+# then hymba's decode in f32 at depth 1 on the same ranks: decode_init on
+# TP_SERVE's prompts and 2 greedy steps against one process
+TP_HYBRID_DECODE = dict(depth=1, steps=2)
+# serve-ssm-tp: rwkv6-1.6b at full width (16 of 32 heads, 1024 of 2048
+# channels, 3584 of 7168 ffn columns, 32768 of 65536 vocabulary rows a
+# rank), depth 2, weight_stream unpacked, TP_SERVE's prompts and steps;
+# then one l2l-p step in f32 at depth 1 on the relay against one process
+# (the decay's and ln_scale's gradients cross the ranks)
+TP_SSM_SERVE_DEPTH = 2
+TP_SSM_TRAIN = dict(depth=1, batch=8, seq=256, ub=2)
 
 
 def drawn_state(torch, e, seed: int = 11):
@@ -3771,81 +3815,37 @@ def tp_phase(torch, counters):
     return out, launches, routes
 
 
-def tp_rank(np, torch):
-    """One rank of ``tp_phase`` (run by ``torch.distributed.run`` with
-    ``--tp-rank``): a (data=1, model=TP_RANKS) mesh over gloo on this
-    card.
-
-    train-tp: bert-large through the train CLI's configuration
-    (``TP_ARGV``): the rank's weights checked against the slices of the
-    one-process draw (checksums), 3 steps with every counter set to 0 just
-    before and read just after, the ranks' checksums of the leaves no
-    pspec splits (and their Adam slots) equal; rank 0 then runs one
-    process from the same seed and holds the losses within
-    ``TP_LOSS_REL_BF16``; then in f32 at depth 2 and fan-in scales from
-    one draw, the ranks on the CLI's sharded, weight-streamed relay, the
-    gathered state against one process (its weights on the card) within
-    ``DP_LOSS_REL`` (losses) and ``DP_UPDATE_REL`` (each leaf's update).
-
-    serve-tp: granite-3-8b at depth ``TP_SERVE_DEPTH``, weight_stream
-    unpacked: decode_init on 4 prompts of 16 tokens, 4 greedy steps and
-    prefill, counted; prefill against decode_init within
-    ``TP_SERVE_BF16``; rank 0 holds decode_init's and prefill's logits to
-    one process on the same weights (bf16: ``TP_SERVE_BF16``); then in
-    f32 at fan-in scales, tokens equal and every step's logits within
-    ``TP_SERVE_F32`` of one process.  Rank 0 prints every rank's results
-    as one JSON line."""
+def tp_cli_train(np, torch, mesh, rank, counters, check, key, argv,
+                 per_rank):
+    """One train path of the tp phase on ``mesh`` through the train CLI's
+    configuration ``argv`` (l2l-p unpacked: the sharded relay): the
+    rank's weights checked against the slices of the one-process draw
+    (checksums), the CLI's steps with every counter set to 0 just before
+    and read just after, the ranks' checksums of the leaves no pspec
+    splits (and their Adam slots) equal; rank 0 then runs one process
+    from the same seed and holds the losses within ``TP_LOSS_REL_BF16``;
+    then in f32 (``TP_F32``: depth 2, B=8, UB=2, one step) at fan-in
+    scales from one draw, the ranks on the CLI's sharded, weight-streamed
+    relay, the gathered state against one process (its weights on the
+    card) within ``DP_LOSS_REL`` (losses) and ``DP_UPDATE_REL`` (each
+    leaf's update).  ``per_rank(eng, cfg)`` gives the line's per-rank
+    widths.  -> the path's line (rank 0's with the comparisons)."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch import bridge
     from repro_torch import engine as engines
-    from repro_torch.configs.base import get_config
-    from repro_torch.core.schedule import ExecutionConfig
     from repro_torch.core.tree import tree_leaves
     from repro_torch.distributed.data_parallel import tree_checksum
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_adam as fadam
     from repro_torch.kernels import relay_copy as rc
-    from repro_torch.kernels import rmsnorm as rms
     from repro_torch.launch import train as cli
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.serve.sampling import sample_batch
-    from repro_torch.testing import fan_in_params
-    torch.cuda.set_device(0)
     dev = torch.device("cuda")
-    dist.init_process_group("gloo")
-    rank = dist.get_rank()
-    mesh = make_mesh({"data": 1, "model": TP_RANKS}, "cuda")
-    counters = {"relay_copy": rc.copy_rows,
-                "relay_copy_writeback": rc.writeback_rows,
-                "rmsnorm": rms.rmsnorm_2d,
-                "flash_attention_fwd": fa.flash_attention_fwd_bhsd,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-                "fused_adam": fadam.fused_adam_flat}
-    mine, fails = {}, []
-
-    def check(ok, what):
-        """A failed check fails the rank after every result is printed."""
-        if not ok:
-            fails.append(what)
-
-    def done(key, line):
-        mine[key] = line
-        print(json.dumps({"tp_rank": rank, "phase": key, **line},
-                         default=str), flush=True)
 
     def sync_sums(*trees):
         torch.cuda.synchronize()
         return [tree_checksum(t) for t in trees]
 
-    def rel(a, b):
-        a, b = a.float(), b.float()
-        return float((a - b).norm() / b.norm())
-
-    # ------------------------------------------------------------ train-tp
     t_phase = time.perf_counter()
-    ap, args = cli.parse_args(TP_ARGV)
+    ap, args = cli.parse_args(argv)
     name, cfg, opt, exec_cfg = cli.setup(ap, args)
     assert not exec_cfg.pack_params
     eng = engines.create(name, cfg, exec_cfg, optimizer=opt, mesh=mesh)
@@ -3860,6 +3860,7 @@ def tp_rank(np, torch):
     torch.cuda.synchronize()
     st, losses, times, colls = st0, [], [], []
     reset_counts(counters.values())
+    fetched, written = rc.copy_rows.bytes, rc.writeback_rows.bytes
     for b in batches:
         t0 = time.perf_counter()
         st, m = eng.train_step(st, b)
@@ -3869,15 +3870,15 @@ def tp_rank(np, torch):
         colls.append(eng.tp.stats())
     launches = {n: c.launches for n, c in counters.items()}
     routes = route_counts(counters)
+    k4_gb = {"fetch": (rc.copy_rows.bytes - fetched) / args.steps / 1e9,
+             "writeback": (rc.writeback_rows.bytes - written) / args.steps
+             / 1e9}
     torch.cuda.synchronize()
     whole_sums = eng.tp.gather_checksums(
         eng.tp.whole_leaves(st.params), eng.tp.whole_leaves(st.legacy_opt()))
     line = {"arch": cfg.name, "depth": cfg.n_layers, "batch": args.batch,
             "seq": args.seq, "microbatches": args.ub, "dtype": cfg.dtype,
-            "heads_per_rank": cfg.n_heads // TP_RANKS,
-            "d_ff_per_rank": cfg.d_ff // TP_RANKS,
-            "vocab_per_rank": (cfg.vocab_size // TP_RANKS if eng.tp.vocab
-                               else cfg.vocab_size),
+            **per_rank(eng, cfg),
             "weights_are_slices_of_one_process": slices,
             "losses": losses, "step_s": times,
             "model_collectives_per_step": colls[-1]["model_collectives"],
@@ -3885,15 +3886,16 @@ def tp_rank(np, torch):
                 colls[-1]["model_collective_bytes"] / 1e9,
             "model_collective_ms": [c["model_collective_ms"]
                                     for c in colls],
+            "k4_GB_per_step_per_rank": k4_gb,
             "launches_per_step": {n: v / args.steps
                                   for n, v in launches.items()},
             "whole_leaf_checksums": whole_sums, "launches": launches,
             "routes": routes}
     del st, st0, eng
-    check(slices, "train-tp: the weights are not the one-process slices")
+    check(slices, f"{key}: the weights are not the one-process slices")
     check(all(r == whole_sums[0] for r in whole_sums),
-          "train-tp: the replicated leaves differ")
-    check(all(np.isfinite(losses)), "train-tp: a loss is not finite")
+          f"{key}: the replicated leaves differ")
+    check(all(np.isfinite(losses)), f"{key}: a loss is not finite")
     if rank == 0:
         ref, ref_times = whole, []
         ref_losses = []
@@ -3909,7 +3911,7 @@ def tp_rank(np, torch):
             abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
         del ref
         check(max(line["loss_rel_to_one_process"]) <= TP_LOSS_REL_BF16,
-              "train-tp: bf16 losses apart from one process")
+              f"{key}: bf16 losses apart from one process")
     del whole, one
     free_host(torch)
     dist.barrier()
@@ -3918,7 +3920,7 @@ def tp_rank(np, torch):
     # ranks on the CLI's configuration (the sharded, weight-streamed relay
     # with the offloaded stash), one process with its weights on the card
     t0 = time.perf_counter()
-    ap, args = cli.parse_args(TP_ARGV + TP_F32)
+    ap, args = cli.parse_args(argv + TP_F32)
     name, cfg, opt, exec_cfg = cli.setup(ap, args)
     assert exec_cfg.weight_stream and not exec_cfg.pack_params
     eng = engines.create(name, cfg, exec_cfg, optimizer=opt, mesh=mesh)
@@ -3960,10 +3962,89 @@ def tp_rank(np, torch):
                        "seconds": time.perf_counter() - t0}
         del ref, one
         check(loss_rel <= DP_LOSS_REL and upd <= DP_UPDATE_REL,
-              "train-tp: f32 apart from one process")
+              f"{key}: f32 apart from one process")
     del got
     free_host(torch)
     line["seconds"] = time.perf_counter() - t_phase
+    return line
+
+
+def tp_rank(np, torch):
+    """One rank of ``tp_phase`` (run by ``torch.distributed.run`` with
+    ``--tp-rank``): a (data=1, model=TP_RANKS) mesh over gloo on this
+    card.
+
+    train-tp: bert-large through the train CLI's configuration
+    (``TP_ARGV``): the rank's weights checked against the slices of the
+    one-process draw (checksums), 3 steps with every counter set to 0 just
+    before and read just after, the ranks' checksums of the leaves no
+    pspec splits (and their Adam slots) equal; rank 0 then runs one
+    process from the same seed and holds the losses within
+    ``TP_LOSS_REL_BF16``; then in f32 at depth 2 and fan-in scales from
+    one draw, the ranks on the CLI's sharded, weight-streamed relay, the
+    gathered state against one process (its weights on the card) within
+    ``DP_LOSS_REL`` (losses) and ``DP_UPDATE_REL`` (each leaf's update).
+
+    serve-tp: granite-3-8b at depth ``TP_SERVE_DEPTH``, weight_stream
+    unpacked: decode_init on 4 prompts of 16 tokens, 4 greedy steps and
+    prefill, counted; prefill against decode_init within
+    ``TP_SERVE_BF16``; rank 0 holds decode_init's and prefill's logits to
+    one process on the same weights (bf16: ``TP_SERVE_BF16``); then in
+    f32 at fan-in scales, tokens equal and every step's logits within
+    ``TP_SERVE_F32`` of one process.  Rank 0 prints every rank's results
+    as one JSON line."""
+    import torch.distributed as dist
+    from repro_torch import engine as engines
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.schedule import ExecutionConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed.data_parallel import tree_checksum
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_adam as fadam
+    from repro_torch.kernels import relay_copy as rc
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.testing import fan_in_params
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    mesh = make_mesh({"data": 1, "model": TP_RANKS}, "cuda")
+    counters = {"relay_copy": rc.copy_rows,
+                "relay_copy_writeback": rc.writeback_rows,
+                "rmsnorm": rms.rmsnorm_2d,
+                "flash_attention_fwd": fa.flash_attention_fwd_bhsd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "fused_adam": fadam.fused_adam_flat}
+    mine, fails = {}, []
+
+    def check(ok, what):
+        """A failed check fails the rank after every result is printed."""
+        if not ok:
+            fails.append(what)
+
+    def done(key, line):
+        mine[key] = line
+        print(json.dumps({"tp_rank": rank, "phase": key, **line},
+                         default=str), flush=True)
+
+    def sync_sums(*trees):
+        torch.cuda.synchronize()
+        return [tree_checksum(t) for t in trees]
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    # ------------------------------------------------------------ train-tp
+    line = tp_cli_train(np, torch, mesh, rank, counters, check, "train-tp",
+                        TP_ARGV, lambda e, c: {
+                            "heads_per_rank": c.n_heads // TP_RANKS,
+                            "d_ff_per_rank": c.d_ff // TP_RANKS,
+                            "vocab_per_rank": (c.vocab_size // TP_RANKS
+                                               if e.tp.vocab
+                                               else c.vocab_size)})
     done("train-tp", line)
     dist.barrier()
 
@@ -3978,29 +4059,7 @@ def tp_rank(np, torch):
                            generator=torch.Generator(dev).manual_seed(1))
 
     def greedy(e, params, steps):
-        """decode_init, ``steps`` greedy steps, prefill -> (tokens, the
-        logits of decode_init and each step, prefill's, and the decode
-        steps' seconds, K4 fetches and last step's model collectives)."""
-        t0 = time.perf_counter()
-        caches, last = e.decode_init(params, prompt, P + steps)
-        torch.cuda.synchronize()
-        t_init = time.perf_counter() - t0
-        tok = sample_batch(last)[:, None]
-        toks, logits, step = [tok], [last], {"init_s": t_init}
-        f0 = rc.copy_rows.launches
-        t0 = time.perf_counter()
-        for i in range(steps):
-            lg, caches = e.decode_step(params, caches, tok, P + i)
-            tok = sample_batch(lg[:, -1])[:, None]
-            toks.append(tok)
-            logits.append(lg[:, -1])
-        torch.cuda.synchronize()
-        step.update(decode_s=time.perf_counter() - t0,
-                    fetches=rc.copy_rows.launches - f0,
-                    collectives=e.tp.stats() if e.tp else None)
-        pl = e.prefill(params, {"tokens": prompt})
-        torch.cuda.synchronize()
-        return torch.cat(toks, 1), logits, pl, step
+        return tp_greedy(torch, e, params, prompt, steps)
 
     eng = engines.create("l2l", cfg, ex, mesh=mesh)
     t0 = time.perf_counter()
@@ -4082,6 +4141,8 @@ def tp_rank(np, torch):
 
     dist.barrier()
     tp_rank_moe(np, torch, mesh, rank, counters, check, done)
+    dist.barrier()
+    tp_rank_recurrent(np, torch, mesh, rank, counters, check, done)
 
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
@@ -4097,7 +4158,7 @@ def tp_rank_moe(np, torch, mesh, rank, counters, check, done):
 
     train-moe-tp: ``TP_MOE_TRAIN`` on ``mesh`` (data=1, model=2), l2l-p
     unpacked, bf16, Adam: the rank's weights the slices of the one-process
-    draw (checksums), 2 steps with every counter set to 0 just before and
+    draw (checksums), 1 step with every counter set to 0 just before and
     read just after, the ranks' replicated leaves and Adam slots equal;
     rank 0 holds the losses to one process at the same depth and batch
     (its weights on the card) within ``TP_LOSS_REL_BF16``; then in f32 at
@@ -4134,10 +4195,8 @@ def tp_rank_moe(np, torch, mesh, rank, counters, check, done):
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.distributed.data_parallel import tree_checksum
-    from repro_torch.kernels import relay_copy as rc
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import adam, make_schedule
-    from repro_torch.serve.sampling import sample_batch
     from repro_torch.testing import fan_in_params
     dev = torch.device("cuda")
     T = TP_MOE_TRAIN
@@ -4373,31 +4432,7 @@ def tp_rank_moe(np, torch, mesh, rank, counters, check, done):
                            generator=torch.Generator(dev).manual_seed(1))
 
     def greedy(e, params, n):
-        """decode_init, ``n`` greedy steps, prefill -> (tokens, the
-        logits of decode_init and each step, prefill's, the decode
-        steps' seconds, K4 fetches and bytes and last step's model
-        collectives)."""
-        t0 = time.perf_counter()
-        caches, last = e.decode_init(params, prompt, P + n)
-        torch.cuda.synchronize()
-        info = {"init_s": time.perf_counter() - t0}
-        tok = sample_batch(last)[:, None]
-        toks, logits = [tok], [last]
-        f0, b0 = rc.copy_rows.launches, rc.copy_rows.bytes
-        t0 = time.perf_counter()
-        for i in range(n):
-            lg, caches = e.decode_step(params, caches, tok, P + i)
-            tok = sample_batch(lg[:, -1])[:, None]
-            toks.append(tok)
-            logits.append(lg[:, -1])
-        torch.cuda.synchronize()
-        info.update(decode_s=time.perf_counter() - t0,
-                    fetches=rc.copy_rows.launches - f0,
-                    fetched_bytes=rc.copy_rows.bytes - b0,
-                    collectives=e.tp.stats() if e.tp else None)
-        pl = e.prefill(params, {"tokens": prompt})
-        torch.cuda.synchronize()
-        return torch.cat(toks, 1), logits, pl, info
+        return tp_greedy(torch, e, params, prompt, n)
 
     eng = engines.create("l2l", scfg, sx, mesh=mesh)
     t0 = time.perf_counter()
@@ -4468,6 +4503,261 @@ def tp_rank_moe(np, torch, mesh, rank, counters, check, done):
     free_host(torch)
     line["seconds"] = time.perf_counter() - t_phase
     done("serve-moe-tp", line)
+
+
+def tp_greedy(torch, e, params, prompt, n):
+    """decode_init on ``prompt``, ``n`` greedy steps, then prefill of the
+    prompt -> (tokens, the logits of decode_init and each step, prefill's,
+    info: decode_init's and the steps' seconds, the steps' K4 fetches and
+    bytes and the last step's model collectives)."""
+    from repro_torch.kernels import relay_copy as rc
+    from repro_torch.serve.sampling import sample_batch
+    P = prompt.shape[1]
+    t0 = time.perf_counter()
+    caches, last = e.decode_init(params, prompt, P + n)
+    torch.cuda.synchronize()
+    info = {"init_s": time.perf_counter() - t0}
+    tok = sample_batch(last)[:, None]
+    toks, logits = [tok], [last]
+    f0, b0 = rc.copy_rows.launches, rc.copy_rows.bytes
+    t0 = time.perf_counter()
+    for i in range(n):
+        lg, caches = e.decode_step(params, caches, tok, P + i)
+        tok = sample_batch(lg[:, -1])[:, None]
+        toks.append(tok)
+        logits.append(lg[:, -1])
+    torch.cuda.synchronize()
+    info.update(decode_s=time.perf_counter() - t0,
+                fetches=rc.copy_rows.launches - f0,
+                fetched_bytes=rc.copy_rows.bytes - b0,
+                collectives=e.tp.stats() if e.tp else None)
+    pl = e.prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    return torch.cat(toks, 1), logits, pl, info
+
+
+def tp_rank_recurrent(np, torch, mesh, rank, counters, check, done):
+    """The hybrid and SSM families on the mesh's model axis, in
+    ``tp_rank``'s world (``TP_RANKS`` gloo ranks on this card):
+
+    train-hybrid-tp: hymba-1.5b at full width through ``TP_HYBRID_ARGV``
+    (``tp_cli_train``: the weights the one-process slices, 2 steps
+    counted, the replicated leaves and Adam slots equal, losses within
+    ``TP_LOSS_REL_BF16`` of one process, then one f32 step at fan-in
+    scales on the CLI's relay within ``DP_LOSS_REL`` / ``DP_UPDATE_REL``
+    of one process); then its decode in f32 at depth 1
+    (``TP_HYBRID_DECODE``): tokens equal and logits within
+    ``TP_SERVE_F32`` of one process.
+
+    serve-ssm-tp: rwkv6-1.6b at depth ``TP_SSM_SERVE_DEPTH``,
+    weight_stream unpacked, counted: decode_init on 4 prompts of 16, 4
+    greedy steps and prefill; bf16 logits within ``TP_SERVE_BF16`` of one
+    process on the same weights; in f32 at fan-in scales on the same
+    relay, tokens equal and logits within ``TP_SERVE_F32`` of one process;
+    then one l2l-p step in f32 at depth 1 on the relay (``TP_SSM_TRAIN``)
+    against one process within ``DP_LOSS_REL`` / ``DP_UPDATE_REL``."""
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch import engine as engines
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.schedule import ExecutionConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.distributed.data_parallel import tree_checksum
+    from repro_torch.models.common import is_spec
+    from repro_torch.models.model import LayeredModel
+    from repro_torch.optim import adam, make_schedule
+    from repro_torch.testing import fan_in_params
+    dev = torch.device("cuda")
+    B, P, GEN = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["gen"]
+    sx = ExecutionConfig(weight_stream=True, pack_params=False,
+                         prefetch_depth=1, transport="pallas")
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    def sync_sums(*trees):
+        torch.cuda.synchronize()
+        return [tree_checksum(t) for t in trees]
+
+    def prompt_of(cfg):
+        return torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                             generator=torch.Generator(dev).manual_seed(1))
+
+    def row_bytes(cfg):
+        """One layer's f32 bytes whole and on one model rank."""
+        return {"whole": 4 * sum(math.prod(s.shape) for s in tree_leaves(
+                    LayeredModel(cfg).groups[0].spec, is_leaf=is_spec)),
+                "per_rank": tp_layer_bytes(cfg, TP_RANKS, LayeredModel,
+                                           tree_leaves, is_spec)}
+
+    def f32_decode(key, cfg, n):
+        """In f32 at fan-in scales, the ranks on the serve relay (``sx``),
+        one process with its weights on the card: tokens equal, every
+        step's logits and prefill's within ``TP_SERVE_F32``."""
+        c32 = cfg.replace(dtype="float32")
+        eng = engines.create("l2l", c32, sx, mesh=mesh)
+        g = torch.Generator(dev).manual_seed(5)
+        wparams = fan_in_params(eng.model.param_specs(), lambda shape:
+                                torch.randn(shape, generator=g, device=dev))
+        prompt = prompt_of(c32)
+        toks, logits, pl, _ = tp_greedy(torch, eng, eng.tp.shard(wparams),
+                                        prompt, n)
+        del eng
+        out = None
+        if rank == 0:
+            one = engines.create("l2l", c32, ExecutionConfig())
+            o_toks, o_logits, o_pl, _ = tp_greedy(torch, one, wparams,
+                                                  prompt, n)
+            worst = max([rel(a, b) for a, b in zip(logits, o_logits)]
+                        + [rel(pl, o_pl)])
+            out = {"depth": c32.n_layers, "init": "fan-in scales",
+                   "steps": n, "tokens": toks.tolist(),
+                   "tokens_equal": bool(torch.equal(toks, o_toks)),
+                   "logits_rel_l2_max": worst, "bound": TP_SERVE_F32}
+            del one
+            check(out["tokens_equal"] and worst <= TP_SERVE_F32,
+                  f"{key}: f32 apart from one process")
+        del wparams
+        free_host(torch)
+        dist.barrier()
+        return out
+
+    # ---------------------------------------------------- train-hybrid-tp
+    t_phase = time.perf_counter()
+    line = tp_cli_train(
+        np, torch, mesh, rank, counters, check, "train-hybrid-tp",
+        TP_HYBRID_ARGV, lambda e, c: {
+            "attention_heads_split": e.tp.heads,
+            "heads": [c.n_heads, c.n_kv_heads],
+            "mamba_channels_per_rank": (c.d_model // TP_RANKS if e.tp.ffn
+                                        else c.d_model),
+            "d_ff_per_rank": c.d_ff // TP_RANKS if e.tp.ffn else c.d_ff,
+            "vocab_per_rank": (c.vocab_size // TP_RANKS if e.tp.vocab
+                               else c.vocab_size),
+            "layer_f32_bytes": row_bytes(c.replace(n_layers=1))})
+    check(not line["attention_heads_split"]
+          and line["mamba_channels_per_rank"] == 800,
+          "train-hybrid-tp: not the reference's partition")
+    dist.barrier()
+    hymba = get_config("hymba-1.5b", "full").replace(
+        n_layers=TP_HYBRID_DECODE["depth"], use_pallas=True)
+    line["decode_f32"] = f32_decode("train-hybrid-tp", hymba,
+                                    TP_HYBRID_DECODE["steps"])
+    line["seconds"] = time.perf_counter() - t_phase
+    done("train-hybrid-tp", line)
+    dist.barrier()
+
+    # ------------------------------------------------------- serve-ssm-tp
+    t_phase = time.perf_counter()
+    full = get_config("rwkv6-1.6b", "full")
+    cfg = full.replace(n_layers=TP_SSM_SERVE_DEPTH)
+    prompt = prompt_of(cfg)
+    eng = engines.create("l2l", cfg, sx, mesh=mesh)
+    t0 = time.perf_counter()
+    reset_counts(counters.values())
+    params = eng.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks, logits, pl, info = tp_greedy(torch, eng, params, prompt, GEN)
+    launches = {n: c.launches for n, c in counters.items()}
+    routes = route_counts(counters)
+    tp = eng.tp
+    gap = rel(pl, logits[0])
+    line = {"arch": full.name, "depth": cfg.n_layers, "batch": B,
+            "prompt": P, "steps": GEN, "init_s": init_s,
+            "heads_per_rank": (cfg.rwkv_heads // TP_RANKS
+                               if tp.heads_x_dim else cfg.rwkv_heads),
+            "channels_per_rank": (cfg.d_model // TP_RANKS
+                                  if tp.heads_x_dim else cfg.d_model),
+            "d_ff_per_rank": cfg.d_ff // TP_RANKS if tp.ffn else cfg.d_ff,
+            "vocab_per_rank": (cfg.vocab_size // TP_RANKS if tp.vocab
+                               else cfg.vocab_size),
+            "layer_f32_bytes": row_bytes(full.replace(n_layers=1)),
+            "tokens": toks.tolist(), "decode_init_s": info["init_s"],
+            "decode_s": info["decode_s"],
+            "tok_per_s": B * GEN / info["decode_s"],
+            "k4_GB_per_step": info["fetched_bytes"] / GEN / 1e9,
+            "k4_launches_per_step": info["fetches"] / GEN,
+            "rel_l2_prefill_vs_decode_init": gap,
+            "model_collectives_last_step": info["collectives"],
+            "launches": launches, "routes": routes}
+    check(line["heads_per_rank"] == 16 and line["vocab_per_rank"] == 32768,
+          "serve-ssm-tp: not the reference's partition")
+    check(bool(torch.isfinite(pl).all()) and pl.shape == (B, cfg.vocab_size),
+          "serve-ssm-tp: prefill's logits")
+    check(gap <= TP_SERVE_BF16, "serve-ssm-tp: prefill apart from "
+                                "decode_init")
+    if rank == 0:
+        one = engines.create("l2l", cfg, sx)
+        wparams = one.init_params(torch.Generator(dev).manual_seed(0))
+        line["weights_are_slices_of_one_process"] = sync_sums(params)[0] == \
+            sync_sums(tp.shard(wparams))[0]
+        _, o_logits, o_pl, o_info = tp_greedy(torch, one, wparams, prompt,
+                                              GEN)
+        line["one_process_k4_GB_per_step"] = \
+            o_info["fetched_bytes"] / GEN / 1e9
+        line["one_process_tok_per_s"] = B * GEN / o_info["decode_s"]
+        line["bf16_rel_l2_to_one_process"] = {
+            "decode_init": rel(logits[0], o_logits[0]),
+            "prefill": rel(pl, o_pl)}
+        del one, wparams
+        check(line["weights_are_slices_of_one_process"],
+              "serve-ssm-tp: the weights are not the one-process slices")
+        check(max(line["bf16_rel_l2_to_one_process"].values())
+              <= TP_SERVE_BF16, "serve-ssm-tp: bf16 apart from one process")
+    del params, eng, tp
+    free_host(torch)
+    dist.barrier()
+    line["f32"] = f32_decode("serve-ssm-tp", cfg, GEN)
+
+    # one f32 train step at depth 1 on the relay: the decay's and
+    # ln_scale's gradients cross the ranks through copy_in
+    t0 = time.perf_counter()
+    T = TP_SSM_TRAIN
+    c32 = full.replace(n_layers=T["depth"], dtype="float32")
+    opt = lambda: adam(schedule=make_schedule(1e-4, warmup=10))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=c32.vocab_size, seq_len=T["seq"],
+                   global_batch=T["batch"], seed=0)).batch(0).items()}
+    eng = engines.create("l2l-p", c32, ExecutionConfig(
+        n_microbatches=T["ub"], weight_stream=True, pack_params=False,
+        prefetch_depth=1, transport="pallas", offload_stash=True),
+        optimizer=opt(), mesh=mesh)
+    st, m = eng.train_step(drawn_state(torch, eng),
+                           eng.local_rows(batch, "train_step"))
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    got = bridge.gather_params(st.params, eng.tp)
+    del st, eng
+    free_host(torch)
+    dist.barrier()
+    if rank == 0:
+        one = engines.create("l2l-p", c32, ExecutionConfig(
+            n_microbatches=T["ub"]), optimizer=opt())
+        ref = drawn_state(torch, one)
+        p0 = tree_leaves(bridge.params_to_numpy(ref.params))
+        ref, m = one.train_step(ref, batch)
+        upd = f32_rel(np, tree_leaves, got,
+                      bridge.params_to_numpy(ref.params), p0)
+        loss_rel = abs(loss - float(m["loss"])) / abs(float(m["loss"]))
+        line["train_f32"] = {
+            **T, "init": "fan-in scales (repro_torch.testing."
+                         "fan_in_params), one draw",
+            "ranks": "weight-streamed, sharded relay", "loss": loss,
+            "one_process_loss": float(m["loss"]), "loss_rel": loss_rel,
+            "update_rel_l2_max": upd,
+            "bounds": {"loss_rel": DP_LOSS_REL,
+                       "update_rel_l2": DP_UPDATE_REL},
+            "seconds": time.perf_counter() - t0}
+        del ref, one
+        check(loss_rel <= DP_LOSS_REL and upd <= DP_UPDATE_REL,
+              "serve-ssm-tp: the f32 train step apart from one process")
+    del got
+    free_host(torch)
+    line["seconds"] = time.perf_counter() - t_phase
+    done("serve-ssm-tp", line)
 
 
 def tp_rank_dp_f32(np, torch, mesh_dp, rank, check, done):
@@ -5127,12 +5417,14 @@ def main(argv=None):
     # way, against copy_
     rows += modality_k4_rows(torch, dev, g, rc, ref, get_config,
                              LayeredModel, tree_leaves, is_spec)
-    # K4 at one model rank's layer rows: bert-large's, granite-3-8b's and
-    # deepseek-v2-lite's MoE layer (32 of its 64 experts)
+    # K4 at one model rank's layer rows: bert-large's, granite-3-8b's,
+    # hymba-1.5b's, rwkv6-1.6b's and deepseek-v2-lite's MoE layer (32 of
+    # its 64 experts)
     rows += k4_rows(torch, dev, g, rc, ref, [
         (f"{c.name} layer per model rank", tp_layer_bytes(
             c, TP_RANKS, LayeredModel, tree_leaves, is_spec))
-        for c in (bert_full, full)] + [
+        for c in (bert_full, full, get_config("hymba-1.5b", "full"),
+                  get_config("rwkv6-1.6b", "full"))] + [
         ("deepseek-v2-lite-16b MoE layer per model rank", tp_layer_bytes(
             moe_cfg, TP_RANKS, LayeredModel, tree_leaves, is_spec, 1))])
     torch.cuda.empty_cache()
@@ -5690,7 +5982,7 @@ def main(argv=None):
               **rec_routes, **mod_routes, "serve-grok": grok_routes,
               **tier_routes, **tp_routes}
     emit({"launches": launches, "routes": routes})
-    assert len(launches) == 26, sorted(launches)
+    assert len(launches) == 28, sorted(launches)
     for path in [p for p in launches if p != "serve"]:
         got, by = launches[path], routes[path]
         # every bf16 K2, K3a and K3b launch of the path took the wgmma route
@@ -5749,7 +6041,10 @@ def main(argv=None):
                                      "rmsnorm"),
                     "train-moe-dp": ("relay_copy", "relay_copy_writeback",
                                      "rmsnorm", "fused_adam"),
-                    "serve-moe-tp": ("relay_copy", "rmsnorm")}
+                    "serve-moe-tp": ("relay_copy", "rmsnorm"),
+                    # hymba on the mesh: its attention whole on each rank
+                    "train-hybrid-tp": train_kernels[:-1] + ("rmsnorm",),
+                    "serve-ssm-tp": ("relay_copy",)}
     for path, names in path_kernels.items():
         assert all(launches[path].get(n, 0) > 0 for n in names), \
             (path, launches[path])
@@ -5765,8 +6060,8 @@ def main(argv=None):
     # both packages): no K2, K3 or K5 on its paths; nor on whisper's,
     # layernorm with use_pallas=False (its 1500 frames do not tile by the
     # flash kernel's block)
-    for path in ("serve-rwkv6", "train-rwkv6", "serve-audio",
-                 "train-audio"):
+    for path in ("serve-rwkv6", "train-rwkv6", "serve-ssm-tp",
+                 "serve-audio", "train-audio"):
         assert all(launches[path][n] == 0 for n in (
             "flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv", "rmsnorm")), (path, launches[path])

@@ -16,6 +16,19 @@ dim a pspec puts on "model" (``distributed.sharding.shard_leaf``):
   the sum;
 * MLP: ``w_in`` / ``w_gate`` / ``b_in`` column-parallel, ``w_out``
   row-parallel, ``b_out`` added once;
+* mamba (``models.ssm``, hymba's SSM branch), on ``ffn``: rank r holds
+  the r-th block of the ``dI`` channels of ``conv``, ``w_dt``,
+  ``dt_bias``, ``a_log``, ``d_skip``, the rows of ``w_bcdt`` and
+  ``w_out``, and the r-th contiguous block of ``w_in``'s ``[x | z]``
+  columns (at M = 2 all of x on rank 0, all of z on rank 1): the
+  projection is gathered whole (``gather_split``) and each rank takes its
+  channels of x and of z.  ``w_bcdt``'s product is summed over the group
+  and passes ``copy_in``: B, C and dt feed every rank's channels;
+* RWKV-6 (``models.ssm``): ``w_r`` / ``w_k`` / ``w_v`` / ``w_g``
+  column-parallel and ``w_o`` row-parallel on ``heads_x_dim``, ``u`` on
+  ``heads`` (the channel block is whole heads, so the per-head groupnorm
+  stays local), the channel mix on ``ffn``; the decay and ``ln_scale``
+  are whole and rank r uses its channels of them through ``copy_in``;
 * MoE (``models.moe``): with ``experts`` on "model" (expert
   parallelism, E divisible by M) rank r holds experts
   ``[r E/M, (r+1) E/M)`` (``expert_block``) and the router's matching
@@ -79,6 +92,7 @@ class TensorParallel:
         self.heads = shard_layers and on("heads")
         self.kv = shard_layers and on("kv")
         self.ffn = shard_layers and on("ffn")
+        self.heads_x_dim = shard_layers and on("heads_x_dim")
         self.experts = shard_layers and on("experts")
         self.expert_ffn = shard_layers and on("expert_ffn")
         self.shard_layers = shard_layers
@@ -102,16 +116,22 @@ class TensorParallel:
                             for p in layer)}
         if self.heads and not self.kv:
             self.kv_block()              # raises on a mapping it cannot cut
+        if cfg.family == "ssm" and self.heads != self.heads_x_dim:
+            raise NotImplementedError(
+                f"{cfg.rwkv_heads} RWKV heads of width {cfg.rwkv_head_dim} "
+                f"over {self.size} model ranks: the heads and their "
+                "channels must split alike")
         self._check_splits(param_specs["groups"], rules)
         self.begin()
 
     def _check_splits(self, group_specs, rules):
         """Raise unless every layer leaf on a logical axis this rank
-        splits (``heads``, ``kv``, ``ffn``, ``experts``, ``expert_ffn``)
-        is split: the model functions read the flags, not the leaves'
-        shapes, so a dim the axis does not divide cannot stay whole."""
-        split = {ax for ax in ("heads", "kv", "ffn", "experts",
-                               "expert_ffn") if getattr(self, ax)}
+        splits (``heads``, ``kv``, ``ffn``, ``heads_x_dim``, ``experts``,
+        ``expert_ffn``) is split: the model functions read the flags, not
+        the leaves' shapes, so a dim the axis does not divide cannot stay
+        whole."""
+        split = {ax for ax in ("heads", "kv", "ffn", "heads_x_dim",
+                               "experts", "expert_ffn") if getattr(self, ax)}
         for g, p in zip(group_specs, self.layer_pspecs):
             for s, ps in zip(tree_leaves(g, is_leaf=lambda x: hasattr(
                     x, "axes")), tree_leaves(p, is_leaf=is_pspec)):
@@ -191,6 +211,21 @@ class TensorParallel:
         """The last dim gathered over the group forward, this rank's block
         of the cotangent backward: the whole logits."""
         return _GatherLast.apply(x, self)
+
+    def gather_split(self, x):
+        """The last dim gathered over the group forward; backward, the
+        cotangent summed over the group, then this rank's block (a
+        reduce-scatter, as one all-reduce and a slice): the whole output
+        of a column-parallel product that every rank reads a part of
+        (mamba's ``[x | z]``, whose rank-r block is not rank r's
+        channels).  One gather forward, one sum backward."""
+        return self.copy_in(self.gather_last(x))
+
+    def channel_block(self, n: int) -> tuple:
+        """``(lo, hi)``: this rank's contiguous block of an ``n``-sized
+        channel dim split over the group."""
+        per = n // self.size
+        return self.rank * per, (self.rank + 1) * per
 
     # -- attention ----------------------------------------------------------
     def kv_block(self) -> tuple:

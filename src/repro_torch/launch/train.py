@@ -51,9 +51,10 @@ layer's gradient over the data ranks once (``core.l2l``), so the ranks
 of a data group end each step with the same state; a MoE config sums
 its router statistics and its dispatch counts over the data ranks too
 (the JSON line counts them as ``moe_collectives_per_step``).
-``model=M`` > 1 (the dense and MoE families) splits the heads, the ffn
-columns, the experts (or their columns where the experts do not divide)
-and a vocabulary that divides over M ranks
+``model=M`` > 1 (the dense, MoE, hybrid and SSM families) splits the
+heads, the ffn columns, the experts (or their columns where the experts
+do not divide), mamba's channels, RWKV's heads and a vocabulary that
+divides over M ranks
 (``distributed.tensor_parallel``): each rank holds and relays its
 blocks.  ``--dist-backend`` is nccl on the card,
 gloo with ``--device cpu``.  Only rank 0 prints, writes snapshots and

@@ -154,34 +154,38 @@ def hybrid_spec(cfg) -> dict:
             "ln2": norm_spec(cfg), "mlp": mlp_spec(cfg)}
 
 
-def hybrid_apply(w, x, mem, ctx: Ctx, cfg):
+def hybrid_apply(w, x, mem, ctx: Ctx, cfg, tp=None):
+    """``tp``: the model axis.  Attention, mamba and the MLP each take
+    their own split (attention whole when its heads do not divide);
+    ``copy_in`` sits at each split branch's input, never on the shared
+    ``h``, so the whole attention's input gradient is not summed."""
     h = _norm(w["ln1"], x, cfg)
     a = attn.self_attention(w["attn"], h, cfg, ctx.positions,
-                            causal=ctx.causal, window=ctx.window)
-    s = ssm_mod.mamba_apply(w["mamba"], h, cfg)
+                            causal=ctx.causal, window=ctx.window, tp=tp)
+    s = ssm_mod.mamba_apply(w["mamba"], h, cfg, tp)
     fused = 0.5 * (a * w["beta_a"].to(x.dtype)
                    + s * w["beta_s"].to(x.dtype))
     x = x + fused
-    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg, tp)
     return x, 0.0
 
 
-def hybrid_decode(w, x, cache, mem, ctx: Ctx, cfg):
+def hybrid_decode(w, x, cache, mem, ctx: Ctx, cfg, tp=None):
     h = _norm(w["ln1"], x, cfg)
     a, _ = attn.decode_self_attention(w["attn"], h, cache["kv"], cfg,
-                                      ctx.cur_pos, window=ctx.window)
-    s, st = ssm_mod.mamba_decode(w["mamba"], h, cache["ssm"], cfg)
+                                      ctx.cur_pos, window=ctx.window, tp=tp)
+    s, st = ssm_mod.mamba_decode(w["mamba"], h, cache["ssm"], cfg, tp)
     _write_state(cache["ssm"], st)
     fused = 0.5 * (a * w["beta_a"].to(x.dtype)
                    + s * w["beta_s"].to(x.dtype))
     x = x + fused
-    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg, tp)
     return x, cache
 
 
-def hybrid_cache_spec(cfg, batch, live):
-    return {"kv": attn.kv_cache_spec(cfg, batch, live),
-            "ssm": ssm_mod.mamba_state_spec(cfg, batch)}
+def hybrid_cache_spec(cfg, batch, live, tp=None):
+    return {"kv": attn.kv_cache_spec(cfg, batch, live, tp),
+            "ssm": ssm_mod.mamba_state_spec(cfg, batch, tp)}
 
 
 # ===========================================================================
@@ -192,20 +196,23 @@ def rwkv_spec(cfg) -> dict:
             "ln2": norm_spec(cfg)}
 
 
-def rwkv_apply(w, x, mem, ctx: Ctx, cfg):
-    y, _ = ssm_mod.rwkv6_time_mix(w["tm"], _norm(w["ln1"], x, cfg), cfg)
+def rwkv_apply(w, x, mem, ctx: Ctx, cfg, tp=None):
+    y, _ = ssm_mod.rwkv6_time_mix(w["tm"], _norm(w["ln1"], x, cfg), cfg,
+                                  tp=tp)
     x = x + y
-    y, _ = ssm_mod.rwkv6_channel_mix(w["cm"], _norm(w["ln2"], x, cfg))
+    y, _ = ssm_mod.rwkv6_channel_mix(w["cm"], _norm(w["ln2"], x, cfg),
+                                     tp=tp)
     return x + y, 0.0
 
 
-def rwkv_decode(w, x, cache, mem, ctx: Ctx, cfg):
+def rwkv_decode(w, x, cache, mem, ctx: Ctx, cfg, tp=None):
     tm_state = {"wkv": cache["wkv"], "shift": cache["tm_shift"]}
     y, tm_new = ssm_mod.rwkv6_time_mix(w["tm"], _norm(w["ln1"], x, cfg),
-                                       cfg, state=tm_state)
+                                       cfg, state=tm_state, tp=tp)
     x = x + y
     y, cm_new = ssm_mod.rwkv6_channel_mix(
-        w["cm"], _norm(w["ln2"], x, cfg), state={"shift": cache["cm_shift"]})
+        w["cm"], _norm(w["ln2"], x, cfg), state={"shift": cache["cm_shift"]},
+        tp=tp)
     x = x + y
     # copy_ rounds to the cache's dtype, as the reference's astype
     _write_state(cache, {"wkv": tm_new["wkv"], "tm_shift": tm_new["shift"],
@@ -213,8 +220,8 @@ def rwkv_decode(w, x, cache, mem, ctx: Ctx, cfg):
     return x, cache
 
 
-def rwkv_cache_spec(cfg, batch, live):
-    return ssm_mod.rwkv6_state_spec(cfg, batch)
+def rwkv_cache_spec(cfg, batch, live, tp=None):
+    return ssm_mod.rwkv6_state_spec(cfg, batch, tp)
 
 
 # ===========================================================================

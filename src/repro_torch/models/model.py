@@ -66,7 +66,8 @@ def stack_layers(layers):
 class LayeredModel:
     """``tp`` (a ``distributed.tensor_parallel.TensorParallel``): one rank
     of the mesh's model axis, whose blocks of the split leaves this
-    model's functions compute with (the dense and MoE families); ``dp``
+    model's functions compute with (the dense, MoE, hybrid and SSM
+    families); ``dp``
     (a ``distributed.data_parallel.DataParallel`` of more than one rank):
     the data axes the MoE layers' router statistics and dispatch range
     over.  The specs stay the whole model's."""
@@ -79,10 +80,10 @@ class LayeredModel:
 
     @staticmethod
     def _build_groups(cfg, tp=None, dp=None) -> Tuple[Group, ...]:
-        if tp is not None and cfg.family not in ("dense", "moe"):
+        if tp is not None and cfg.family in ("vlm", "audio"):
             raise NotImplementedError(
-                f"the model axis runs the dense and MoE families, not "
-                f"{cfg.family}")
+                f"the model axis runs the dense, MoE, hybrid and SSM "
+                f"families, not {cfg.family}")
 
         def G(name, n, spec, apply_fn, decode_fn, cache_fn, axes=None,
               **kw):
@@ -116,11 +117,11 @@ class LayeredModel:
         if cfg.family == "hybrid":
             return (G("layers", cfg.n_layers, blocks.hybrid_spec(cfg),
                       blocks.hybrid_apply, blocks.hybrid_decode,
-                      blocks.hybrid_cache_spec),)
+                      blocks.hybrid_cache_spec, {"tp": tp}),)
         if cfg.family == "ssm":
             return (G("layers", cfg.n_layers, blocks.rwkv_spec(cfg),
                       blocks.rwkv_apply, blocks.rwkv_decode,
-                      blocks.rwkv_cache_spec),)
+                      blocks.rwkv_cache_spec, {"tp": tp}),)
         if cfg.family == "audio":
             enc = G("encoder", cfg.n_encoder_layers,
                     blocks.whisper_enc_spec(cfg), blocks.whisper_enc_apply,

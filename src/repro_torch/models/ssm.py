@@ -44,12 +44,27 @@ def mamba_spec(cfg) -> dict:
     }
 
 
-def _mamba_inner(w, xz, cfg, conv_state=None):
+def _split(tp, flag: str) -> bool:
+    """Whether the model axis ``tp`` splits the dims on ``flag``."""
+    return tp is not None and getattr(tp, flag)
+
+
+def _mamba_inner(w, xz, cfg, conv_state=None, tp=None):
     """Shared projection part.  xz: (B,S,2*dI) -> (x_conv, z, dt, Bm, Cm,
-    the conv window's last K-1 inputs)."""
+    the conv window's last K-1 inputs).  With mamba's channels split over
+    the model axis (``tp.ffn``) xz is this rank's block of ``[x | z]``:
+    it is gathered whole and the rank takes its channels of x and of z;
+    ``w_bcdt``'s product is summed over the group, and B, C and dt pass
+    ``copy_in`` (every rank's channels read them)."""
     dI = cfg.d_model
     N = cfg.ssm_state
-    x, z = xz[..., :dI], xz[..., dI:]
+    split = _split(tp, "ffn")
+    if split:
+        xz = tp.gather_split(xz)
+        lo, hi = tp.channel_block(dI)
+        x, z = xz[..., lo:hi], xz[..., dI + lo:dI + hi]
+    else:
+        x, z = xz[..., :dI], xz[..., dI:]
     # depthwise causal conv over seq
     K = w["conv"].shape[0]
     S = x.shape[1]
@@ -61,11 +76,26 @@ def _mamba_inner(w, xz, cfg, conv_state=None):
              for i in range(K))
     xc = F.silu(xc)
     bcdt = xc @ w["w_bcdt"].to(x.dtype)
+    if split:
+        bcdt = tp.copy_in(tp.reduce(bcdt))
     Bm, Cm, dt_low = bcdt[..., :N], bcdt[..., N:2 * N], bcdt[..., 2 * N:]
     dt = F.softplus(dt_low @ w["w_dt"].to(x.dtype)
                     + w["dt_bias"].to(x.dtype))                  # (B,S,dI)
     new_conv_state = pads[:, -(K - 1):, :] if K > 1 else None
     return xc, z, dt, Bm, Cm, new_conv_state
+
+
+def _mamba_in(w, x, tp):
+    """x @ w_in, x through ``copy_in`` when the channels are split."""
+    if _split(tp, "ffn"):
+        x = tp.copy_in(x)
+    return x @ w["w_in"].to(x.dtype)
+
+
+def _mamba_out(w, y, tp):
+    """y @ w_out, summed over the group when the channels are split."""
+    out = y @ w["w_out"].to(y.dtype)
+    return tp.reduce(out) if _split(tp, "ffn") else out
 
 
 def selective_scan(a, b):
@@ -85,11 +115,12 @@ def selective_scan(a, b):
     return b
 
 
-def mamba_apply(w, x, cfg):
-    """Full-sequence selective scan.  x: (B,S,d) -> (B,S,d)."""
+def mamba_apply(w, x, cfg, tp=None):
+    """Full-sequence selective scan.  x: (B,S,d) -> (B,S,d).  ``tp``: the
+    model axis, its block of the channels (``_mamba_inner``)."""
     dt_ = x.dtype
-    xz = x @ w["w_in"].to(dt_)
-    xc, z, dt, Bm, Cm, _ = _mamba_inner(w, xz, cfg)
+    xz = _mamba_in(w, x, tp)
+    xc, z, dt, Bm, Cm, _ = _mamba_inner(w, xz, cfg, tp=tp)
     A = -torch.exp(w["a_log"].float())                        # (dI,N)
     # discretize: a = exp(dt*A), b = dt * B_t * x_t
     dtf = dt.float()
@@ -99,11 +130,15 @@ def mamba_apply(w, x, cfg):
     y = (h * Cm.float()[..., None, :]).sum(-1)                # (B,S,dI)
     y = y + w["d_skip"].float() * xc.float()
     y = y.to(dt_) * F.silu(z)
-    return y @ w["w_out"].to(dt_)
+    return _mamba_out(w, y, tp)
 
 
-def mamba_state_spec(cfg, batch: int) -> dict:
+def mamba_state_spec(cfg, batch: int, tp=None) -> dict:
+    """The decode state's specs; on the model axis (``tp.ffn``) this
+    rank's channels."""
     dI, N, K = cfg.d_model, cfg.ssm_state, cfg.ssm_conv
+    if _split(tp, "ffn"):
+        dI //= tp.size
     return {
         "h": ParamSpec((batch, dI, N), ("batch", "ffn", "state"), "zeros"),
         "conv": ParamSpec((batch, K - 1, dI), ("batch", "conv", "ffn"),
@@ -111,13 +146,15 @@ def mamba_state_spec(cfg, batch: int) -> dict:
     }
 
 
-def mamba_decode(w, x, state, cfg):
-    """One step.  x: (B,1,d); state: {"h": (B,dI,N), "conv": (B,K-1,dI)}.
+def mamba_decode(w, x, state, cfg, tp=None):
+    """One step.  x: (B,1,d); state: {"h": (B,dI,N), "conv": (B,K-1,dI)}
+    (this rank's channels on the model axis).
     -> (out (B,1,d), new state in the state's dtypes)."""
     dt_ = x.dtype
-    xz = x @ w["w_in"].to(dt_)
+    xz = _mamba_in(w, x, tp)
     xc, z, dt, Bm, Cm, new_conv = _mamba_inner(w, xz, cfg,
-                                               conv_state=state["conv"])
+                                               conv_state=state["conv"],
+                                               tp=tp)
     A = -torch.exp(w["a_log"].float())
     dtf = dt[:, 0].float()                                    # (B,dI)
     a = torch.exp(dtf[..., None] * A)                         # (B,dI,N)
@@ -126,7 +163,7 @@ def mamba_decode(w, x, state, cfg):
     y = (h * Cm[:, 0].float()[:, None, :]).sum(-1)
     y = y + w["d_skip"].float() * xc[:, 0].float()
     y = (y.to(dt_) * F.silu(z[:, 0]))[:, None, :]
-    out = y @ w["w_out"].to(dt_)
+    out = _mamba_out(w, y, tp)
     new_state = {"h": h.to(state["h"].dtype),
                  "conv": new_conv.to(state["conv"].dtype)}
     return out, new_state
@@ -190,10 +227,21 @@ def _ddlerp(w, x, xx):
     return x[:, :, None, :] + (xx - x)[:, :, None, :] * mix
 
 
-def _rwkv_rkvgw(tm, x, xx, cfg):
+def _rwkv_rkvgw(tm, x, xx, cfg, tp=None):
+    """-> (r, k, v, g, the decay), on the model axis
+    (``tp.heads_x_dim``) this rank's channels of each: the mixed inputs
+    of the four column-parallel products pass ``copy_in``; the decay is
+    computed whole, and passes ``copy_in`` before the rank takes its
+    channels (so its leaves' gradients are whole on every rank)."""
     dt_ = x.dtype
     mixed = _ddlerp(tm, x, xx)
-    xr, xk, xv, xg, xw = [mixed[:, :, i] for i in range(5)]
+    split = _split(tp, "heads_x_dim")
+    if split:
+        rkvg = tp.copy_in(mixed[:, :, :4])
+        xr, xk, xv, xg = [rkvg[:, :, i] for i in range(4)]
+        xw = mixed[:, :, 4]
+    else:
+        xr, xk, xv, xg, xw = [mixed[:, :, i] for i in range(5)]
     r = xr @ tm["w_r"].to(dt_)
     k = xk @ tm["w_k"].to(dt_)
     v = xv @ tm["w_v"].to(dt_)
@@ -201,6 +249,9 @@ def _rwkv_rkvgw(tm, x, xx, cfg):
     # the decay in f32 matmuls (TF32 must stay off for them)
     dec = tm["w0"].float() + torch.tanh(
         xw.float() @ tm["decay_a"].float()) @ tm["decay_b"].float()
+    if split:
+        lo, hi = tp.channel_block(cfg.d_model)
+        dec = tp.copy_in(dec)[..., lo:hi]
     wdecay = torch.exp(-torch.exp(dec))                      # (B,S,d) in (0,1)
     return r, k, v, g, wdecay
 
@@ -283,14 +334,20 @@ def _wkv_chunked(rh, kh, vh, wh, u, s0, chunk: int):
     return y, s
 
 
-def rwkv6_time_mix(tm, x, cfg, state=None):
+def rwkv6_time_mix(tm, x, cfg, state=None, tp=None):
     """Full-sequence WKV6.  x: (B,S,d).  Returns (y, new state: the f32
-    wkv matrix and the last input, the next call's shift)."""
-    B, S, d = x.shape
-    H, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    wkv matrix and the last input, the next call's shift).  On the model
+    axis (``tp.heads_x_dim``) the rank runs its heads (its block of the
+    channels, whole heads): the wkv state holds them, ``ln_scale`` (whole)
+    passes ``copy_in`` before the rank takes its channels, and ``w_o``'s
+    partial output is summed over the group."""
+    B, S, _ = x.shape
     prev = None if state is None else state.get("shift")
     xx = _shift(x, prev)
-    r, k, v, g, wdecay = _rwkv_rkvgw(tm, x, xx, cfg)
+    r, k, v, g, wdecay = _rwkv_rkvgw(tm, x, xx, cfg, tp)
+    hd = cfg.rwkv_head_dim
+    d = r.shape[-1]                               # this rank's channels
+    H = d // hd
 
     def to_heads(t):                                          # (B,H,S,hd)
         return _heads(t, H, hd).transpose(1, 2)
@@ -315,24 +372,43 @@ def rwkv6_time_mix(tm, x, cfg, state=None):
     mu = yh.mean(-1, keepdim=True)
     var = ((yh - mu) ** 2).mean(-1, keepdim=True)
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
-    y = yh.reshape(B, S, d) * tm["ln_scale"].float()
+    ln = tm["ln_scale"]
+    split = _split(tp, "heads_x_dim")
+    if split:
+        lo, hi = tp.channel_block(cfg.d_model)
+        ln = tp.copy_in(ln)[lo:hi]
+    y = yh.reshape(B, S, d) * ln.float()
     y = (y.to(x.dtype) * g) @ tm["w_o"].to(x.dtype)
+    if split:
+        y = tp.reduce(y)
     return y, {"wkv": s_fin, "shift": x[:, -1, :]}
 
 
-def rwkv6_channel_mix(cm, x, state=None):
+def rwkv6_channel_mix(cm, x, state=None, tp=None):
+    """On the model axis (``tp.ffn``) ``w_k``'s columns and ``w_v``'s rows
+    are this rank's, the product summed over the group; ``w_r`` whole."""
     dt_ = x.dtype
     prev = None if state is None else state.get("shift")
     xx = _shift(x, prev)
     xk = x + (xx - x) * cm["mu_k"].to(dt_)
     xr = x + (xx - x) * cm["mu_r"].to(dt_)
+    split = _split(tp, "ffn")
+    if split:
+        xk = tp.copy_in(xk)
     kk = torch.square(F.relu(xk @ cm["w_k"].to(dt_)))
-    out = torch.sigmoid(xr @ cm["w_r"].to(dt_)) * (kk @ cm["w_v"].to(dt_))
+    kv = kk @ cm["w_v"].to(dt_)
+    if split:
+        kv = tp.reduce(kv)
+    out = torch.sigmoid(xr @ cm["w_r"].to(dt_)) * kv
     return out, {"shift": x[:, -1, :]}
 
 
-def rwkv6_state_spec(cfg, batch: int) -> dict:
+def rwkv6_state_spec(cfg, batch: int, tp=None) -> dict:
+    """The decode state's specs; on the model axis
+    (``tp.heads_x_dim``) this rank's heads of ``wkv``."""
     H, hd, d = cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
+    if _split(tp, "heads_x_dim"):
+        H //= tp.size
     return {
         "wkv": ParamSpec((batch, H, hd, hd), ("batch", "heads", "state",
                                               "state"), "zeros"),

@@ -279,8 +279,10 @@ def test_moe_on_data_ranks_and_a_model_axis_are_refused(runs):
     """deepseek-v2-lite on data=2 (the router's statistics and the
     dispatch over the data group) and on model=2 (expert parallelism) is
     no longer refused (tests/test_torch_moe_parallel.py); NotImplementedError
-    for hymba-1.5b on model=2 (the hybrid family on the model axis comes
-    later) and for ``serve_session`` on data=2."""
+    for internvl2-1b on model=2 (the VLM family on the model axis is not
+    ported yet; the hybrid family runs there, in
+    tests/test_torch_recurrent_parallel.py) and for ``serve_session`` on
+    data=2."""
     for out in runs["ranks"]:
         assert [int(x) for x in _get(out, "refused")] == [0, 0, 1, 1]
 

@@ -10,7 +10,7 @@ on its rows of the batch (``shard_batch``), every entry point of an l2l-p
 engine on a ``data=2`` mesh: two train steps, grads, prefill,
 decode_init and two decode steps; then the knob points, each one train
 step; then the mesh checks of the Engine (MoE on two data ranks and on
-a model axis of 2 accepted, the hybrid family on a model axis of 2 and
+a model axis of 2 accepted, the VLM family on a model axis of 2 and
 ``serve_session`` on two data ranks refused).
 With WORLD 1 it runs the same entry points on a ``data=1`` mesh and
 without a mesh.  Results go to ``OUT.npz`` as flat arrays.
@@ -138,7 +138,7 @@ def run_dp(inp, put, world):
                                                   "model": 1}),
                         ("deepseek-v2-lite-16b", {"data": 1,
                                                   "model": world}),
-                        ("hymba-1.5b", {"data": 1, "model": world})):
+                        ("internvl2-1b", {"data": 1, "model": world})):
         m = mesh if shape["data"] == world else make_mesh(shape, "cpu")
         try:
             engines.create("l2l-p", get_config(arch, "smoke"),
