@@ -47,7 +47,15 @@ Phases, one JSON line each:
               f32, bounded by the card's f32 rate outside the tensor
               cores; K4 each way at an internvl2 layer
               row (59.6 MB) and whisper-base's encoder and decoder rows
-              (12.6 / 16.8 MB) against ``copy_``; then
+              (12.6 / 16.8 MB) against ``copy_``; the model axis's
+              per-rank shapes: K2 and K3a / K3b at bert-large's 8 of 16
+              heads, K2 at granite-3-8b's 16 of 32 q heads over 4 kv,
+              K2 at internvl2's prefill (2, 2304, 7, 64) and K3a / K3b at
+              its training microbatch (4, 768, 7, 64) over 1 kv head,
+              and K4 each way at one model rank's layer rows (bert-large,
+              granite-3-8b, hymba-1.5b, rwkv6-1.6b, deepseek-v2-lite's MoE
+              layer, internvl2's layer, whisper's encoder and decoder
+              layers); then
    k4-sweep — K4's designs, one lever at a time, on one granite row
               pinned host -> HBM and one bert-large row back, on each
               host allocation kind, with ``copy_``; a fetch and
@@ -332,22 +340,45 @@ Phases, one JSON line each:
               prefill, bf16 logits within 0.35 of one process, in f32 at
               fan-in scales tokens equal and logits within 1e-4, then one
               f32 l2l-p step at depth 1 on the relay against one process
-              (losses 1e-5, updates 1e-3);
+              (losses 1e-5, updates 1e-3); then the VLM and audio families
+              (``tp_rank_modality``): train-vlm-tp, internvl2-1b at full
+              width (7 of 14 q heads over 1 of 2 kv heads, 2432 of 4864
+              MLP columns, the 151655-row vocabulary and the patch
+              projection whole), depth 2, B=8 x (512 + 256 patches), UB=2,
+              l2l-p unpacked through the train CLI's configuration, 2
+              steps counted (the weights the one-process slices, the
+              replicated leaves and Adam slots equal, losses within 1e-3
+              of one process), one f32 step at fan-in scales on the CLI's
+              relay against one process (losses 1e-5, updates 1e-3), and
+              its decode in f32 at depth 1 (decode_init on 4 text prompts
+              of 128, 2 greedy steps, prefill behind 256 patches: tokens
+              equal, logits within 1e-4); serve-audio-tp, whisper-base at
+              full width and depth (6 + 6 layers, 4 of 8 heads and kv
+              heads in each attention, 1024 of 2048 MLP columns, the
+              51865-row vocabulary and enc_ln_post whole; plain attend),
+              weight_stream unpacked, counted: decode_init on 4 prompts of
+              16 with 1500 frames, 4 greedy steps, prefill, bf16 logits
+              within 0.35 of one process, K4 GB a step a rank beside one
+              process's, in f32 at fan-in scales tokens equal and logits
+              within 1e-4, then one f32 l2l-p step at full depth on the
+              relay against one process (losses 1e-5, updates 1e-3: the
+              memory's cotangent summed over the ranks into the encoder);
    memory-model — ``Engine.memory_estimate`` for the train phase's
               bert-large at depths 24 and 12 beside its peaks, and the
               serve estimate beside serve-continuous's peak (printed, not
               tied: the model counts the reference's buffers);
-10. launches — every kernel's count over the twenty-eight main paths
+10. launches — every kernel's count over the thirty main paths
               (serve, serve-dense, serve-continuous, train, train-rmsnorm,
               dynamic-depth, host-optimizer, train-dp, serve-moe, train-moe,
               serve-hymba, train-hymba, serve-rwkv6, train-rwkv6,
               serve-vlm, train-vlm, serve-audio, train-audio, serve-grok,
               tier-train, tier-serve, train-tp, serve-tp, train-moe-tp,
-              train-moe-dp, serve-moe-tp, train-hybrid-tp, serve-ssm-tp
-              (summed over the two ranks); each of a
-              path's kernels > 0, K1 0 on host-optimizer, K2 and K3 0 on
-              the five MoE paths, K2, K3 and K5 0 on the rwkv6 paths
-              (serve-ssm-tp's too) and whisper's),
+              train-moe-dp, serve-moe-tp, train-hybrid-tp, serve-ssm-tp,
+              train-vlm-tp, serve-audio-tp (summed over the two ranks);
+              each of a path's kernels > 0, K1 0 on host-optimizer, K2
+              and K3 0 on the five MoE paths, K2, K3 and K5 0 on the rwkv6
+              paths (serve-ssm-tp's too) and whisper's (serve-audio-tp's
+              too)),
               and the counts by route: every
               bf16 K2, K3a and K3b
               launch on the wgmma route, none on the CUDA-core one, every
@@ -3702,6 +3733,7 @@ TP_SERVE = dict(batch=4, prompt=16, gen=4)
 TP_SERVE_BF16 = 0.35
 TP_SERVE_F32 = 1e-4
 TP_K3_CELL = "bert-large train microbatch per model rank"
+TP_VLM_K3_CELL = "internvl2 train microbatch per model rank"
 # the MoE family on the mesh (one torch.distributed.run with train-tp and
 # serve-tp): deepseek-v2-lite at full width (8 of 16 heads, 32 of 64
 # experts and the router's matching columns, 1408 of the shared experts'
@@ -3734,7 +3766,8 @@ def tp_layer_bytes(cfg, ranks, LayeredModel, tree_leaves, is_spec,
 
 
 TP_PATHS = ("train-tp", "serve-tp", "train-moe-tp", "train-moe-dp",
-            "serve-moe-tp", "train-hybrid-tp", "serve-ssm-tp")
+            "serve-moe-tp", "train-hybrid-tp", "serve-ssm-tp",
+            "train-vlm-tp", "serve-audio-tp")
 # the hybrid and SSM families on the model axis (``tp_rank_recurrent``).
 # train-hybrid-tp: hymba-1.5b at full width (its 25 q and 5 kv heads do
 # not split over 2 ranks: the attention runs whole on each; 800 of 1600
@@ -3759,6 +3792,31 @@ TP_HYBRID_DECODE = dict(depth=1, steps=2)
 # (the decay's and ln_scale's gradients cross the ranks)
 TP_SSM_SERVE_DEPTH = 2
 TP_SSM_TRAIN = dict(depth=1, batch=8, seq=256, ub=2)
+# the VLM and audio families on the model axis (``tp_rank_modality``).
+# train-vlm-tp: internvl2-1b at full width (7 of 14 q heads over 1 of 2
+# kv heads and 2432 of 4864 MLP columns a rank; the 151655-row tied
+# vocabulary and the patch projection whole on each), depth 2,
+# B=8 x (512 tokens + 256 patches), UB=2, 2 l2l-p steps unpacked (the
+# sharded relay) through the train CLI's configuration; its f32 check
+# (``TP_F32``) at depth 2 on the same relay
+TP_VLM_ARGV = ["--arch", "internvl2-1b", "--variant", "full",
+               "--engine", "l2l-p", "--n-layers", "2", "--steps", "2",
+               "--batch", "8", "--seq", "512", "--ub", "2",
+               "--weight-stream", "--prefetch", "1",
+               "--transport", "pallas", "--offload-stash", "--use-pallas",
+               "--log-every", "1", "--seed", "0",
+               "--mesh", f"model={TP_RANKS}"]
+# then its decode in f32 at depth 1 on the same ranks (decode_init on
+# ``tp_prompt``'s text prompts, 2 greedy steps, prefill behind the
+# patches) against one process
+TP_VLM_DECODE = dict(depth=1, steps=2)
+# serve-audio-tp: whisper-base at full width and depth (6 + 6 layers; 4
+# of 8 heads and kv heads in each attention, 1024 of 2048 MLP columns a
+# rank; the 51865-row vocabulary and enc_ln_post whole), weight_stream
+# unpacked, TP_SERVE's prompts and steps with 1500 frames; then one l2l-p
+# step in f32 at full depth on the relay against one process (the
+# memory's cotangent crosses the ranks into the encoder)
+TP_AUDIO_TRAIN = dict(batch=8, seq=64, ub=2)
 
 
 def drawn_state(torch, e, seed: int = 11):
@@ -3774,12 +3832,35 @@ def drawn_state(torch, e, seed: int = 11):
     return TrainState.from_legacy(p, e._place_opt(e._init_opt_legacy(p), p))
 
 
-def f32_rel(np, tree_leaves, got, want, p0) -> float:
+def f32_rel(np, tree_leaves, got, want, p0, skip=()) -> float:
     """The largest relative L2 of a leaf's update, ``got`` against
-    ``want`` from ``p0`` (numpy trees)."""
+    ``want`` from ``p0`` (numpy trees), over the leaves whose flat index
+    is not in ``skip``."""
     return max(float(np.linalg.norm(a - b) / max(np.linalg.norm(b - c),
                                                   1e-30))
-               for a, b, c in zip(tree_leaves(got), tree_leaves(want), p0))
+               for i, (a, b, c) in enumerate(zip(tree_leaves(got),
+                                                 tree_leaves(want), p0))
+               if i not in skip)
+
+
+def exact_zero_leaves(cfg) -> set:
+    """Flat indices (the params' flatten order) of the leaves whose
+    gradient is zero in exact arithmetic: whisper's attention k biases
+    (no rope: ``bk`` shifts each query's scores by one constant, which
+    the softmax drops).  Their computed gradients are rounding noise
+    (~1e-10), and Adam's first update of each entry is about the step
+    size with the noise's sign, so two correct runs' updates of them
+    differ by ~1.4x their norm: an update check holds them apart."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.common import is_spec
+    from repro_torch.models.model import LayeredModel
+    if cfg.family != "audio":
+        return set()
+    it = iter(range(10 ** 6))
+    idx = tree_map(lambda _: next(it), LayeredModel(cfg).param_specs(),
+                   is_leaf=is_spec)
+    return {g[a]["bk"] for g in idx["groups"] for a in ("attn", "xattn")
+            if a in g}
 
 
 def tp_phase(torch, counters):
@@ -4143,6 +4224,8 @@ def tp_rank(np, torch):
     tp_rank_moe(np, torch, mesh, rank, counters, check, done)
     dist.barrier()
     tp_rank_recurrent(np, torch, mesh, rank, counters, check, done)
+    dist.barrier()
+    tp_rank_modality(np, torch, mesh, rank, counters, check, done)
 
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
@@ -4505,16 +4588,21 @@ def tp_rank_moe(np, torch, mesh, rank, counters, check, done):
     done("serve-moe-tp", line)
 
 
-def tp_greedy(torch, e, params, prompt, n):
+def tp_greedy(torch, e, params, prompt, n, stub=None):
     """decode_init on ``prompt``, ``n`` greedy steps, then prefill of the
     prompt -> (tokens, the logits of decode_init and each step, prefill's,
     info: decode_init's and the steps' seconds, the steps' K4 fetches and
-    bytes and the last step's model collectives)."""
+    bytes and the last step's model collectives).  ``stub``: the modality
+    input (``tp_stub``), whisper's frames to decode_init and prefill,
+    internvl2's patches to prefill only (it decodes text)."""
     from repro_torch.kernels import relay_copy as rc
     from repro_torch.serve.sampling import sample_batch
     P = prompt.shape[1]
+    stub = stub or {}
     t0 = time.perf_counter()
-    caches, last = e.decode_init(params, prompt, P + n)
+    caches, last = e.decode_init(params, prompt, P + n,
+                                 **{k: v for k, v in stub.items()
+                                    if k == "frames"})
     torch.cuda.synchronize()
     info = {"init_s": time.perf_counter() - t0}
     tok = sample_batch(last)[:, None]
@@ -4531,9 +4619,101 @@ def tp_greedy(torch, e, params, prompt, n):
                 fetches=rc.copy_rows.launches - f0,
                 fetched_bytes=rc.copy_rows.bytes - b0,
                 collectives=e.tp.stats() if e.tp else None)
-    pl = e.prefill(params, {"tokens": prompt})
+    pl = e.prefill(params, {"tokens": prompt, **stub})
     torch.cuda.synchronize()
     return torch.cat(toks, 1), logits, pl, info
+
+
+def tp_prompt(torch, cfg):
+    """``TP_SERVE``'s prompts of ``cfg``'s vocabulary, the same on every
+    rank; internvl2's of ``VLM_PROMPT`` tokens (its prefill runs the
+    flash kernel behind 256 patches: 384 positions tile by 128, 272 would
+    not)."""
+    B = TP_SERVE["batch"]
+    P = VLM_PROMPT if cfg.is_vlm else TP_SERVE["prompt"]
+    dev = torch.device("cuda")
+    return torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+
+
+def tp_stub(torch, cfg):
+    """The modality input of ``TP_SERVE``'s batch in ``cfg``'s dtype, the
+    same on every rank: whisper's frames, internvl2's patches, else
+    nothing."""
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(2)
+    B, dt = TP_SERVE["batch"], getattr(torch, cfg.dtype)
+    if cfg.family == "audio":
+        return {"frames": torch.randn(B, cfg.n_frames, cfg.d_model,
+                                      generator=g, device=dev).to(dt)}
+    if cfg.is_vlm:
+        return {"patches": torch.randn(B, cfg.n_patches, cfg.vit_dim,
+                                       generator=g, device=dev).to(dt)}
+    return {}
+
+
+def tp_row_bytes(cfg, group: int = 0):
+    """One layer's f32 bytes (of layer group ``group``) whole and on one
+    model rank."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.common import is_spec
+    from repro_torch.models.model import LayeredModel
+    return {"whole": 4 * sum(math.prod(s.shape) for s in tree_leaves(
+                LayeredModel(cfg).groups[group].spec, is_leaf=is_spec)),
+            "per_rank": tp_layer_bytes(cfg, TP_RANKS, LayeredModel,
+                                       tree_leaves, is_spec, group)}
+
+
+def tp_fan_in_decode(torch, mesh, rank, check, key, cfg, n,
+                     dtype="float32"):
+    """In ``dtype`` at fan-in scales, the ranks on the serve relay
+    (weight_stream unpacked), one process with its weights on the card:
+    decode_init on ``TP_SERVE``'s prompts (and ``tp_stub``), ``n`` greedy
+    steps and prefill; in f32 the tokens equal and every step's logits
+    and prefill's within ``TP_SERVE_F32``, in bf16 the logits within
+    ``TP_SERVE_BF16`` (the tokens printed).  -> rank 0's line (None on
+    the others)."""
+    import torch.distributed as dist
+    from repro_torch import engine as engines
+    from repro_torch.core.schedule import ExecutionConfig
+    from repro_torch.testing import fan_in_params
+    dev = torch.device("cuda")
+    sx = ExecutionConfig(weight_stream=True, pack_params=False,
+                         prefetch_depth=1, transport="pallas")
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    c = cfg.replace(dtype=dtype)
+    f32 = dtype == "float32"
+    bound = TP_SERVE_F32 if f32 else TP_SERVE_BF16
+    eng = engines.create("l2l", c, sx, mesh=mesh)
+    g = torch.Generator(dev).manual_seed(5)
+    wparams = fan_in_params(eng.model.param_specs(), lambda shape:
+                            torch.randn(shape, generator=g, device=dev))
+    prompt, stub = tp_prompt(torch, c), tp_stub(torch, c)
+    toks, logits, pl, _ = tp_greedy(torch, eng, eng.tp.shard(wparams),
+                                    prompt, n, stub)
+    del eng
+    out = None
+    if rank == 0:
+        one = engines.create("l2l", c, ExecutionConfig())
+        o_toks, o_logits, o_pl, _ = tp_greedy(torch, one, wparams, prompt,
+                                              n, stub)
+        worst = max([rel(a, b) for a, b in zip(logits, o_logits)]
+                    + [rel(pl, o_pl)])
+        out = {"depth": c.n_layers, "dtype": dtype, "init": "fan-in scales",
+               "steps": n, "tokens": toks.tolist(),
+               "tokens_equal": bool(torch.equal(toks, o_toks)),
+               "logits_rel_l2_max": worst, "bound": bound}
+        del one
+        check((out["tokens_equal"] or not f32) and worst <= bound,
+              f"{key}: {dtype} apart from one process")
+    del wparams
+    free_host(torch)
+    dist.barrier()
+    return out
 
 
 def tp_rank_recurrent(np, torch, mesh, rank, counters, check, done):
@@ -4557,72 +4737,7 @@ def tp_rank_recurrent(np, torch, mesh, rank, counters, check, done):
     then one l2l-p step in f32 at depth 1 on the relay (``TP_SSM_TRAIN``)
     against one process within ``DP_LOSS_REL`` / ``DP_UPDATE_REL``."""
     import torch.distributed as dist
-    from repro_torch import bridge
-    from repro_torch import engine as engines
     from repro_torch.configs.base import get_config
-    from repro_torch.core.schedule import ExecutionConfig
-    from repro_torch.core.tree import tree_leaves
-    from repro_torch.data.synthetic import DataConfig, SyntheticLM
-    from repro_torch.distributed.data_parallel import tree_checksum
-    from repro_torch.models.common import is_spec
-    from repro_torch.models.model import LayeredModel
-    from repro_torch.optim import adam, make_schedule
-    from repro_torch.testing import fan_in_params
-    dev = torch.device("cuda")
-    B, P, GEN = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["gen"]
-    sx = ExecutionConfig(weight_stream=True, pack_params=False,
-                         prefetch_depth=1, transport="pallas")
-
-    def rel(a, b):
-        a, b = a.float(), b.float()
-        return float((a - b).norm() / b.norm())
-
-    def sync_sums(*trees):
-        torch.cuda.synchronize()
-        return [tree_checksum(t) for t in trees]
-
-    def prompt_of(cfg):
-        return torch.randint(0, cfg.vocab_size, (B, P), device=dev,
-                             generator=torch.Generator(dev).manual_seed(1))
-
-    def row_bytes(cfg):
-        """One layer's f32 bytes whole and on one model rank."""
-        return {"whole": 4 * sum(math.prod(s.shape) for s in tree_leaves(
-                    LayeredModel(cfg).groups[0].spec, is_leaf=is_spec)),
-                "per_rank": tp_layer_bytes(cfg, TP_RANKS, LayeredModel,
-                                           tree_leaves, is_spec)}
-
-    def f32_decode(key, cfg, n):
-        """In f32 at fan-in scales, the ranks on the serve relay (``sx``),
-        one process with its weights on the card: tokens equal, every
-        step's logits and prefill's within ``TP_SERVE_F32``."""
-        c32 = cfg.replace(dtype="float32")
-        eng = engines.create("l2l", c32, sx, mesh=mesh)
-        g = torch.Generator(dev).manual_seed(5)
-        wparams = fan_in_params(eng.model.param_specs(), lambda shape:
-                                torch.randn(shape, generator=g, device=dev))
-        prompt = prompt_of(c32)
-        toks, logits, pl, _ = tp_greedy(torch, eng, eng.tp.shard(wparams),
-                                        prompt, n)
-        del eng
-        out = None
-        if rank == 0:
-            one = engines.create("l2l", c32, ExecutionConfig())
-            o_toks, o_logits, o_pl, _ = tp_greedy(torch, one, wparams,
-                                                  prompt, n)
-            worst = max([rel(a, b) for a, b in zip(logits, o_logits)]
-                        + [rel(pl, o_pl)])
-            out = {"depth": c32.n_layers, "init": "fan-in scales",
-                   "steps": n, "tokens": toks.tolist(),
-                   "tokens_equal": bool(torch.equal(toks, o_toks)),
-                   "logits_rel_l2_max": worst, "bound": TP_SERVE_F32}
-            del one
-            check(out["tokens_equal"] and worst <= TP_SERVE_F32,
-                  f"{key}: f32 apart from one process")
-        del wparams
-        free_host(torch)
-        dist.barrier()
-        return out
 
     # ---------------------------------------------------- train-hybrid-tp
     t_phase = time.perf_counter()
@@ -4636,15 +4751,16 @@ def tp_rank_recurrent(np, torch, mesh, rank, counters, check, done):
             "d_ff_per_rank": c.d_ff // TP_RANKS if e.tp.ffn else c.d_ff,
             "vocab_per_rank": (c.vocab_size // TP_RANKS if e.tp.vocab
                                else c.vocab_size),
-            "layer_f32_bytes": row_bytes(c.replace(n_layers=1))})
+            "layer_f32_bytes": tp_row_bytes(c.replace(n_layers=1))})
     check(not line["attention_heads_split"]
           and line["mamba_channels_per_rank"] == 800,
           "train-hybrid-tp: not the reference's partition")
     dist.barrier()
     hymba = get_config("hymba-1.5b", "full").replace(
         n_layers=TP_HYBRID_DECODE["depth"], use_pallas=True)
-    line["decode_f32"] = f32_decode("train-hybrid-tp", hymba,
-                                    TP_HYBRID_DECODE["steps"])
+    line["decode_f32"] = tp_fan_in_decode(torch, mesh, rank, check,
+                                          "train-hybrid-tp", hymba,
+                                          TP_HYBRID_DECODE["steps"])
     line["seconds"] = time.perf_counter() - t_phase
     done("train-hybrid-tp", line)
     dist.barrier()
@@ -4653,74 +4769,237 @@ def tp_rank_recurrent(np, torch, mesh, rank, counters, check, done):
     t_phase = time.perf_counter()
     full = get_config("rwkv6-1.6b", "full")
     cfg = full.replace(n_layers=TP_SSM_SERVE_DEPTH)
-    prompt = prompt_of(cfg)
+    line = tp_serve_counted(
+        torch, mesh, rank, counters, check, "serve-ssm-tp", cfg,
+        lambda tp, c: {
+            "heads_per_rank": (c.rwkv_heads // TP_RANKS
+                               if tp.heads_x_dim else c.rwkv_heads),
+            "channels_per_rank": (c.d_model // TP_RANKS
+                                  if tp.heads_x_dim else c.d_model),
+            "d_ff_per_rank": c.d_ff // TP_RANKS if tp.ffn else c.d_ff,
+            "vocab_per_rank": (c.vocab_size // TP_RANKS if tp.vocab
+                               else c.vocab_size),
+            "layer_f32_bytes": tp_row_bytes(full.replace(n_layers=1))})
+    check(line["heads_per_rank"] == 16 and line["vocab_per_rank"] == 32768,
+          "serve-ssm-tp: not the reference's partition")
+    check(line["rel_l2_prefill_vs_decode_init"] <= TP_SERVE_BF16,
+          "serve-ssm-tp: prefill apart from decode_init")
+    line["f32"] = tp_fan_in_decode(torch, mesh, rank, check,
+                                   "serve-ssm-tp", cfg, TP_SERVE["gen"])
+
+    # one f32 train step at depth 1 on the relay: the decay's and
+    # ln_scale's gradients cross the ranks through copy_in
+    line["train_f32"] = tp_f32_train_step(
+        np, torch, mesh, rank, check, "serve-ssm-tp",
+        full.replace(n_layers=TP_SSM_TRAIN["depth"], dtype="float32"),
+        TP_SSM_TRAIN)
+    line["seconds"] = time.perf_counter() - t_phase
+    done("serve-ssm-tp", line)
+
+
+def tp_rank_modality(np, torch, mesh, rank, counters, check, done):
+    """The VLM and audio families on the mesh's model axis, in
+    ``tp_rank``'s world (``TP_RANKS`` gloo ranks on this card):
+
+    train-vlm-tp: internvl2-1b at full width through ``TP_VLM_ARGV``
+    (``tp_cli_train``: the weights the one-process slices, 2 steps
+    counted, the replicated leaves (the patch projection, the norms, the
+    whole vocabulary) and their Adam slots equal, losses within
+    ``TP_LOSS_REL_BF16`` of one process, then one f32 step at fan-in
+    scales on the CLI's relay within ``DP_LOSS_REL`` / ``DP_UPDATE_REL``
+    of one process); then its decode in f32 at depth 1
+    (``TP_VLM_DECODE``): tokens equal and logits (prefill's behind the
+    patches too) within ``TP_SERVE_F32`` of one process.
+
+    serve-audio-tp: whisper-base at full width and depth,
+    weight_stream unpacked, counted (``tp_serve_counted``): decode_init on
+    4 prompts of 16 with 1500 frames, 4 greedy steps and prefill; bf16
+    logits within ``TP_SERVE_BF16`` of one process on the same weights;
+    in f32 at fan-in scales on the same relay, tokens equal and logits
+    within ``TP_SERVE_F32`` of one process; then one l2l-p step in f32 at
+    full depth on the relay (``TP_AUDIO_TRAIN``) against one process
+    within ``DP_LOSS_REL`` / ``DP_UPDATE_REL``: the encoder's gradients
+    and ``enc_ln_post``'s come only through the memory's cotangent, which
+    each rank must sum over the group."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+
+    # ------------------------------------------------------- train-vlm-tp
+    t_phase = time.perf_counter()
+    line = tp_cli_train(
+        np, torch, mesh, rank, counters, check, "train-vlm-tp",
+        TP_VLM_ARGV, lambda e, c: {
+            "heads_per_rank": [c.n_heads // TP_RANKS if e.tp.heads
+                               else c.n_heads, e.tp.local_kv_heads()],
+            "d_ff_per_rank": c.d_ff // TP_RANKS if e.tp.ffn else c.d_ff,
+            "vocab_per_rank": (c.vocab_size // TP_RANKS if e.tp.vocab
+                               else c.vocab_size),
+            "patches": c.n_patches,
+            "layer_f32_bytes": tp_row_bytes(c.replace(n_layers=1))})
+    check(line["heads_per_rank"] == [7, 1]
+          and line["d_ff_per_rank"] == 2432
+          and line["vocab_per_rank"] == 151655,
+          "train-vlm-tp: not the reference's partition")
+    dist.barrier()
+    vlm = get_config(VLM_ARCH, "full").replace(
+        n_layers=TP_VLM_DECODE["depth"], use_pallas=True)
+    line["decode_f32"] = tp_fan_in_decode(torch, mesh, rank, check,
+                                          "train-vlm-tp", vlm,
+                                          TP_VLM_DECODE["steps"])
+    line["seconds"] = time.perf_counter() - t_phase
+    done("train-vlm-tp", line)
+    dist.barrier()
+
+    # ----------------------------------------------------- serve-audio-tp
+    # use_pallas=False: the 1500 frames do not tile by the flash kernel's
+    # block (attention is the plain attend, as on one rank)
+    t_phase = time.perf_counter()
+    full = get_config(AUDIO_ARCH, "full").replace(use_pallas=False)
+    # at the reference's init (std 1/sqrt(6) stacked matrices) the
+    # 1500-key cross-attention softmax is ill-conditioned: bf16 rounding
+    # alone moves the logits far (printed beside one process's own bf16
+    # against f32); the bf16 bound is held at fan-in scales
+    line = tp_serve_counted(
+        torch, mesh, rank, counters, check, "serve-audio-tp", full,
+        lambda tp, c: {
+            "depth": [c.n_encoder_layers, c.n_layers],
+            "heads_per_rank": [c.n_heads // TP_RANKS if tp.heads
+                               else c.n_heads, tp.local_kv_heads()],
+            "d_ff_per_rank": c.d_ff // TP_RANKS if tp.ffn else c.d_ff,
+            "vocab_per_rank": (c.vocab_size // TP_RANKS if tp.vocab
+                               else c.vocab_size),
+            "frames": c.n_frames,
+            "layer_f32_bytes": [tp_row_bytes(c, gi) for gi in (0, 1)]},
+        bound_bf16=False)
+    check(line["heads_per_rank"] == [4, 4]
+          and line["d_ff_per_rank"] == 1024
+          and line["vocab_per_rank"] == 51865,
+          "serve-audio-tp: not the reference's partition")
+    line["bf16_fan_in"] = tp_fan_in_decode(
+        torch, mesh, rank, check, "serve-audio-tp", full, TP_SERVE["gen"],
+        "bfloat16")
+    line["f32"] = tp_fan_in_decode(torch, mesh, rank, check,
+                                   "serve-audio-tp", full, TP_SERVE["gen"])
+    line["train_f32"] = tp_f32_train_step(
+        np, torch, mesh, rank, check, "serve-audio-tp",
+        full.replace(dtype="float32"), TP_AUDIO_TRAIN)
+    line["seconds"] = time.perf_counter() - t_phase
+    done("serve-audio-tp", line)
+
+
+def tp_serve_counted(torch, mesh, rank, counters, check, key, cfg, per_rank,
+                     bound_bf16=True):
+    """The counted part of a serve path on the model axis: ``cfg``'s
+    weights at the reference's init (seed 0) on the ranks'
+    weight-streamed, unpacked relay; every counter set to 0 just before
+    and read just after the init, decode_init on ``tp_prompt``'s prompts
+    (with ``tp_stub``'s input), ``TP_SERVE``'s greedy steps and prefill.
+    Rank 0 then runs one process on the same weights: the ranks' weights
+    its slices, decode_init's and prefill's bf16 logits within
+    ``TP_SERVE_BF16`` of its, its K4 bytes a step and tok/s beside.
+    ``per_rank(tp, cfg)`` gives the line's per-rank widths.  Without
+    ``bound_bf16`` the bf16 logits against one process are printed, not
+    bounded, beside one process's own bf16 logits against its f32 ones
+    on the same weights and inputs (what the init's conditioning makes
+    of bf16 rounding alone).  -> the line (prefill against decode_init
+    printed, not bounded)."""
+    import torch.distributed as dist
+    from repro_torch import engine as engines
+    from repro_torch.core.schedule import ExecutionConfig
+    from repro_torch.distributed.data_parallel import tree_checksum
+    dev = torch.device("cuda")
+    B, GEN = TP_SERVE["batch"], TP_SERVE["gen"]
+    sx = ExecutionConfig(weight_stream=True, pack_params=False,
+                         prefetch_depth=1, transport="pallas")
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    def sync_sums(*trees):
+        torch.cuda.synchronize()
+        return [tree_checksum(t) for t in trees]
+
+    prompt, stub = tp_prompt(torch, cfg), tp_stub(torch, cfg)
     eng = engines.create("l2l", cfg, sx, mesh=mesh)
     t0 = time.perf_counter()
     reset_counts(counters.values())
     params = eng.init_params(torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    toks, logits, pl, info = tp_greedy(torch, eng, params, prompt, GEN)
+    toks, logits, pl, info = tp_greedy(torch, eng, params, prompt, GEN,
+                                       stub)
     launches = {n: c.launches for n, c in counters.items()}
     routes = route_counts(counters)
     tp = eng.tp
-    gap = rel(pl, logits[0])
-    line = {"arch": full.name, "depth": cfg.n_layers, "batch": B,
-            "prompt": P, "steps": GEN, "init_s": init_s,
-            "heads_per_rank": (cfg.rwkv_heads // TP_RANKS
-                               if tp.heads_x_dim else cfg.rwkv_heads),
-            "channels_per_rank": (cfg.d_model // TP_RANKS
-                                  if tp.heads_x_dim else cfg.d_model),
-            "d_ff_per_rank": cfg.d_ff // TP_RANKS if tp.ffn else cfg.d_ff,
-            "vocab_per_rank": (cfg.vocab_size // TP_RANKS if tp.vocab
-                               else cfg.vocab_size),
-            "layer_f32_bytes": row_bytes(full.replace(n_layers=1)),
+    line = {"arch": cfg.name, "depth": cfg.n_layers, "batch": B,
+            "prompt": prompt.shape[1], "steps": GEN, "init_s": init_s,
+            **per_rank(tp, cfg),
             "tokens": toks.tolist(), "decode_init_s": info["init_s"],
             "decode_s": info["decode_s"],
             "tok_per_s": B * GEN / info["decode_s"],
             "k4_GB_per_step": info["fetched_bytes"] / GEN / 1e9,
             "k4_launches_per_step": info["fetches"] / GEN,
-            "rel_l2_prefill_vs_decode_init": gap,
+            "rel_l2_prefill_vs_decode_init": rel(pl, logits[0]),
             "model_collectives_last_step": info["collectives"],
             "launches": launches, "routes": routes}
-    check(line["heads_per_rank"] == 16 and line["vocab_per_rank"] == 32768,
-          "serve-ssm-tp: not the reference's partition")
     check(bool(torch.isfinite(pl).all()) and pl.shape == (B, cfg.vocab_size),
-          "serve-ssm-tp: prefill's logits")
-    check(gap <= TP_SERVE_BF16, "serve-ssm-tp: prefill apart from "
-                                "decode_init")
+          f"{key}: prefill's logits")
     if rank == 0:
         one = engines.create("l2l", cfg, sx)
         wparams = one.init_params(torch.Generator(dev).manual_seed(0))
         line["weights_are_slices_of_one_process"] = sync_sums(params)[0] == \
             sync_sums(tp.shard(wparams))[0]
         _, o_logits, o_pl, o_info = tp_greedy(torch, one, wparams, prompt,
-                                              GEN)
+                                              GEN, stub)
         line["one_process_k4_GB_per_step"] = \
             o_info["fetched_bytes"] / GEN / 1e9
         line["one_process_tok_per_s"] = B * GEN / o_info["decode_s"]
         line["bf16_rel_l2_to_one_process"] = {
             "decode_init": rel(logits[0], o_logits[0]),
             "prefill": rel(pl, o_pl)}
+        if not bound_bf16:
+            one = engines.create("l2l", cfg.replace(dtype="float32"), sx)
+            _, f_logits, f_pl, _ = tp_greedy(
+                torch, one, wparams, prompt, 0,
+                {k: v.float() for k, v in stub.items()})
+            line["one_process_bf16_rel_l2_to_f32"] = {
+                "decode_init": rel(o_logits[0], f_logits[0]),
+                "prefill": rel(o_pl, f_pl)}
         del one, wparams
         check(line["weights_are_slices_of_one_process"],
-              "serve-ssm-tp: the weights are not the one-process slices")
-        check(max(line["bf16_rel_l2_to_one_process"].values())
-              <= TP_SERVE_BF16, "serve-ssm-tp: bf16 apart from one process")
+              f"{key}: the weights are not the one-process slices")
+        check(not bound_bf16 or max(line["bf16_rel_l2_to_one_process"]
+                                    .values()) <= TP_SERVE_BF16,
+              f"{key}: bf16 apart from one process")
     del params, eng, tp
     free_host(torch)
     dist.barrier()
-    line["f32"] = f32_decode("serve-ssm-tp", cfg, GEN)
+    return line
 
-    # one f32 train step at depth 1 on the relay: the decay's and
-    # ln_scale's gradients cross the ranks through copy_in
+
+def tp_f32_train_step(np, torch, mesh, rank, check, key, c32, T):
+    """One l2l-p step of the f32 config ``c32`` at fan-in scales
+    (``drawn_state``) on ``T``'s batch (with its modality stubs), the
+    ranks on the weight-streamed, sharded relay, against one process with
+    its weights on the card on the whole batch: the loss within
+    ``DP_LOSS_REL`` and each leaf's update within ``DP_UPDATE_REL``.
+    -> rank 0's line (None on the others)."""
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch import engine as engines
+    from repro_torch.core.schedule import ExecutionConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
+                                            add_modality_stubs)
+    from repro_torch.optim import adam, make_schedule
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
-    T = TP_SSM_TRAIN
-    c32 = full.replace(n_layers=T["depth"], dtype="float32")
     opt = lambda: adam(schedule=make_schedule(1e-4, warmup=10))
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
-        DataConfig(vocab_size=c32.vocab_size, seq_len=T["seq"],
-                   global_batch=T["batch"], seed=0)).batch(0).items()}
+    raw = SyntheticLM(DataConfig(vocab_size=c32.vocab_size, seq_len=T["seq"],
+                                 global_batch=T["batch"], seed=0)).batch(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in add_modality_stubs(
+        raw, c32, np.random.default_rng(0)).items()}
     eng = engines.create("l2l-p", c32, ExecutionConfig(
         n_microbatches=T["ub"], weight_stream=True, pack_params=False,
         prefetch_depth=1, transport="pallas", offload_stash=True),
@@ -4733,31 +5012,39 @@ def tp_rank_recurrent(np, torch, mesh, rank, counters, check, done):
     del st, eng
     free_host(torch)
     dist.barrier()
+    out = None
     if rank == 0:
         one = engines.create("l2l-p", c32, ExecutionConfig(
             n_microbatches=T["ub"]), optimizer=opt())
         ref = drawn_state(torch, one)
         p0 = tree_leaves(bridge.params_to_numpy(ref.params))
         ref, m = one.train_step(ref, batch)
-        upd = f32_rel(np, tree_leaves, got,
-                      bridge.params_to_numpy(ref.params), p0)
+        want = bridge.params_to_numpy(ref.params)
+        zero = exact_zero_leaves(c32)
+        upd = f32_rel(np, tree_leaves, got, want, p0, zero)
         loss_rel = abs(loss - float(m["loss"])) / abs(float(m["loss"]))
-        line["train_f32"] = {
-            **T, "init": "fan-in scales (repro_torch.testing."
-                         "fan_in_params), one draw",
-            "ranks": "weight-streamed, sharded relay", "loss": loss,
-            "one_process_loss": float(m["loss"]), "loss_rel": loss_rel,
-            "update_rel_l2_max": upd,
-            "bounds": {"loss_rel": DP_LOSS_REL,
-                       "update_rel_l2": DP_UPDATE_REL},
-            "seconds": time.perf_counter() - t0}
+        out = {**T, "depth": [c32.n_encoder_layers, c32.n_layers]
+               if c32.n_encoder_layers else c32.n_layers,
+               "init": "fan-in scales (repro_torch.testing."
+                       "fan_in_params), one draw",
+               "ranks": "weight-streamed, sharded relay", "loss": loss,
+               "one_process_loss": float(m["loss"]), "loss_rel": loss_rel,
+               "update_rel_l2_max": upd,
+               "bounds": {"loss_rel": DP_LOSS_REL,
+                          "update_rel_l2": DP_UPDATE_REL},
+               "seconds": time.perf_counter() - t0}
+        if zero:
+            # printed, not bounded (``exact_zero_leaves``)
+            out["exact_zero_grad_leaves"] = len(zero)
+            out["exact_zero_grad_update_rel_l2_max"] = max(
+                f32_rel(np, tree_leaves, got, want, p0,
+                        set(range(len(p0))) - {i}) for i in zero)
         del ref, one
         check(loss_rel <= DP_LOSS_REL and upd <= DP_UPDATE_REL,
-              "serve-ssm-tp: the f32 train step apart from one process")
+              f"{key}: the f32 train step apart from one process")
     del got
     free_host(torch)
-    line["seconds"] = time.perf_counter() - t_phase
-    done("serve-ssm-tp", line)
+    return out
 
 
 def tp_rank_dp_f32(np, torch, mesh_dp, rank, check, done):
@@ -4958,11 +5245,13 @@ def backward_device_ms(torch, F, dev, fa, rows, gqa):
             r["library_ms"] = out["sdpa_backward_device_ms"]
             r["profiled_ms"] = out[r["name"] + "_device_ms"]
     # hymba's microbatch (GQA 25 over 5; its 2048 window covers S = 512,
-    # so SDPA's causal mask is the same mask) and internvl2's (GQA 14 over
-    # 2, S = 768)
+    # so SDPA's causal mask is the same mask), internvl2's (GQA 14 over
+    # 2, S = 768) and both model ranks' shapes (bert-large's 8 heads,
+    # internvl2's 7 over 1)
     for cell, key in (("hymba train microbatch", "hymba"),
                       ("internvl2 train microbatch", "internvl2"),
-                      (TP_K3_CELL, "bert_large_per_model_rank")):
+                      (TP_K3_CELL, "bert_large_per_model_rank"),
+                      (TP_VLM_K3_CELL, "internvl2_per_model_rank")):
         cr = [r for r in k3 if r.get("cell") == cell]
         B, S, H, D = cr[0]["shape"]
         assert cr[0]["window"] == 0 or cr[0]["window"] >= S
@@ -5411,6 +5700,17 @@ def main(argv=None):
                      n_kv_heads=full.n_kv_heads // TP_RANKS),
         (TP_SERVE["batch"], TP_SERVE["prompt"]), None,
         ("granite-3-8b prompts per model rank",))
+    # internvl2 on a model rank (train-vlm-tp): 7 of its 14 q heads over 1
+    # of its 2 kv heads (GQA 7 over a single kv head), K2 at the serve-vlm
+    # prefill, K3a and K3b at the train-vlm microbatch
+    rows += gqa_attention_rows(
+        torch, F, dev, g, fa, kops, ref,
+        vlm_cfg.replace(n_heads=vlm_cfg.n_heads // TP_RANKS,
+                        n_kv_heads=vlm_cfg.n_kv_heads // TP_RANKS),
+        (2, VLM_PREFILL + vlm_cfg.n_patches),
+        (VLM_TRAIN["batch"] // VLM_TRAIN["ub"],
+         VLM_TRAIN["seq"] + vlm_cfg.n_patches),
+        ("internvl2 prefill per model rank", TP_VLM_K3_CELL))
     rows += f32_attention_rows(torch, F, dev, g, fa)
     # K4 at the modality families' rows: an internvl2 layer (59.6 MB f32)
     # and whisper's encoder and decoder layers (12.6 / 16.8 MB), each
@@ -5418,15 +5718,21 @@ def main(argv=None):
     rows += modality_k4_rows(torch, dev, g, rc, ref, get_config,
                              LayeredModel, tree_leaves, is_spec)
     # K4 at one model rank's layer rows: bert-large's, granite-3-8b's,
-    # hymba-1.5b's, rwkv6-1.6b's and deepseek-v2-lite's MoE layer (32 of
-    # its 64 experts)
+    # hymba-1.5b's, rwkv6-1.6b's, deepseek-v2-lite's MoE layer (32 of
+    # its 64 experts), internvl2's and whisper's encoder and decoder
+    # layers
     rows += k4_rows(torch, dev, g, rc, ref, [
         (f"{c.name} layer per model rank", tp_layer_bytes(
             c, TP_RANKS, LayeredModel, tree_leaves, is_spec))
         for c in (bert_full, full, get_config("hymba-1.5b", "full"),
                   get_config("rwkv6-1.6b", "full"))] + [
         ("deepseek-v2-lite-16b MoE layer per model rank", tp_layer_bytes(
-            moe_cfg, TP_RANKS, LayeredModel, tree_leaves, is_spec, 1))])
+            moe_cfg, TP_RANKS, LayeredModel, tree_leaves, is_spec, 1))] + [
+        (f"{c.name} {gr.name + ' ' if gr.name != 'layers' else ''}"
+         "layer per model rank", tp_layer_bytes(
+            c, TP_RANKS, LayeredModel, tree_leaves, is_spec, gi))
+        for c in (vlm_cfg, get_config(AUDIO_ARCH, "full"))
+        for gi, gr in enumerate(LayeredModel(c).groups)])
     torch.cuda.empty_cache()
     report["kernels"] = {"phase": "kernels", "rows": rows}
     emit(report["kernels"])
@@ -5982,7 +6288,7 @@ def main(argv=None):
               **rec_routes, **mod_routes, "serve-grok": grok_routes,
               **tier_routes, **tp_routes}
     emit({"launches": launches, "routes": routes})
-    assert len(launches) == 28, sorted(launches)
+    assert len(launches) == 30, sorted(launches)
     for path in [p for p in launches if p != "serve"]:
         got, by = launches[path], routes[path]
         # every bf16 K2, K3a and K3b launch of the path took the wgmma route
@@ -6044,7 +6350,10 @@ def main(argv=None):
                     "serve-moe-tp": ("relay_copy", "rmsnorm"),
                     # hymba on the mesh: its attention whole on each rank
                     "train-hybrid-tp": train_kernels[:-1] + ("rmsnorm",),
-                    "serve-ssm-tp": ("relay_copy",)}
+                    "serve-ssm-tp": ("relay_copy",),
+                    # internvl2 on the mesh: GQA 7 over 1 kv head a rank
+                    "train-vlm-tp": train_kernels[:-1] + ("rmsnorm",),
+                    "serve-audio-tp": ("relay_copy",)}
     for path, names in path_kernels.items():
         assert all(launches[path].get(n, 0) > 0 for n in names), \
             (path, launches[path])
@@ -6061,7 +6370,7 @@ def main(argv=None):
     # layernorm with use_pallas=False (its 1500 frames do not tile by the
     # flash kernel's block)
     for path in ("serve-rwkv6", "train-rwkv6", "serve-ssm-tp",
-                 "serve-audio", "train-audio"):
+                 "serve-audio", "train-audio", "serve-audio-tp"):
         assert all(launches[path][n] == 0 for n in (
             "flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv", "rmsnorm")), (path, launches[path])

@@ -28,7 +28,7 @@ from repro_torch.core import packing
 from repro_torch.core.eps import EPSPlacements, make_placements
 from repro_torch.core.relay import Stream, depth_window, relay_scan
 from repro_torch.core.schedule import ExecutionConfig
-from repro_torch.models.attention import _proj
+from repro_torch.models.attention import cross_kv
 from repro_torch.models.common import apply_norm, is_spec
 
 
@@ -130,7 +130,9 @@ def encode_cross_kv(model, params, frames, caches,
     their group's rows as every other pass does (K4 from pinned host
     memory; packed rows are unpacked on the device), so the one-shot pass
     fetches each encoder and decoder layer once, plus the prefetch ring's
-    clamped re-fetch per group.  Returns ``caches``."""
+    clamped re-fetch per group.  On the model axis each rank runs the
+    encoder on its heads and writes the kv heads its cache holds.
+    Returns ``caches``."""
     exec_cfg = exec_cfg or ExecutionConfig()
     if placements is None:
         placements = make_placements(exec_cfg, len(model.groups), device)
@@ -158,11 +160,7 @@ def encode_cross_kv(model, params, frames, caches,
     mem = apply_norm(static["embed"]["enc_ln_post"], x, cfg.norm_eps)
 
     def kv_body(_, slots, cache_l):
-        xa = weights(slots)["xattn"]
-        k, v = _proj(mem, xa["wk"]), _proj(mem, xa["wv"])
-        if "bk" in xa:
-            k = k + xa["bk"].to(mem.dtype)
-            v = v + xa["bv"].to(mem.dtype)
+        k, v = cross_kv(weights(slots)["xattn"], mem, model.tp)
         cache_l["xk"].copy_(k)
         cache_l["xv"].copy_(v)
         return None, None

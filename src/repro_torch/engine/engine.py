@@ -64,21 +64,23 @@ batch's on every rank; their metrics count the all-reduces and bytes.
 ``init`` and ``restore`` check by checksum that every rank holds the same
 state.
 
-A "model" axis over 1 runs the dense, MoE, hybrid and SSM families
-tensor parallel (``distributed.tensor_parallel``): each rank holds and
-relays its blocks of the heads (MLA's too), ffn columns, experts (or,
-where the experts do not divide, their columns), mamba's channels,
-RWKV's heads and (where it divides) vocabulary, the model's own autograd
-sums over the model group, the norms and finite flags agree over it,
-``prefill`` and the decode calls return the whole logits, and the decode
-caches hold the rank's kv heads (MLA's latent whole), mamba channels and
-RWKV heads.  ``init`` draws every leaf whole and keeps the rank's block;
-``init`` and ``restore`` also check that the leaves no pspec splits
-agree over the model group; ``save`` gathers and rank 0 writes the
-meshless snapshot; ``restore`` slices.  With ``pack_params`` the packed
-rows stay whole on every model rank (the reference's placements) and
-only the embedding and head split.  Metrics count the model group's
-collectives.
+A "model" axis over 1 runs every family tensor parallel
+(``distributed.tensor_parallel``): each rank holds and relays its blocks
+of the heads (MLA's, whisper's encoder, decoder and cross-attention
+heads too), ffn columns, experts (or, where the experts do not divide,
+their columns), mamba's channels, RWKV's heads and (where it divides)
+vocabulary, the model's own autograd sums over the model group, the
+norms and finite flags agree over it, ``prefill`` and the decode calls
+return the whole logits, and the decode caches hold the rank's kv heads
+(MLA's latent whole; whisper's cross-attention K/V too), mamba channels
+and RWKV heads.  internvl2's patch projection and whisper's
+``enc_ln_post`` stay whole on every rank.  ``init`` draws every leaf
+whole and keeps the rank's block; ``init`` and ``restore`` also check
+that the leaves no pspec splits agree over the model group; ``save``
+gathers and rank 0 writes the meshless snapshot; ``restore`` slices.
+With ``pack_params`` the packed rows stay whole on every model rank
+(the reference's placements) and only the embedding and head split.
+Metrics count the model group's collectives.
 
 A MoE config on more than one data rank forms the router's statistics
 and its capacity dispatch over the data group (``models.moe``): each
@@ -86,8 +88,7 @@ call's rows are the rank's block of the reference's call, each
 microbatch of ``train_step``, ``grads`` and ``prefill`` included
 (``local_rows(batch, entry)`` cuts a global batch so for each entry
 point), and ``train_step``'s metrics count the MoE's own collectives
-apart.  The VLM and audio families on a model axis, and
-``serve_session`` on a mesh of more than one rank, raise
+apart.  ``serve_session`` on a mesh of more than one rank raises
 NotImplementedError.
 """
 from __future__ import annotations
@@ -132,19 +133,6 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _check_mesh(cfg, mesh):
-    """The mesh axes this port runs: the data axes ("pod", "data") for
-    every family, and the model axis for the dense, MoE, hybrid and SSM
-    families."""
-    m = shd.model_size(mesh)
-    if m > 1 and cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family}) on a 'model' axis of {m}: "
-            "the model axis runs the dense, MoE, hybrid and SSM families; "
-            "the VLM and audio families on it (the patch projection, "
-            "cross-attention and the encoder) are not ported yet")
-
-
 class Engine:
     """Lifecycle facade over a schedule's relay functions."""
     name = "base"
@@ -166,7 +154,6 @@ class Engine:
         self.dp = None
         self.tp = None
         if mesh is not None:
-            _check_mesh(model.cfg, mesh)
             if rules is None:
                 self.rules = shd.make_rules(model.cfg, mesh, kind="train")
             self.dp = DataParallel(mesh)

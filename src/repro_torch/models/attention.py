@@ -242,21 +242,38 @@ def self_attention(w, x, cfg, positions, *, causal: bool = True,
     return out_project(w, o, tp)
 
 
-def cross_attention(w, x, mem, cfg, positions, mem_positions):
+def cross_kv(w, mem, tp=None):
+    """The cross-attention K/V of ``mem`` (B,Sm,d) on the kv heads this
+    rank computes with (all without a split): the input of the training
+    path and of ``core.decode.encode_cross_kv``'s cache rows alike."""
+    dt = mem.dtype
+    wk, wv, bk, bv = _kv_leaves(w, tp)
+    k, v = _proj(mem, wk), _proj(mem, wv)
+    if bk is not None:
+        k = k + bk.to(dt)
+        v = v + bv.to(dt)
+    return k, v
+
+
+def cross_attention(w, x, mem, cfg, positions, mem_positions, tp=None):
     """x (B,S,d) attends to ``mem`` (B,Sm,d), whisper's decoder to the
     encoder's output: the plain ``attend``, unmasked, as the reference's
-    (no kernel on either device)."""
+    (no kernel on either device).  With the heads split over the model
+    axis (``tp.heads``) on this rank's q and kv heads, summed over the
+    group, then ``bo`` once.  ``x`` and ``mem`` both pass ``copy_in``:
+    without the second a rank's memory cotangent would hold only its own
+    heads' share, and every encoder gradient after it would be wrong."""
     dt = x.dtype
+    if _heads_split(tp):
+        x, mem = tp.copy_in(x), tp.copy_in(mem)
     q = _proj(x, w["wq"])
-    k, v = _proj(mem, w["wk"]), _proj(mem, w["wv"])
     if "bq" in w:
         q = q + w["bq"].to(dt)
-    if "bk" in w:
-        k = k + w["bk"].to(dt)
-        v = v + w["bv"].to(dt)
-    o = attend(q, expand_kv(k, cfg.n_q_per_kv), expand_kv(v, cfg.n_q_per_kv),
-               positions, mem_positions, causal=False, chunk=0)
-    return out_project(w, o)
+    k, v = cross_kv(w, mem, tp)
+    g = q.shape[2] // k.shape[2]
+    o = attend(q, expand_kv(k, g), expand_kv(v, g), positions, mem_positions,
+               causal=False, chunk=0)
+    return out_project(w, o, tp)
 
 
 # ---------------------------------------------------------------------------

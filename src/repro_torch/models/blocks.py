@@ -232,11 +232,12 @@ def whisper_enc_spec(cfg) -> dict:
             "ln2": norm_spec(cfg), "mlp": mlp_spec(cfg)}
 
 
-def whisper_enc_apply(w, x, mem, ctx: Ctx, cfg):
+def whisper_enc_apply(w, x, mem, ctx: Ctx, cfg, tp=None):
+    """``tp``: the model axis, its split heads and ffn columns, or None."""
     h = _norm(w["ln1"], x, cfg)
     x = x + attn.self_attention(w["attn"], h, cfg, ctx.positions,
-                                causal=False, rope=False)
-    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+                                causal=False, rope=False, tp=tp)
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg, tp)
     return x, 0.0
 
 
@@ -246,27 +247,30 @@ def whisper_dec_spec(cfg) -> dict:
             "ln2": norm_spec(cfg), "mlp": mlp_spec(cfg)}
 
 
-def whisper_dec_apply(w, x, mem, ctx: Ctx, cfg):
+def whisper_dec_apply(w, x, mem, ctx: Ctx, cfg, tp=None):
+    """``tp``: as in ``whisper_enc_apply``; the cross-attention takes the
+    rank's heads of the whole (replicated) ``mem``."""
     h = _norm(w["ln1"], x, cfg)
     x = x + attn.self_attention(w["attn"], h, cfg, ctx.positions,
-                                causal=True, rope=False)
+                                causal=True, rope=False, tp=tp)
     h = _norm(w["ln_x"], x, cfg)
     x = x + attn.cross_attention(w["xattn"], h, mem, cfg, ctx.positions,
-                                 ctx.mem_positions)
-    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+                                 ctx.mem_positions, tp)
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg, tp)
     return x, 0.0
 
 
-def whisper_dec_decode(w, x, cache, mem, ctx: Ctx, cfg):
+def whisper_dec_decode(w, x, cache, mem, ctx: Ctx, cfg, tp=None):
     """Self-attention against the ring cache (written in place);
     cross-attention against the encoder's K/V, projected once before the
     first step (``core.decode.encode_cross_kv``) into the cache's ``xk`` /
-    ``xv``."""
+    ``xv``.  ``tp``: the rank's q heads against the kv heads its cache
+    holds, summed over the group."""
     dt = x.dtype
     h = _norm(w["ln1"], x, cfg)
     a, _ = attn.decode_self_attention(w["attn"], h, cache["kv"], cfg,
                                       ctx.cur_pos, window=ctx.window,
-                                      rope=False)
+                                      rope=False, tp=tp)
     x = x + a
     h = _norm(w["ln_x"], x, cfg)
     q = attn._proj(h, w["xattn"]["wq"])
@@ -275,18 +279,22 @@ def whisper_dec_decode(w, x, cache, mem, ctx: Ctx, cfg):
     B, Sm = x.shape[0], cache["xk"].shape[1]
     pos = attn.decode_positions(x, ctx.cur_pos)
     mpos = torch.arange(Sm, dtype=torch.int32, device=x.device).expand(B, Sm)
-    o = attn.attend(q, attn.expand_kv(cache["xk"].to(dt), cfg.n_q_per_kv),
-                    attn.expand_kv(cache["xv"].to(dt), cfg.n_q_per_kv),
+    g = q.shape[2] // cache["xk"].shape[2]
+    o = attn.attend(q, attn.expand_kv(cache["xk"].to(dt), g),
+                    attn.expand_kv(cache["xv"].to(dt), g),
                     pos, mpos, causal=False, chunk=0)
-    x = x + attn.out_project(w["xattn"], o)
-    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg)
+    x = x + attn.out_project(w["xattn"], o, tp)
+    x = x + mlp_apply(w["mlp"], _norm(w["ln2"], x, cfg), cfg, tp)
     return x, cache
 
 
-def whisper_dec_cache_spec(cfg, batch, live):
-    KV, Dh = cfg.n_kv_heads, cfg.d_head
+def whisper_dec_cache_spec(cfg, batch, live, tp=None):
+    """The self-attention ring and the cross-attention K/V, each on the kv
+    heads this rank computes with (``tp.local_kv_heads()``)."""
+    KV = cfg.n_kv_heads if tp is None else tp.local_kv_heads()
+    Dh = cfg.d_head
     return {
-        "kv": attn.kv_cache_spec(cfg, batch, live),
+        "kv": attn.kv_cache_spec(cfg, batch, live, tp),
         "xk": ParamSpec((batch, cfg.n_frames, KV, Dh),
                         ("batch", "seq", "kv", "head_dim"), "zeros"),
         "xv": ParamSpec((batch, cfg.n_frames, KV, Dh),

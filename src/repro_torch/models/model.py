@@ -66,8 +66,8 @@ def stack_layers(layers):
 class LayeredModel:
     """``tp`` (a ``distributed.tensor_parallel.TensorParallel``): one rank
     of the mesh's model axis, whose blocks of the split leaves this
-    model's functions compute with (the dense, MoE, hybrid and SSM
-    families); ``dp``
+    model's functions compute with (every family; internvl2's patch
+    projection and whisper's ``enc_ln_post`` stay whole); ``dp``
     (a ``distributed.data_parallel.DataParallel`` of more than one rank):
     the data axes the MoE layers' router statistics and dispatch range
     over.  The specs stay the whole model's."""
@@ -80,11 +80,6 @@ class LayeredModel:
 
     @staticmethod
     def _build_groups(cfg, tp=None, dp=None) -> Tuple[Group, ...]:
-        if tp is not None and cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"the model axis runs the dense, MoE, hybrid and SSM "
-                f"families, not {cfg.family}")
-
         def G(name, n, spec, apply_fn, decode_fn, cache_fn, axes=None,
               **kw):
             """``axes``: the mesh groups the family's functions take."""
@@ -126,10 +121,10 @@ class LayeredModel:
             enc = G("encoder", cfg.n_encoder_layers,
                     blocks.whisper_enc_spec(cfg), blocks.whisper_enc_apply,
                     blocks.whisper_dec_decode, blocks.whisper_dec_cache_spec,
-                    is_encoder=True)
+                    {"tp": tp}, is_encoder=True)
             dec = G("decoder", cfg.n_layers, blocks.whisper_dec_spec(cfg),
                     blocks.whisper_dec_apply, blocks.whisper_dec_decode,
-                    blocks.whisper_dec_cache_spec, has_mem=True)
+                    blocks.whisper_dec_cache_spec, {"tp": tp}, has_mem=True)
             return (enc, dec)
         raise ValueError(f"unknown family {cfg.family}")
 
@@ -221,7 +216,7 @@ class LayeredModel:
             return x_prev
         toks = batch["tokens"]
         B, S = toks.shape
-        x = embed_tokens(static["embed"], toks, cfg, self.dtype())
+        x = embed_tokens(static["embed"], toks, cfg, self.dtype(), self.tp)
         return x + sinusoidal(_arange(S, B, toks.device), cfg.d_model,
                               self.dtype())
 

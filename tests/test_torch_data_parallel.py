@@ -4,7 +4,8 @@ on its rows of a global batch, held to the JAX reference run on one device
 over the whole batch; the ranks bit for bit equal to each other; a world of
 one bit for bit the meshless engine on every entry point; the relay knobs
 bit for bit inside the two-rank mesh; MoE on two data ranks and on a
-model axis accepted, the hybrid family on a model axis refused.
+model axis and the VLM family on a model axis accepted, ``serve_session``
+on two data ranks refused.
 
 bert-large (layernorm, MHA with biases) and granite-3-8b (RMSNorm, GQA)
 at smoke size, f32, parameters drawn with numpy at fan-in scales
@@ -278,13 +279,11 @@ def test_a_mesh_needs_a_world_of_its_size(runs):
 def test_moe_on_data_ranks_and_a_model_axis_are_refused(runs):
     """deepseek-v2-lite on data=2 (the router's statistics and the
     dispatch over the data group) and on model=2 (expert parallelism) is
-    no longer refused (tests/test_torch_moe_parallel.py); NotImplementedError
-    for internvl2-1b on model=2 (the VLM family on the model axis is not
-    ported yet; the hybrid family runs there, in
-    tests/test_torch_recurrent_parallel.py) and for ``serve_session`` on
-    data=2."""
+    no longer refused (tests/test_torch_moe_parallel.py), nor is
+    internvl2-1b on model=2 (tests/test_torch_modality_parallel.py);
+    NotImplementedError for ``serve_session`` on data=2."""
     for out in runs["ranks"]:
-        assert [int(x) for x in _get(out, "refused")] == [0, 0, 1, 1]
+        assert [int(x) for x in _get(out, "refused")] == [0, 0, 0, 1]
 
 
 

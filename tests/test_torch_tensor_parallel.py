@@ -7,7 +7,8 @@ for bit equal across the ranks; the relay knobs bit for bit inside the
 mesh; pack on (the layers whole on every rank) within the bounds of pack
 off; four ranks on ``(data=2, model=2)`` within the bounds of two; a
 snapshot at M = 2 byte for byte the meshless one; the hybrid, SSM, VLM
-and audio families and ``serve_session`` on the model axis refused.
+and audio families built on the model axis, ``serve_session`` on it
+refused.
 
 bert-large (layernorm, MHA with biases, vocab 512: vocab-parallel),
 granite-3-8b (RMSNorm, GQA kv 2 -> 1 a rank, tied vocab-parallel
@@ -410,16 +411,15 @@ def test_shard_leaf_cuts_each_ranks_contiguous_block():
 
 def test_moe_other_families_and_serve_session_are_refused(runs):
     """On (data=1, model=2) hymba-1.5b (hybrid) and rwkv6-1.6b (SSM) build
-    (tests/test_torch_recurrent_parallel.py runs them), as the MoE family
-    does (tests/test_torch_moe_parallel.py); NotImplementedError for what
-    the model axis does not run yet: internvl2-1b (VLM) and whisper-base
-    (audio), each message naming its family, and ``serve_session`` on
-    the mesh."""
+    (tests/test_torch_recurrent_parallel.py runs them), as do
+    internvl2-1b (VLM) and whisper-base (audio)
+    (tests/test_torch_modality_parallel.py) and the MoE family
+    (tests/test_torch_moe_parallel.py); ``serve_session`` on the mesh
+    raises NotImplementedError, its message naming it."""
     for out in runs["ranks"]:
-        assert [int(x) for x in _get(out, "refused")] == [0, 0, 1, 1, 1]
+        assert [int(x) for x in _get(out, "refused")] == [0, 0, 0, 0, 1]
         said = [str(x) for x in _get(out, "refused_messages")]
-        assert "family vlm" in said[0] and "family audio" in said[1], said
-        assert "serve_session" in said[2]
+        assert len(said) == 1 and "serve_session" in said[0], said
 
 
 def test_the_collectives_are_counted(runs):

@@ -10,7 +10,7 @@ on its rows of the batch (``shard_batch``), every entry point of an l2l-p
 engine on a ``data=2`` mesh: two train steps, grads, prefill,
 decode_init and two decode steps; then the knob points, each one train
 step; then the mesh checks of the Engine (MoE on two data ranks and on
-a model axis of 2 accepted, the VLM family on a model axis of 2 and
+a model axis of 2 and the VLM family on a model axis of 2 accepted,
 ``serve_session`` on two data ranks refused).
 With WORLD 1 it runs the same entry points on a ``data=1`` mesh and
 without a mesh.  Results go to ``OUT.npz`` as flat arrays.
@@ -133,7 +133,9 @@ def run_dp(inp, put, world):
             p, o, _, _ = bridge.train_state_to_numpy(new)
             put(f"{arch}/knob{j}", [float(m["loss"])] + flat(p) + flat(o))
     refused = []
-    # MoE runs on both axes (tests/test_torch_moe_parallel.py): 0, 0, 1
+    # MoE runs on both axes (tests/test_torch_moe_parallel.py), the VLM
+    # family on the model axis (tests/test_torch_modality_parallel.py):
+    # 0, 0, 0
     for arch, shape in (("deepseek-v2-lite-16b", {"data": world,
                                                   "model": 1}),
                         ("deepseek-v2-lite-16b", {"data": 1,

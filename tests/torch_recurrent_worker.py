@@ -136,8 +136,9 @@ def entry_points(eng, case, inp, put, tag, serve=True, steps=2):
         eng.model.cfg, caches)])
 
 
-def knobs(case, inp, put, mesh):
-    """The knob points inside the mesh, one train step each."""
+def knobs(case, inp, put, mesh, cfg_of=cfg_of, params_of=params_of):
+    """The knob points inside the mesh, one train step each (``cfg_of`` /
+    ``params_of``: a worker's own cases)."""
     cfg, pnp, batch = cfg_of(case), params_of(inp, case), batch_of(inp, case)
     for j, kw in enumerate(KNOBS):
         e = engines.create("l2l-p", cfg, ExecutionConfig(**{**BASE, **kw}),
@@ -147,7 +148,8 @@ def knobs(case, inp, put, mesh):
         put(f"{case}/knob{j}", [float(m["loss"])] + flat(p) + flat(o))
 
 
-def pack_and_snapshot(case, inp, put, mesh, tmp):
+def pack_and_snapshot(case, inp, put, mesh, tmp, cfg_of=cfg_of,
+                      params_of=params_of):
     """Pack on (the layers whole on both ranks), one step; then a snapshot
     at M = 2 after one step beside the meshless one of the gathered
     state."""

@@ -14,9 +14,8 @@ l2l-p train steps (unpacked: the sharded relay), grads, prefill,
 decode_init and two decode steps, then two baseline steps and grads; for
 bert-large the knob points (one step each), pack on, the Engine's own
 init, a snapshot beside the meshless one, save / restore / two steps
-against four steps, and the refusals (the VLM and audio families on the
-model axis, ``serve_session`` on a mesh; the hybrid and SSM families
-build).  With WORLD 4 it runs one bert-large train step and grads on a
+against four steps, and the refusal (``serve_session`` on a mesh; the
+hybrid, SSM, VLM and audio families build).  With WORLD 4 it runs one bert-large train step and grads on a
 ``(data=2, model=2)`` mesh.  Whole trees are gathered over the model
 group before they are written: results go to ``OUT.npz`` as flat arrays.
 
@@ -190,9 +189,9 @@ def bert_only(inp, put, mesh, tmp):
 
 
 def refusals(inp, put, mesh):
-    """Each family on the model axis (the hybrid and SSM families build;
-    the VLM and audio families do not yet) and ``serve_session`` on a
-    mesh: 1 where NotImplementedError is raised, its message beside."""
+    """Each family on the model axis (the hybrid, SSM, VLM and audio
+    families build) and ``serve_session`` on a mesh: 1 where
+    NotImplementedError is raised, its message beside."""
     refused, said = [], []
     for arch in ("hymba-1.5b", "rwkv6-1.6b", "internvl2-1b", "whisper-base"):
         try:
